@@ -1,0 +1,203 @@
+"""Federated learning runtime (paper Algorithm 1 + §IV simulation).
+
+FedAvg over the simulated NOMA cell, per round t:
+    1. PS broadcasts theta^t (downlink timing model, no compression).
+    2. The precomputed schedule assigns K devices to round t (the MWIS
+       schedule over the whole horizon, planned before training).
+    3. Each scheduled device runs local SGD on its own non-iid shard.
+    4. The SIC uplink rate of each device over the shared slot sets its bit
+       budget c_k = R_k * B * t; its delta is DoReFa-quantized to
+       b_k = floor(32 / r_k) bits (paper §II-B).
+    5. PS aggregates: theta^{t+1} = theta^t + sum_k w_k * dq(delta_k),
+       w_k = |D_k| / sum_selected |D_k|.
+  Timing: NOMA round = t_slot + T_d (§IV); an empty round costs T_d only.
+
+The port of ``repro.core.fl``'s per-round loop with the batched engine:
+the host control plane (channels, schedule, MAPEL powers, rates, budgets,
+timing) is float64 numpy, steps 3-5 run on the device in
+:class:`repro_torch.core.fl_engine.BatchedRoundEngine`.  The reference
+draws channels and initial weights with ``jax.random``; pass ``channels=``
+and ``init_params=`` to run on given draws (the parity tests inject the
+reference's), or leave them out to draw with the port's own generators.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional
+
+import numpy as np
+
+from repro_torch.config import FLConfig
+from repro_torch.convert import params_from_jax
+from repro_torch.core import channel as chan
+from repro_torch.core import errors, fl_engine, scheduling
+from repro_torch.core import ota as ota_lib
+from repro_torch.device import resolve_device
+from repro_torch.models.fl_models import get_fl_model
+
+
+@dataclasses.dataclass
+class RoundLog:
+    round: int
+    devices: tuple
+    rates: np.ndarray            # spectral efficiency per scheduled device
+    bits: np.ndarray             # quantization bit-widths used
+    compression_ratios: np.ndarray
+    test_accuracy: float
+    wall_time_s: float           # cumulative simulated communication time
+
+
+@dataclasses.dataclass
+class FLResult:
+    logs: list
+    final_params: dict           # nested dict of tensors on the run's device
+    scheme: str
+
+    def accuracies(self):
+        return np.array([l.test_accuracy for l in self.logs])
+
+    def times(self):
+        return np.array([l.wall_time_s for l in self.logs])
+
+
+# --------------------------------------------------------------------------
+# Scheduling front-end
+# --------------------------------------------------------------------------
+
+def policy_config(cell: chan.CellConfig, cfg: FLConfig) -> scheduling.PolicyConfig:
+    """PolicyConfig from the FL settings + the cell physics."""
+    return scheduling.PolicyConfig(
+        group_size=cfg.group_size,
+        power_mode=cfg.power_mode,
+        pmax=cell.max_power_w,
+        noise_power=cell.noise_power_w,
+        backend=cfg.scheduler_backend,
+        seed=cfg.seed,
+    )
+
+
+def make_schedule(
+    gains_tm: np.ndarray,
+    weights_m: np.ndarray,
+    cell: chan.CellConfig,
+    cfg: FLConfig,
+    policy=None,
+) -> scheduling.Schedule:
+    """One-shot schedule via the policy registry."""
+    if policy is None:
+        policy = scheduling.get_policy(cfg.scheduler)
+    return scheduling.build_schedule(
+        policy, gains_tm, weights_m, policy_config(cell, cfg)
+    )
+
+
+def _round_physics(devs, rates, cell, dl_time):
+    """Uplink rates, bit budgets and wall time of one scheduled NOMA round
+    (every scheduled device shares one uplink slot, which is spent only
+    when someone transmits).  Returns ``(rates, budgets, round_time)``;
+    ``rates`` / ``budgets`` are (len(devs),) float64."""
+    rates = np.asarray(rates)
+    budgets = rates * cell.bandwidth_hz * cell.slot_seconds
+    uplink_time = cell.slot_seconds if devs else 0.0
+    return rates, budgets, uplink_time + dl_time
+
+
+def _agg_weights(sizes, devs) -> np.ndarray:
+    """FedAvg weights w_k = |D_k| / sum_selected |D_k| (host float64)."""
+    raw_w = [sizes[d] for d in devs]
+    return np.asarray(raw_w) / max(sum(raw_w), 1.0)
+
+
+def _param_count(params) -> int:
+    return sum(int(leaf.numel()) for layer in params.values()
+               for leaf in layer.values())
+
+
+# --------------------------------------------------------------------------
+# Main simulation
+# --------------------------------------------------------------------------
+
+def run_federated_learning(
+    dataset,
+    shards: list,
+    cell: chan.CellConfig,
+    cfg: FLConfig,
+    *,
+    uplink: Optional[str] = None,
+    schedule: Optional[scheduling.Schedule] = None,
+    eval_every: int = 1,
+    progress: Optional[Callable[[RoundLog], None]] = None,
+    channels: Optional[chan.ChannelBundle] = None,
+    init_params=None,
+    device=None,
+) -> FLResult:
+    """Simulate the full FL process; returns per-round logs.
+
+    dataset: ``repro_torch.data.Dataset``; shards: per-device index lists.
+    ``uplink`` defaults to ``cfg.uplink`` (this slice runs ``"noma"``).
+    ``channels`` (a :class:`~repro_torch.core.channel.ChannelBundle`) and
+    ``init_params`` (a nested dict of array-likes, e.g. the reference's
+    initial weights as numpy) replace the port's own draws.  ``device``
+    defaults to ``cuda`` and raises when CUDA is absent; pass ``"cpu"`` to
+    run on the CPU.
+    """
+    dev = resolve_device(device)
+    uplink = cfg.uplink if uplink is None else uplink
+    ota_lib.check_uplink(
+        uplink, compression=cfg.compression, topk=cfg.topk,
+        power_mode=cfg.power_mode,
+    )
+    if uplink != "noma":
+        raise NotImplementedError(errors.ERR_NOT_PORTED.format(
+            feature=f"uplink={uplink!r}", item=6 if uplink == "ota" else 2,
+        ))
+    model = get_fl_model(cfg.model)
+    if init_params is None:
+        params = model.init(cfg.seed, device=dev)
+    else:
+        params = params_from_jax(init_params, device=dev)
+    payload = _param_count(params) * 32  # I: full-precision payload bits
+
+    sizes = np.array([len(s) for s in shards], dtype=np.float64)
+    weights = sizes / sizes.sum()
+
+    engine = fl_engine.BatchedRoundEngine(
+        dataset, shards, cfg, payload, device=dev, model=model
+    )
+
+    if channels is None:
+        channels = chan.sample_channels(cfg.seed, cell, cfg.num_rounds)
+    gains = np.asarray(channels.gains)
+
+    if schedule is None:
+        schedule = make_schedule(gains, weights, cell, cfg)
+    else:
+        schedule.validate(cell.num_devices, cfg.group_size)
+
+    # Downlink broadcast time on the large-scale gain only (the paper's
+    # Fig. 5 time scale implies a fading-free downlink)
+    dl_time = float(chan.downlink_time_seconds(payload, channels.dl_gains, cell))
+
+    logs = []
+    t_wall = 0.0
+    for t in range(cfg.num_rounds):
+        devs = schedule.rounds[t]
+        rates, budgets, round_time = _round_physics(
+            devs, schedule.rates[t], cell, dl_time
+        )
+        agg_w = _agg_weights(sizes, devs)
+        params, bits_used, ratios = engine.run_round(
+            params, devs, budgets, agg_w
+        )
+        t_wall += round_time
+        # the final round is always evaluated
+        do_eval = t % eval_every == 0 or t == cfg.num_rounds - 1
+        acc = engine.evaluate(params, t) if do_eval else logs[-1].test_accuracy
+        log = RoundLog(t, tuple(devs), np.asarray(rates), np.asarray(bits_used),
+                       np.asarray(ratios), acc, t_wall)
+        logs.append(log)
+        if progress:
+            progress(log)
+
+    scheme = f"{uplink}/{cfg.scheduler}/{cfg.power_mode}/{cfg.compression}"
+    return FLResult(logs, params, scheme)

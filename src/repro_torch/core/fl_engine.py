@@ -1,0 +1,281 @@
+"""Batched FL round engine on the device (Algorithm 1, steps 3-5).
+
+The port of ``repro.core.fl_engine``'s per-round batched engine
+(``FLConfig.fl_engine = "batched"``).  All M shards live on the device in a
+:class:`repro_torch.data.ClientBank`, and one round is:
+
+  1. **gather** — the round's K shards are a K-row gather of the bank.
+  2. **local SGD** — :func:`sgd_epoch` trains all K clients at once: every
+     parameter carries a leading client axis (written out where the
+     reference uses ``vmap``), and one backward pass over the sum of the K
+     per-client losses gives each client its own gradient.
+  3. **adaptive quantization** — per-client bit-widths from the (K,) budget
+     vector in float32 (``quantization.adaptive_bits``) and per-client
+     DoReFa codes (``quantization.quantize_codes_batched``).
+  4. **aggregation** — with ``use_pallas`` (the reference's name for the
+     fused kernel path) every parameter leaf goes through the hand-written
+     aggregation kernel (:func:`repro_torch.kernels.aggregate.weighted_aggregate`);
+     otherwise through the einsum the reference computes in XLA.
+
+Scheduling, power allocation, budgets, timing and logging stay in the
+:mod:`repro_torch.core.fl` runtime on the host.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core import quantization as qlib
+from repro_torch.data.client_bank import ClientBank, EvalBank, eval_sample_plan
+from repro_torch.kernels.aggregate import weighted_aggregate
+from repro_torch.models.fl_models import get_fl_model
+
+ENGINES = ("legacy", "batched")
+# the reference's round-body engines; this slice ports "batched"
+
+HORIZON_MODES = ("per-round", "scan")
+# the reference's horizon modes; this slice ports "per-round"
+
+
+def _leaves(params):
+    """(layer, leaf) keys of a nested parameter dict, in sorted order."""
+    return [(a, b) for a in sorted(params) for b in sorted(params[a])]
+
+
+def _map(fn, *trees):
+    """Apply ``fn`` leafwise over nested parameter dicts of one structure."""
+    return {
+        a: {b: fn(*(t[a][b] for t in trees)) for b in trees[0][a]}
+        for a in trees[0]
+    }
+
+
+# --------------------------------------------------------------------------
+# Local SGD over the client axis
+# --------------------------------------------------------------------------
+
+def sgd_epoch(params, x, y, lr, *, model):
+    """One pass of minibatch SGD for K clients at once.
+
+    params: leaves with a leading client axis (K, ...); x: (K, nb, bs, D);
+    y: (K, nb, bs) with -1 marking padding.  ``valid = (y >= 0)`` as
+    float32 is the loss mask, so an all-padding batch contributes an
+    exactly-zero gradient and leaves that client's parameters untouched.
+    Each step is ``w - lr * grad``, the reference's update.
+    """
+    valid = (y >= 0).to(torch.float32)
+    p = params
+    for b in range(x.shape[1]):
+        leaves = _leaves(p)
+        req = {
+            a: {c: p[a][c].detach().requires_grad_(True) for c in p[a]}
+            for a in p
+        }
+        with torch.enable_grad():
+            loss = model.batch_loss(req, x[:, b], y[:, b], valid[:, b]).sum()
+            grads = torch.autograd.grad(
+                loss, [req[a][c] for a, c in leaves]
+            )
+        g = {}
+        for (a, c), gw in zip(leaves, grads):
+            g.setdefault(a, {})[c] = gw
+        with torch.no_grad():
+            p = _map(lambda w, gw: w - lr * gw, req, g)
+    return p
+
+
+# --------------------------------------------------------------------------
+# Aggregation
+# --------------------------------------------------------------------------
+
+def _pallas_aggregate_leaf(leaf, bits_k, agg_w, *, compress, paper_exact):
+    """Fused dequant + weighted sum of one client-stacked leaf (kernel path).
+
+    Quantizes the raw deltas to per-client float32-held codes and lets the
+    aggregation kernel apply scale_k * w_k / a_k during the reduction.  A
+    client with b >= 32 passes through at full precision: its kernel weight
+    is zeroed and its raw delta joins through a separate weighted sum.
+    With ``compress=False`` the identity codes (scale = a = 1) reduce to the
+    plain weighted sum.
+    """
+    k = leaf.shape[0]
+    flat = leaf.reshape(k, -1).to(torch.float32)
+    ones = torch.ones(k, dtype=torch.float32, device=leaf.device)
+    if compress:
+        codes, scales, a = qlib.quantize_codes_batched(
+            flat, bits_k, scales=ones if paper_exact else None,
+        )
+        full = (bits_k >= 32).to(torch.float32)
+        out = weighted_aggregate(codes, scales, agg_w * (1.0 - full), levels=a)
+        out = out + torch.einsum("k,kn->n", agg_w * full, flat)
+    else:
+        out = weighted_aggregate(flat, ones, agg_w, levels=ones)
+    return out.reshape(leaf.shape[1:])
+
+
+def _einsum_aggregate_leaf(leaf, bits_k, agg_w, *, compress, paper_exact):
+    """The same aggregate through einsums (``use_pallas=False``): the
+    dequant scale s_k / a_k folds into the reduction coefficients, and
+    b >= 32 clients join through a second einsum over the raw deltas."""
+    k = leaf.shape[0]
+    flat = leaf.reshape(k, -1).to(torch.float32)
+    if not compress:
+        return torch.einsum("k,kn->n", agg_w, flat).reshape(leaf.shape[1:])
+    a = qlib.dorefa_levels(bits_k)
+    full = (bits_k >= 32).to(torch.float32)
+    w_full = agg_w * full
+    w_q = agg_w * (1.0 - full) / a
+    codes, scales, _ = qlib.quantize_codes_batched(
+        flat, bits_k,
+        scales=(
+            torch.ones(k, dtype=torch.float32, device=leaf.device)
+            if paper_exact else None
+        ),
+    )
+    out = torch.einsum("k,kn->n", w_full, flat) + torch.einsum(
+        "k,kn->n", w_q * scales, codes
+    )
+    return out.reshape(leaf.shape[1:])
+
+
+def _train_quantize_aggregate(
+    params, x, y, budgets, agg_w,
+    *, lr, epochs, payload, compress, paper_exact, use_pallas, model,
+):
+    """The round body on gathered client rows: batched local SGD ->
+    per-client quantization -> weighted aggregation.
+
+    x: (K, nb, BS, ...); y: (K, nb, BS); budgets: (K,) float32 bit budgets;
+    agg_w: (K,) float32 FedAvg weights.  Returns ``(new_params, bits)``
+    with bits (K,) int32.
+    """
+    k = x.shape[0]
+    start = _map(lambda w: w.unsqueeze(0).expand(k, *w.shape), params)
+    new = start
+    for _ in range(epochs):
+        new = sgd_epoch(new, x, y, lr, model=model)
+    deltas = _map(lambda a, b: a - b, new, start)
+
+    if compress:
+        bits = qlib.adaptive_bits(payload, budgets)
+    else:
+        bits = torch.full((k,), 32, dtype=torch.int32, device=x.device)
+    agg = _pallas_aggregate_leaf if use_pallas else _einsum_aggregate_leaf
+    with torch.no_grad():
+        update = _map(
+            lambda leaf: agg(
+                leaf, bits, agg_w, compress=compress, paper_exact=paper_exact
+            ),
+            deltas,
+        )
+        new_params = _map(lambda p, u: p + u, params, update)
+    return new_params, bits
+
+
+def _round_step(
+    params, xb, yb, dev_idx, budgets, agg_w,
+    *, nb, lr, epochs, payload, compress, paper_exact, use_pallas, model,
+):
+    """gather -> round body.  ``nb`` slices the bank's batch grid down to
+    the scheduled group's own max batch count; batches past a client's own
+    count are all padding and contribute exactly-zero gradients."""
+    x = xb[dev_idx, :nb]                 # (K, nb, BS, ...)
+    y = yb[dev_idx, :nb]                 # (K, nb, BS, ...)
+    return _train_quantize_aggregate(
+        params, x, y, budgets, agg_w,
+        lr=lr, epochs=epochs, payload=payload, compress=compress,
+        paper_exact=paper_exact, use_pallas=use_pallas, model=model,
+    )
+
+
+# --------------------------------------------------------------------------
+# Engine front-end (what the fl runtime calls)
+# --------------------------------------------------------------------------
+
+def _eval_full(params, xe, ye, *, model):
+    with torch.no_grad():
+        return model.accuracy(params, xe, ye)
+
+
+def _eval_sampled(params, xe, ye, idx, *, model):
+    """Client-sampled test accuracy: gather the round's eval rows, forward
+    once."""
+    with torch.no_grad():
+        return model.accuracy(params, xe[idx], ye[idx])
+
+
+class BatchedRoundEngine:
+    """Round-body engine: builds the banks once, then one round at a time."""
+
+    def __init__(self, dataset, shards, cfg, payload_bits: int, *, device,
+                 model=None):
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self.payload = int(payload_bits)
+        self.model = model if model is not None else get_fl_model(cfg.model)
+        self.bank = ClientBank.build(
+            dataset.x_train, dataset.y_train, shards, cfg.batch_size,
+            device=self.device,
+        )
+        self.eval_bank = EvalBank.build(
+            dataset.x_test, dataset.y_test, device=self.device
+        )
+        self._eval_idx = eval_sample_plan(
+            self.eval_bank.num_samples, cfg.eval_sample, cfg.num_rounds,
+            cfg.seed,
+        )
+
+    def evaluate(self, params, t: int) -> float:
+        """Test accuracy after round t (sampled per ``FLConfig.eval_sample``)."""
+        if self._eval_idx is None:
+            acc = _eval_full(
+                params, self.eval_bank.xe, self.eval_bank.ye, model=self.model
+            )
+        else:
+            idx = torch.from_numpy(self._eval_idx[t]).to(
+                self.device, torch.int64
+            )
+            acc = _eval_sampled(
+                params, self.eval_bank.xe, self.eval_bank.ye, idx,
+                model=self.model,
+            )
+        return float(acc)
+
+    def run_round(self, params, devs, budgets, agg_w):
+        """Run one round's local training + upload + aggregation.
+
+        devs: scheduled device ids; budgets: per-device uplink bit budgets
+        (float64, host); agg_w: FedAvg weights |D_k| / sum |D_k| (float64,
+        host).  Returns ``(params, bits, ratios)`` with bits (K,) int32 and
+        ratios (K,) float64 numpy arrays for the round log.
+        """
+        k = len(devs)
+        if k == 0:    # empty T*K > M tail round: nothing to train or send
+            return params, np.zeros(0, np.int32), np.zeros(0)
+        cfg = self.cfg
+        compress = cfg.compression == "adaptive"
+        nb = self.bank.n_batches_for(devs)
+        # budgets and weights enter the round in float32, as the
+        # reference's jitted round step receives them
+        budgets32 = torch.as_tensor(np.asarray(budgets, np.float64)).to(
+            torch.float32
+        )
+        agg32 = torch.as_tensor(np.asarray(agg_w, np.float64)).to(
+            torch.float32
+        )
+        params, bits = _round_step(
+            params, self.bank.xb, self.bank.yb,
+            torch.as_tensor(list(devs), dtype=torch.int64, device=self.device),
+            budgets32.to(self.device), agg32.to(self.device),
+            nb=nb, lr=float(cfg.learning_rate), epochs=int(cfg.local_epochs),
+            payload=self.payload, compress=compress,
+            paper_exact=bool(cfg.paper_exact_range),
+            use_pallas=bool(cfg.use_pallas), model=self.model,
+        )
+        if compress:
+            # the reference's host call computes in float32 too
+            ratios = qlib.compression_ratio(self.payload, budgets32)
+            ratios = ratios.numpy().astype(np.float64)
+        else:
+            ratios = np.ones(k)
+        return params, bits.cpu().numpy(), ratios

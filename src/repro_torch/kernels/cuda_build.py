@@ -1,0 +1,76 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Each ``csrc/<name>.cu`` has a plain C interface.  At first use it is
+compiled with ``nvcc`` for Hopper (``sm_90a``) into a shared library under
+the checkout's ``build/`` directory and loaded with ``ctypes``.  The library
+name carries a digest of the source, so an edited kernel is rebuilt and a
+stale one is never loaded.  Nothing here runs at import time: the CPU
+tests import every module on a host with no ``nvcc``.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+from repro_torch.core import errors
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+
+def find_nvcc() -> "str | None":
+    """nvcc on PATH, else under CUDA_HOME, else the default toolkit path."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and os.path.isfile(os.path.join(root, "bin", "nvcc")):
+            return os.path.join(root, "bin", "nvcc")
+    return None
+
+
+def library_path(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}_{digest}.so"
+
+
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` unless its library is already built."""
+    out = library_path(name)
+    if out.is_file():
+        return out
+    nvcc = find_nvcc()
+    if nvcc is None:
+        raise RuntimeError(errors.ERR_KERNEL_BUILD.format(
+            name=name, reason="nvcc not found (PATH, CUDA_HOME, /usr/local/cuda)"
+        ))
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(errors.ERR_KERNEL_BUILD.format(
+                name=name, reason=proc.stderr.strip() or proc.stdout.strip()
+            ))
+        os.replace(tmp, out)    # atomic: a reader never sees half a library
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return out
+
+
+def load(name: str) -> ctypes.CDLL:
+    """Build (if needed) and load the library of ``csrc/<name>.cu``."""
+    return ctypes.CDLL(str(build(name)))

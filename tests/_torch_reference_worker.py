@@ -1,0 +1,179 @@
+"""Reference side of the PyTorch-port parity tests, run as a subprocess.
+
+    python tests/_torch_reference_worker.py <task> <spec.json> <in.npz> <out.npz>
+
+The JAX package cannot import ``repro.models`` (and hence ``repro.core.fl``)
+under JAX 0.9.0: ``models/layers.py`` asks ``x not in
+batching.primitive_batchers``, which the 0.9.0 proxy object no longer
+supports, and ``jax.experimental.enable_x64`` is gone.  This script applies
+a compatibility shim for both faults *in its own process only* and then runs
+one reference task, exchanging arrays through ``.npz`` files.  The shim is
+never applied inside the pytest process: there it would turn the reference's
+own failing tests green without any fix to the package.
+
+Tasks (``TASKS`` below) take the JSON ``spec`` and the input arrays and
+return a dict of numpy arrays.
+"""
+from __future__ import annotations
+
+import contextlib
+import json
+import sys
+
+
+def apply_shim() -> None:
+    """Patch the two JAX 0.9.0 API removals the reference package trips on."""
+    import jax
+    import jax.experimental
+    from jax._src.interpreters import batching
+
+    proxy = type(batching.primitive_batchers)
+
+    def _contains(self, prim):
+        return prim in batching.fancy_primitive_batchers
+
+    proxy.__contains__ = _contains
+
+    @contextlib.contextmanager
+    def enable_x64(new_val: bool = True):
+        old = jax.config.jax_enable_x64
+        jax.config.update("jax_enable_x64", new_val)
+        try:
+            yield
+        finally:
+            jax.config.update("jax_enable_x64", old)
+
+    jax.experimental.enable_x64 = enable_x64
+
+
+LEAVES = ("fc1/b", "fc1/w", "fc2/b", "fc2/w", "fc3/b", "fc3/w")
+
+
+def _params_from_arrays(arrays, prefix):
+    import jax.numpy as jnp
+
+    params = {}
+    for name in LEAVES:
+        layer, leaf = name.split("/")
+        params.setdefault(layer, {})[leaf] = jnp.asarray(arrays[prefix + name])
+    return params
+
+
+def _params_to_arrays(params, prefix):
+    import numpy as np
+
+    return {
+        prefix + name: np.asarray(params[name.split("/")[0]][name.split("/")[1]])
+        for name in LEAVES
+    }
+
+
+def task_lenet_grad(spec, arrays):
+    """LenetFLModel.batch_loss and its gradient on one minibatch."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from repro.models.fl_models import LenetFLModel
+
+    model = LenetFLModel()
+    params = _params_from_arrays(arrays, "p/")
+    bx = jnp.asarray(arrays["bx"])
+    by = jnp.asarray(arrays["by"])
+    valid = (by >= 0).astype(jnp.float32)
+    loss, grads = jax.value_and_grad(model.batch_loss)(params, bx, by, valid)
+    out = _params_to_arrays(grads, "g/")
+    out["loss"] = np.asarray(loss)
+    out["acc"] = np.asarray(model.accuracy(params, bx, jnp.maximum(by, 0)))
+    return out
+
+
+def task_sgd_epoch(spec, arrays):
+    """fl_engine.sgd_epoch over one client's (nb, bs, D) padded shard."""
+    import jax.numpy as jnp
+
+    from repro.core import fl_engine
+    from repro.models.fl_models import LenetFLModel
+
+    params = _params_from_arrays(arrays, "p/")
+    new = fl_engine.sgd_epoch(
+        params, jnp.asarray(arrays["x"]), jnp.asarray(arrays["y"]),
+        float(spec["lr"]), model=LenetFLModel(),
+    )
+    return _params_to_arrays(new, "p/")
+
+
+def task_init_params(spec, arrays):
+    """LenetFLModel.init(PRNGKey(seed)) — the reference's initial weights."""
+    import jax
+
+    from repro.models.fl_models import LenetFLModel
+
+    params = LenetFLModel().init(jax.random.PRNGKey(int(spec["seed"])))
+    return _params_to_arrays(params, "p/")
+
+
+def task_fl_run(spec, arrays):
+    """run_federated_learning on the paper's world, plus every random draw
+    the port needs injected (distances, gains, large-scale gains, initial
+    weights) so both packages simulate the same system."""
+    import jax
+    import numpy as np
+
+    from repro.config import FLConfig
+    from repro.core import channel, fl
+    from repro.data import dirichlet_partition, make_mnist_like
+    from repro.models.fl_models import LenetFLModel
+
+    m = int(spec["num_devices"])
+    ds = make_mnist_like(num_samples=int(spec["num_samples"]), seed=0)
+    cell = channel.CellConfig(num_devices=m)
+    shards = dirichlet_partition(ds.y_train, m, seed=0)
+    cfg = FLConfig(**spec["cfg"])
+    res = fl.run_federated_learning(ds, shards, cell, cfg)
+
+    key = jax.random.PRNGKey(cfg.seed)
+    dist = channel.sample_positions(jax.random.fold_in(key, 1), cell)
+    gains = channel.sample_round_channels(
+        jax.random.fold_in(key, 2), dist, cell, cfg.num_rounds
+    )
+    out = _params_to_arrays(LenetFLModel().init(key), "init/")
+    out.update(_params_to_arrays(res.final_params, "final/"))
+    out["distances"] = np.asarray(dist)
+    out["gains"] = np.asarray(gains)
+    out["dl_gains"] = np.asarray(channel.large_scale_gain(dist, cell))
+    out["acc"] = res.accuracies()
+    out["times"] = res.times()
+    for log in res.logs:
+        t = log.round
+        out[f"devices/{t}"] = np.asarray(log.devices, np.int64)
+        out[f"bits/{t}"] = np.asarray(log.bits)
+        out[f"rates/{t}"] = np.asarray(log.rates)
+        out[f"ratios/{t}"] = np.asarray(log.compression_ratios)
+    return out
+
+
+TASKS = {
+    "lenet_grad": task_lenet_grad,
+    "sgd_epoch": task_sgd_epoch,
+    "init_params": task_init_params,
+    "fl_run": task_fl_run,
+}
+
+
+def main(argv) -> int:
+    import numpy as np
+
+    task, spec_path, in_path, out_path = argv[1:5]
+    apply_shim()
+    with open(spec_path, encoding="utf-8") as fh:
+        spec = json.load(fh)
+    with np.load(in_path) as data:
+        arrays = {k: data[k] for k in data.files}
+    out = TASKS[task](spec, arrays)
+    np.savez(out_path, **out)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv))

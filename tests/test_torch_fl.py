@@ -1,0 +1,306 @@
+"""The port's model, local SGD and whole FL slice against the JAX package.
+
+The reference side runs in the shimmed subprocess of test_torch_harness.
+Both packages compute from identical weights (carried by
+``convert.params_from_jax``) and, for whole runs, identical channel draws
+(the reference's, injected through ``channels=``).  The port runs on the
+CPU, so aggregation goes through the kernel's plain version; the reference
+runs ``fl_engine="batched", use_pallas=True`` (its Pallas kernel in
+interpret mode).
+
+Tolerances: the run contract is tests/test_fl_engine.py:_assert_equal_runs
+(schedules, bits, rates, ratios and times exact; accuracy atol 0.02; mean
+parameter drift < 1e-6, max < 2e-2).  Single losses and gradients are
+float32 sums taken in another order by XLA and by PyTorch: rtol 1e-5 on the
+loss, and gradients and one SGD epoch within rtol 1e-4 / atol 1e-6.
+"""
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from test_torch_harness import (  # noqa: E402
+    ACC_ATOL, LEAVES, REPO, assert_param_drift, flat, run_reference, tree,
+)
+
+from repro_torch import convert  # noqa: E402
+from repro_torch.config import FLConfig  # noqa: E402
+from repro_torch.core import channel, fl, fl_engine  # noqa: E402
+from repro_torch.data import dirichlet_partition, make_mnist_like  # noqa: E402
+from repro_torch.models import lenet  # noqa: E402
+from repro_torch.models.fl_models import LenetFLModel  # noqa: E402
+
+GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-6
+
+
+def _numpy_params(seed):
+    rng = np.random.default_rng(seed)
+    out = {}
+    for name, fan_in, fan_out in lenet.LAYERS:
+        out[f"p/{name}/w"] = (rng.standard_normal((fan_in, fan_out))
+                              / np.sqrt(fan_in)).astype(np.float32)
+        out[f"p/{name}/b"] = (rng.standard_normal(fan_out) * 0.1).astype(np.float32)
+    return out
+
+
+def _batch(seed, b=10, pad=3):
+    ds = make_mnist_like(num_samples=200, seed=seed)
+    bx = ds.x_train[:b].copy()
+    by = ds.y_train[:b].astype(np.int32).copy()
+    by[b - pad:] = -1                  # padding rows: label -1
+    bx[b - pad:] = 0.0
+    return bx, by
+
+
+def test_lenet_loss_and_grad_match_reference(tmp_path):
+    arrays = _numpy_params(0)
+    bx, by = _batch(0)
+    arrays.update(bx=bx, by=by)
+    want = run_reference(tmp_path, "lenet_grad", {}, arrays)
+
+    model = LenetFLModel()
+    params = convert.params_from_jax(tree(arrays, "p/"))
+    req = {a: {c: v.clone().requires_grad_(True) for c, v in d.items()}
+           for a, d in params.items()}
+    # one client: add the client axis the engine trains over
+    batched = {a: {c: v.unsqueeze(0) for c, v in d.items()}
+               for a, d in req.items()}
+    by_t = torch.from_numpy(by)[None]
+    loss = model.batch_loss(batched, torch.from_numpy(bx)[None], by_t,
+                            (by_t >= 0).to(torch.float32))[0]
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), want["loss"], rtol=1e-5)
+    grads = {f"g/{a}/{c}": req[a][c].grad.numpy()
+             for a in req for c in req[a]}
+    for name in LEAVES:
+        np.testing.assert_allclose(grads["g/" + name], want["g/" + name],
+                                   rtol=GRAD_RTOL, atol=GRAD_ATOL)
+    acc = model.accuracy(params, torch.from_numpy(bx),
+                         torch.from_numpy(np.maximum(by, 0)))
+    assert acc.item() == pytest.approx(float(want["acc"]), abs=1e-6)
+
+
+def test_lenet_module_matches_functional_forward():
+    params = convert.params_from_jax(tree(_numpy_params(1), "p/"))
+    net = lenet.LeNet(params)
+    x = torch.from_numpy(make_mnist_like(num_samples=100, seed=2).x_test)
+    torch.testing.assert_close(net(x), lenet.forward(params, x), rtol=0, atol=0)
+    assert sum(p.numel() for p in net.parameters()) == lenet.NUM_PARAMS == 266_610
+    back = convert.params_to_jax(net.params())
+    for name in LEAVES:
+        a, c = name.split("/")
+        np.testing.assert_array_equal(back[a][c], params[a][c].numpy())
+
+
+def test_sgd_epoch_matches_reference(tmp_path):
+    """One client's padded shard: 4 batches, the last all padding."""
+    arrays = _numpy_params(3)
+    ds = make_mnist_like(num_samples=400, seed=4)
+    x = np.zeros((4, 10, 784), np.float32)
+    y = np.full((4, 10), -1, np.int32)
+    x[:3].reshape(30, 784)[:27] = ds.x_train[:27]
+    y[:3].reshape(30)[:27] = ds.y_train[:27]
+    arrays.update(x=x, y=y)
+    want = run_reference(tmp_path, "sgd_epoch", {"lr": 0.05}, arrays)
+
+    params = convert.params_from_jax(tree(arrays, "p/"))
+    batched = {a: {c: v.unsqueeze(0) for c, v in d.items()}
+               for a, d in params.items()}
+    new = fl_engine.sgd_epoch(batched, torch.from_numpy(x)[None],
+                              torch.from_numpy(y)[None], 0.05,
+                              model=LenetFLModel())
+    got = {f"p/{a}/{c}": new[a][c][0].numpy() for a in new for c in new[a]}
+    for name in LEAVES:
+        np.testing.assert_allclose(got["p/" + name], want["p/" + name],
+                                   rtol=GRAD_RTOL, atol=GRAD_ATOL)
+
+
+def test_all_padding_batches_leave_params_exactly_unchanged():
+    params = convert.params_from_jax(tree(_numpy_params(5), "p/"))
+    batched = {a: {c: v.unsqueeze(0).repeat(2, *([1] * v.dim()))
+                   for c, v in d.items()} for a, d in params.items()}
+    x = torch.rand(2, 3, 10, 784)
+    y = torch.full((2, 3, 10), -1, dtype=torch.int32)
+    y[0, :, :] = 1                      # client 0 trains, client 1 is padding
+    new = fl_engine.sgd_epoch(batched, x, y, 0.1, model=LenetFLModel())
+    for a in new:
+        for c in new[a]:
+            assert torch.equal(new[a][c][1], batched[a][c][1])
+            assert not torch.equal(new[a][c][0], batched[a][c][0])
+
+
+def _assert_equal_runs(got, want, num_rounds):
+    """tests/test_fl_engine.py:_assert_equal_runs against the reference's
+    exported logs."""
+    for t in range(num_rounds):
+        log = got.logs[t]
+        assert log.devices == tuple(int(d) for d in want[f"devices/{t}"])
+        np.testing.assert_array_equal(log.bits, want[f"bits/{t}"])
+        np.testing.assert_array_equal(log.rates, want[f"rates/{t}"])
+        np.testing.assert_array_equal(log.compression_ratios,
+                                      want[f"ratios/{t}"])
+    np.testing.assert_array_equal(got.times(), want["times"])
+    np.testing.assert_allclose(got.accuracies(), want["acc"], atol=ACC_ATOL)
+    assert_param_drift(flat(got.final_params, ""), {
+        name: want["final/" + name] for name in LEAVES
+    })
+
+
+@pytest.mark.parametrize("world", [
+    # the tests/test_fl_engine.py worlds: M=12 lazy-gwmin under both power
+    # modes, and the T*K > M round-robin horizon that ends in an empty round
+    dict(m=12, samples=800, k=3, t=3, scheduler="lazy-gwmin", power="max"),
+    dict(m=12, samples=800, k=3, t=3, scheduler="lazy-gwmin", power="mapel"),
+    dict(m=4, samples=400, k=2, t=3, scheduler="round-robin", power="max"),
+], ids=["lazy-max", "lazy-mapel", "round-robin-tail"])
+def test_slice_matches_reference_run(tmp_path, world):
+    cfg_args = dict(
+        num_devices=world["m"], group_size=world["k"],
+        num_rounds=world["t"], scheduler=world["scheduler"],
+        power_mode=world["power"], fl_engine="batched", use_pallas=True,
+        seed=0,
+    )
+    want = run_reference(tmp_path, "fl_run", {
+        "num_devices": world["m"], "num_samples": world["samples"],
+        "cfg": cfg_args,
+    })
+    ds = make_mnist_like(num_samples=world["samples"], seed=0)
+    cell = channel.CellConfig(num_devices=world["m"])
+    shards = dirichlet_partition(ds.y_train, world["m"], seed=0)
+    bundle = channel.ChannelBundle(
+        want["distances"], want["gains"], want["dl_gains"]
+    )
+    got = fl.run_federated_learning(
+        ds, shards, cell, FLConfig(**cfg_args), channels=bundle,
+        init_params=tree(want, "init/"), device="cpu",
+    )
+    _assert_equal_runs(got, want, world["t"])
+    if world["scheduler"] == "round-robin":
+        assert got.logs[-1].devices == () and got.logs[-1].bits.size == 0
+
+
+def test_kernel_path_matches_einsum_path():
+    """``use_pallas`` only changes the reduction (the same codes either
+    way): the reference's test_pallas_aggregation_matches_xla contract."""
+    ds = make_mnist_like(num_samples=400, seed=0)
+    cell = channel.CellConfig(num_devices=4)
+    shards = dirichlet_partition(ds.y_train, 4, seed=0)
+    runs = []
+    for use_pallas in (False, True):
+        cfg = FLConfig(num_devices=4, group_size=2, num_rounds=3,
+                       scheduler="round-robin", power_mode="max",
+                       fl_engine="batched", use_pallas=use_pallas)
+        runs.append(fl.run_federated_learning(ds, shards, cell, cfg,
+                                              device="cpu"))
+    a, b = runs
+    assert [l.devices for l in a.logs] == [l.devices for l in b.logs]
+    for la, lb in zip(a.logs, b.logs):
+        np.testing.assert_array_equal(la.bits, lb.bits)
+    np.testing.assert_array_equal(a.times(), b.times())
+    np.testing.assert_allclose(a.accuracies(), b.accuracies(), atol=ACC_ATOL)
+    assert_param_drift(flat(a.final_params, ""), flat(b.final_params, ""),
+                       max_atol=1e-4)
+
+
+# --------------------------------------------------------------------------
+# The port's rules
+# --------------------------------------------------------------------------
+
+_IMPORT_ALL = """
+import importlib, json, pkgutil, sys
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "repro"
+             or m.startswith("repro."))
+print(json.dumps({"modules": names, "bad": bad}))
+"""
+
+
+def test_port_imports_neither_jax_nor_reference():
+    """Importing every repro_torch module, in a fresh process, pulls in no
+    jax and nothing of the repro package."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    proc = subprocess.run(
+        [sys.executable, "-c", _IMPORT_ALL], capture_output=True, text=True,
+        env=env, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert "repro_torch.core.fl" in out["modules"]
+    assert "repro_torch.kernels.aggregate" in out["modules"]
+    assert out["bad"] == []
+
+
+def test_entry_points_default_to_cuda(monkeypatch):
+    """With no CUDA the entry points raise unless given device='cpu'."""
+    from repro_torch.device import resolve_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="pass device='cpu'"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        resolve_device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError, match="unsupported device type"):
+        resolve_device("meta")
+    ds = make_mnist_like(num_samples=100, seed=0)
+    cell = channel.CellConfig(num_devices=4)
+    shards = dirichlet_partition(ds.y_train, 4, seed=0)
+    cfg = FLConfig(num_devices=4, group_size=2, num_rounds=1,
+                   fl_engine="batched")
+    with pytest.raises(RuntimeError, match="pass device='cpu'"):
+        fl.run_federated_learning(ds, shards, cell, cfg)
+    # an uplink override at the call site is checked like the config's
+    with pytest.raises(NotImplementedError, match="queue 1 item 2 brings"):
+        fl.run_federated_learning(ds, shards, cell, cfg, uplink="tdma",
+                                  device="cpu")
+    with pytest.raises(ValueError, match="unknown uplink"):
+        fl.run_federated_learning(ds, shards, cell, cfg, uplink="x",
+                                  device="cpu")
+
+
+@pytest.mark.parametrize("kwargs,item", [
+    (dict(), 1),                                        # default engine: legacy
+    (dict(fl_engine="batched", scheduler="random"), 1),
+    (dict(fl_engine="batched", uplink="tdma"), 2),
+    (dict(fl_engine="batched", scheduler_backend="jax"), 3),
+    (dict(fl_engine="batched", horizon="scan"), 4),
+    (dict(fl_engine="batched", scheduler="update-aware"), 5),
+    (dict(fl_engine="batched", uplink="ota", compression="none",
+          power_mode="max"), 6),
+    (dict(fl_engine="batched", topk=0.5), 7),
+    (dict(fl_engine="batched", client_bank="bucketed"), 7),
+    (dict(fl_engine="batched", model="tiny-transformer"), 7),
+    (dict(fl_engine="batched", model="qwen2_0_5b"), 8),
+])
+def test_config_names_the_roadmap_item_for_unported_settings(kwargs, item):
+    with pytest.raises(NotImplementedError,
+                       match=f"ROADMAP.md queue 1 item {item} brings it"):
+        FLConfig(**kwargs)
+
+
+@pytest.mark.parametrize("kwargs,match", [
+    (dict(num_rounds=0), "num_rounds must be >= 1"),
+    (dict(group_size=0), "group_size must be in"),
+    (dict(scheduler="nope"), "unknown scheduler"),
+    (dict(power_mode="nope"), "unknown power_mode"),
+    (dict(fl_engine="nope"), "unknown fl_engine"),
+    (dict(eval_sample=0.0), "eval_sample must be in"),
+    (dict(uplink="nope"), "unknown uplink"),
+    (dict(uplink="ota"), "requires compression='none'"),
+    (dict(power_mode="ota-align"), "requires uplink='ota'"),
+    (dict(topk=0.5, compression="none"), "topk < 1 requires"),
+])
+def test_config_keeps_the_reference_validation(kwargs, match):
+    """Incoherent settings fail with the reference's messages before the
+    not-ported check."""
+    with pytest.raises(ValueError, match=match):
+        FLConfig(**{"fl_engine": "batched", **kwargs})

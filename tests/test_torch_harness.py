@@ -1,0 +1,100 @@
+"""Reference runner for the PyTorch-port parity tests (and its own test).
+
+``run_reference`` runs one task of ``tests/_torch_reference_worker.py`` in a
+subprocess: that process applies the JAX 0.9.0 compatibility shim (which
+``repro.models`` and ``repro.core.fl`` need here) and returns numpy arrays
+through an ``.npz`` file in ``tmp_path``.  The shim never touches the pytest
+process.  Other test files import the helpers with
+``from test_torch_harness import ...``.
+"""
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+TESTS_DIR = os.path.dirname(os.path.abspath(__file__))
+REPO = os.path.dirname(TESTS_DIR)
+WORKER = os.path.join(TESTS_DIR, "_torch_reference_worker.py")
+LEAVES = ("fc1/b", "fc1/w", "fc2/b", "fc2/w", "fc3/b", "fc3/w")
+
+# The whole-slice contract of tests/test_fl_engine.py:_assert_equal_runs:
+# schedules, bits, rates, ratios and times exact; accuracy within 0.02;
+# parameter drift below these mean / max bounds.
+ACC_ATOL = 0.02
+PARAM_MEAN_ATOL = 1e-6
+PARAM_MAX_ATOL = 2e-2
+
+
+def run_reference(tmp_path, task, spec=None, arrays=None, *, timeout=600):
+    """Run reference ``task`` in a shimmed subprocess; returns a dict of
+    numpy arrays."""
+    tag = f"{task}_{len(os.listdir(tmp_path))}"
+    spec_path = tmp_path / f"{tag}.json"
+    in_path = tmp_path / f"{tag}_in.npz"
+    out_path = tmp_path / f"{tag}_out.npz"
+    spec_path.write_text(json.dumps(spec or {}))
+    np.savez(in_path, **(arrays or {"_": np.zeros(1)}))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.join(REPO, "src")
+    env["JAX_PLATFORMS"] = "cpu"
+    proc = subprocess.run(
+        [sys.executable, WORKER, task, str(spec_path), str(in_path),
+         str(out_path)],
+        capture_output=True, text=True, env=env, timeout=timeout,
+    )
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    with np.load(out_path) as data:
+        return {k: data[k] for k in data.files}
+
+
+def tree(arrays, prefix):
+    """Flat ``prefix + "fc1/w"`` arrays -> nested ``{"fc1": {"w": ...}}``."""
+    out = {}
+    for name in LEAVES:
+        layer, leaf = name.split("/")
+        out.setdefault(layer, {})[leaf] = arrays[prefix + name]
+    return out
+
+
+def flat(params, prefix):
+    """Nested port parameters (tensors or arrays) -> flat numpy dict."""
+    out = {}
+    for name in LEAVES:
+        layer, leaf = name.split("/")
+        v = params[layer][leaf]
+        if isinstance(v, torch.Tensor):
+            v = v.detach().cpu().numpy()
+        out[prefix + name] = np.asarray(v)
+    return out
+
+
+def assert_param_drift(got, want, *, mean_atol=PARAM_MEAN_ATOL,
+                       max_atol=PARAM_MAX_ATOL):
+    """The reference's distribution check on final parameters: a DoReFa
+    rounding-boundary flip moves one element by a quantization step, a
+    systematic fault moves the mean."""
+    for name in LEAVES:
+        d = np.abs(np.asarray(got[name], np.float64)
+                   - np.asarray(want[name], np.float64))
+        assert d.mean() < mean_atol, f"{name}: mean param drift {d.mean()}"
+        assert d.max() < max_atol, f"{name}: max param drift {d.max()}"
+
+
+def test_reference_runner_returns_reference_init(tmp_path):
+    """The shimmed subprocess imports repro.models (which fails in this
+    process under JAX 0.9.0) and returns LeNet's initial weights: the
+    reference's shapes, zero biases, weights inside 3 fan-in stds."""
+    out = run_reference(tmp_path, "init_params", {"seed": 0})
+    assert set(out) == {"p/" + name for name in LEAVES}
+    for name, (fan_in, fan_out) in {
+        "fc1": (784, 300), "fc2": (300, 100), "fc3": (100, 10),
+    }.items():
+        w, b = out[f"p/{name}/w"], out[f"p/{name}/b"]
+        assert w.shape == (fan_in, fan_out) and w.dtype == np.float32
+        assert np.all(b == 0.0) and b.shape == (fan_out,)
+        assert np.abs(w).max() <= 3.0 / np.sqrt(fan_in) * (1 + 1e-6)
