@@ -9,20 +9,37 @@ package, and exits non-zero on the first failure.  Phases:
 
   1. a CUDA card is present (else exit 2, printing no result);
   2. every kernel of the main path builds from the checkout's sources
-     (``nvcc`` into ``build/``);
+     (one ``nvcc`` per source, all started together, into ``build/``);
   3. each kernel is held against its plain PyTorch version on the card over
-     a sweep of shapes and code types (rtol 1e-5, atol 1e-6, the
-     tolerance of tests/test_kernels.py);
+     a sweep of shapes and types: the aggregation kernel within rtol 1e-5,
+     atol 1e-6 (tests/test_kernels.py), the SIC scorer within relative
+     2e-5 (tests/test_rates.py), K = 9 refused;
   4. each kernel is timed at the main path's shapes beside its plain
-     version, one PyTorch library call computing the same function, and
-     the least time the card could take (its bound);
-  5. the main path — ``repro_torch.core.fl.run_federated_learning`` at
+     version, one PyTorch library call computing the same function where
+     there is one, and the least time the card could take (its bound):
+     host-inclusive time per call, and device time from CUDA events over
+     launches queued behind a sleep kernel;
+  5. the lazy GWMIN scheduler at the paper widths of BENCH_scheduling.json
+     (M=300/T=35 and M=1000/T=50, K=3, pool 64): the numpy backend on the
+     host and the device backends ``jax`` (scorer ``xla`` and ``pallas``)
+     and ``jax-stepwise`` on the card give identical schedules, the fused
+     loop runs under ``torch.cuda.set_sync_debug_mode("error")``, and the
+     SIC kernel launches once per greedy step; torch.profiler splits
+     each device backend's time into device-busy and idle; at the FL main
+     path's shape the fused loop is also issued whole behind a sleep kernel
+     (no step waits for the card); an instance of equal gains shows the
+     first-maximum tie-break on the card;
+  6. the main path — ``repro_torch.core.fl.run_federated_learning`` at
      paper width (M=300 devices, K=3, LeNet-300-100 on 12,000 samples,
      MAPEL, lazy GWMIN, adaptive DoReFa, batched engine with the kernel) —
-     runs on the card; launch counts show it went through the kernels;
-  6. the same run at M=30 on the CPU and on the card agree (schedules, bits,
-     rates, ratios and times exactly; accuracy within 0.02; parameter drift
-     within the bounds of tests/test_fl_engine.py:_assert_equal_runs).
+     runs on the card three times: with the host schedule, with
+     ``scheduler_backend="jax"``, and with a schedule planned on the card by
+     ``get_policy("lazy-gwmin")`` with the SIC kernel as scorer; launch
+     counts show each went through its kernels;
+  7. the same run at M=30 with ``scheduler_backend="jax"`` on the CPU and on
+     the card agree (schedules, bits, rates, ratios and times exactly;
+     accuracy within 0.02; parameter drift within the bounds of
+     tests/test_fl_engine.py:_assert_equal_runs).
 
 The last lines are the card's name and power limit as nvidia-smi reports
 them, one JSON object with every kernel's numbers, and the one-line result
@@ -30,6 +47,8 @@ them, one JSON object with every kernel's numbers, and the one-line result
 """
 from __future__ import annotations
 
+import concurrent.futures
+import dataclasses
 import json
 import math
 import os
@@ -48,6 +67,15 @@ LENET_LEAVES = (235_200, 300, 30_000, 100, 1_000, 10)
 SWEEP_K = (1, 3, 8)
 SWEEP_N = (1, 10, 300, 30_000, 235_200, 2_200_000)
 RTOL, ATOL = 1e-5, 1e-6
+SIC_RTOL = 2e-5
+SIC_SWEEP_K = (1, 2, 3, 8)
+# 10,120 = T*C(24, 3), one step of the FL main path's pallas-scored greedy
+# (M=300, T=5); 1,458,240 and 2,083,200 = one step at M=300/T=35 and
+# M=1000/T=50 with pool 64
+SIC_SWEEP_V = (0, 1, 255, 256, 257, 10_120, 1_458_240, 2_083_200)
+NOISE, PMAX = 1.6e-14, 0.01     # benchmarks/scheduling_bench.py's instance
+SCHED_CASES = ((300, 35, 3, 64), (1000, 50, 3, 64))   # M, T, K, pool
+SLEEP_CYCLES = 200_000_000      # ~0.1 s of queued work ahead of a timing
 ACC_ATOL, PARAM_MEAN_ATOL, PARAM_MAX_ATOL = 0.02, 1e-6, 2e-2
 
 
@@ -70,7 +98,7 @@ def log(msg):
 
 def kernels_of_main_path():
     """Every kernel the main path runs, with its wrapper and metadata."""
-    from repro_torch.kernels import aggregate
+    from repro_torch.kernels import aggregate, sic_rates
 
     return [dict(
         name="weighted_aggregate",
@@ -79,19 +107,37 @@ def kernels_of_main_path():
         replaces="src/repro/kernels/aggregate.py:74",
         wrapper=aggregate.weighted_aggregate,
         module=aggregate,
+    ), dict(
+        name="sic_weighted_rates",
+        route="cuda",
+        source="src/repro_torch/kernels/csrc/sic_rates.cu",
+        replaces="src/repro/kernels/sic_rates.py:56",
+        wrapper=sic_rates.sic_weighted_rates,
+        module=sic_rates,
     )]
 
 
 def build_kernels(kernels):
+    """One nvcc per source, all started together."""
     from repro_torch.kernels import cuda_build
 
     t0 = time.perf_counter()
-    for kern in kernels:
-        path = cuda_build.build(kern["module"].KERNEL)
+    with concurrent.futures.ThreadPoolExecutor(len(kernels)) as pool:
+        paths = list(pool.map(
+            lambda kern: cuda_build.build(kern["module"].KERNEL), kernels))
+    for kern, path in zip(kernels, paths):
         log(f"[build] {kern['name']}: {os.path.relpath(path, REPO)}")
-    for kern in kernels:
         kern["module"]._library()
     log(f"[build] {time.perf_counter() - t0:.2f} s")
+
+
+def reset_launches(kernels):
+    for kern in kernels:
+        kern["wrapper"].launches = 0
+
+
+def read_launches(kernels):
+    return {k["name"]: k["wrapper"].launches for k in kernels}
 
 
 def _aggregate_case(k, n, dtype, gen):
@@ -146,6 +192,8 @@ def compare_aggregate(mod):
 
 
 def _time_ms(fn, iters=200, warmup=20):
+    """Mean ms per call of back-to-back calls, CUDA events around the loop:
+    host launch cost included when the card outruns the host."""
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
@@ -159,37 +207,337 @@ def _time_ms(fn, iters=200, warmup=20):
     return start.elapsed_time(stop) / iters
 
 
+def _device_ms(fn, iters=20):
+    """Device ms per call: the calls are queued behind a sleep kernel, so
+    the card runs them back to back and the CUDA events between them see
+    device time only.  If the sleep ended before the host had queued every
+    call (the start event already passed), the host's gaps would count:
+    retry with fewer calls."""
+    fn()
+    while True:
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(SLEEP_CYCLES)
+        start.record()
+        for _ in range(iters):
+            fn()
+        stop.record()
+        backlogged = not start.query()
+        torch.cuda.synchronize()
+        if backlogged:
+            return start.elapsed_time(stop) / iters
+        check(iters > 1, "could not queue one call behind the sleep kernel")
+        iters //= 2
+
+
 def time_aggregate(mod, k=3):
     """Per-round times at the main path's shapes: the six LeNet leaves at
     K=3, float32-held codes.  Kernel, plain version and ``torch.einsum``
-    (the yardstick library call) on the same inputs, interleaved
-    plain/kernel/kernel/plain.  Each time is the mean of back-to-back
-    calls, host launch cost included, with the inputs warm in L2 as the
-    main path leaves them; returns summed per-round milliseconds."""
+    (the yardstick library call) on the same inputs, with the inputs warm
+    in L2 as the main path leaves them.  ``host_*``: the mean of
+    back-to-back calls with CUDA events around the loop, interleaved
+    plain/kernel/kernel/plain, host launch cost included; ``ms`` /
+    ``plain_ms`` / ``library_ms``: device time (:func:`_device_ms`).
+    Returns summed per-round milliseconds."""
     gen = torch.Generator().manual_seed(1)
-    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+               host_ms=0.0, plain_host_ms=0.0)
     for n in LENET_LEAVES:
         codes, scales, w, levels = _aggregate_case(k, n, torch.float32, gen)
         coeff = mod.coefficients(scales, w, levels)
         counted = mod.weighted_aggregate.launches
-        plain = _time_ms(lambda: mod.weighted_aggregate_plain(codes, coeff))
-        kern = _time_ms(lambda: mod._launch(codes, coeff))
-        kern = 0.5 * (kern + _time_ms(lambda: mod._launch(codes, coeff)))
-        plain = 0.5 * (plain + _time_ms(
-            lambda: mod.weighted_aggregate_plain(codes, coeff)))
-        lib = _time_ms(lambda: torch.einsum("k,kn->n", coeff, codes))
+
+        def kern_fn():
+            return mod._launch(codes, coeff)
+
+        def plain_fn():
+            return mod.weighted_aggregate_plain(codes, coeff)
+
+        def lib_fn():
+            return torch.einsum("k,kn->n", coeff, codes)
+
+        plain = _time_ms(plain_fn)
+        kern = _time_ms(kern_fn)
+        kern = 0.5 * (kern + _time_ms(kern_fn))
+        plain = 0.5 * (plain + _time_ms(plain_fn))
+        lib = _time_ms(lib_fn)
+        dev = {name: _device_ms(fn, iters=200) for name, fn in
+               (("plain", plain_fn), ("kernel", kern_fn), ("lib", lib_fn))}
         mod.weighted_aggregate.launches = counted   # timing launches don't count
         nbytes = (k + 1) * n * 4 + k * 4            # codes + coeff in, out
         flops = 2 * k * n
         bound = max(nbytes / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOPS) * 1e3
-        log(f"[time] weighted_aggregate K={k} n={n}: kernel {kern * 1e3:.3f} us"
-            f"  plain {plain * 1e3:.3f} us  einsum {lib * 1e3:.3f} us"
-            f"  bound {bound * 1e3:.4f} us")
-        tot["ms"] += kern
-        tot["plain_ms"] += plain
-        tot["library_ms"] += lib
+        log(f"[time] weighted_aggregate K={k} n={n}: host-inclusive kernel "
+            f"{kern * 1e3:.3f} us  plain {plain * 1e3:.3f} us  einsum "
+            f"{lib * 1e3:.3f} us; device kernel {dev['kernel'] * 1e3:.3f} us"
+            f"  plain {dev['plain'] * 1e3:.3f} us  einsum "
+            f"{dev['lib'] * 1e3:.3f} us; bound {bound * 1e3:.4f} us")
+        tot["ms"] += dev["kernel"]
+        tot["plain_ms"] += dev["plain"]
+        tot["library_ms"] += dev["lib"]
+        tot["host_ms"] += kern
+        tot["plain_host_ms"] += plain
         tot["bound_ms"] += bound
     return tot
+
+
+# --------------------------------------------------------------------------
+# the SIC scorer kernel
+# --------------------------------------------------------------------------
+
+def _sic_case(v, k, dtype, seed, tie=False, full_power=False):
+    """Inputs shaped like the greedy's: gains at the paper cell's scale,
+    powers up to pmax, Dirichlet weights (tests/test_rates.py); ``tie``
+    gives columns 0 and 1 equal receive power; ``full_power`` sets every
+    power to pmax, as the greedy's scorer does."""
+    rng = np.random.default_rng(seed)
+    g = np.abs(rng.normal(1e-6, 5e-7, (v, k))) + 1e-8
+    p = rng.uniform(0.0, PMAX, (v, k))
+    if full_power:
+        p = np.full((v, k), PMAX)
+    w = rng.dirichlet(np.ones(k), size=v) if v else np.zeros((0, k))
+    if tie and k > 1:
+        g[:, 1] = g[:, 0]
+        p[:, 1] = p[:, 0]
+    return tuple(torch.as_tensor(a).to(device="cuda", dtype=dtype)
+                 for a in (p, g, w))
+
+
+def _sic_errors(got, want, what):
+    """Fails unless ``got`` is within relative SIC_RTOL of ``want``
+    elementwise; returns the largest absolute and relative errors."""
+    err = (got - want).abs()
+    rel = (err / want.abs()).max().item()
+    check(bool(torch.all(err <= SIC_RTOL * want.abs())),
+          f"SIC kernel disagrees at {what}: max rel err {rel!r}")
+    return err.max().item(), rel
+
+
+def compare_sic(mod):
+    """Kernel vs plain version on the card over the sweep; returns the
+    largest absolute difference."""
+    worst_abs = worst_rel = 0.0
+    cases = [(v, k, tie) for k in SIC_SWEEP_K for v in SIC_SWEEP_V
+             for tie in (False, True)]
+    n_cases = 0
+    for dtype in (torch.float32, torch.float64):
+        for v, k, tie in cases:
+            if tie and (k == 1 or v != 257):
+                continue
+            p, g, w = _sic_case(v, k, dtype, seed=v * 10 + k)
+            before = mod.sic_weighted_rates.launches
+            got = mod.sic_weighted_rates(p, g, w, NOISE)
+            want = mod.sic_weighted_rates_plain(p, g, w, NOISE)
+            torch.cuda.synchronize()
+            n_cases += 1
+            check(mod.sic_weighted_rates.launches == before + (v > 0),
+                  f"SIC launches at V={v} K={k}")
+            check(got.shape == (v,) and got.dtype == torch.float32
+                  and got.device.type == "cuda",
+                  f"SIC shape {tuple(got.shape)} {got.dtype} at V={v} K={k}")
+            if not v:
+                continue
+            err_abs, rel = _sic_errors(
+                got, want, f"V={v} K={k} {dtype} tie={tie}")
+            worst_abs = max(worst_abs, err_abs)
+            worst_rel = max(worst_rel, rel)
+    p, g, w = _sic_case(4, 9, torch.float64, seed=9)
+    try:
+        mod.sic_weighted_rates(p, g, w, NOISE)
+    except ValueError as exc:
+        check("K <= 8" in str(exc), f"K=9 raised {exc}")
+    else:
+        raise SmokeFailure("K=9 did not raise")
+    log(f"[compare] sic_weighted_rates: {n_cases} cases ok, max abs err "
+        f"{worst_abs!r}, max rel err {worst_rel!r} (limit {SIC_RTOL}); "
+        f"K=9 refused")
+    return worst_abs
+
+
+def time_sic(mod, vertices, k=3, label=""):
+    """One greedy step's scoring at ``vertices`` (T x C(pool, K)) float64
+    groups: kernel and plain version, host-inclusive (as in
+    :func:`time_aggregate`, interleaved plain/kernel/kernel/plain) and
+    device time.  The inputs are the greedy's (every power pmax), and the
+    kernel is held to its plain version on them first.  No single PyTorch
+    call computes this function (library: none)."""
+    p, g, w = _sic_case(vertices, k, torch.float64, seed=3, full_power=True)
+    counted = mod.sic_weighted_rates.launches
+    err_abs, rel = _sic_errors(
+        mod.sic_weighted_rates(p, g, w, NOISE),
+        mod.sic_weighted_rates_plain(p, g, w, NOISE),
+        f"{label}V={vertices} K={k} float64 full power")
+
+    def kern_fn():
+        return mod.sic_weighted_rates(p, g, w, NOISE)
+
+    def plain_fn():
+        return mod.sic_weighted_rates_plain(p, g, w, NOISE)
+
+    plain_wall = _time_ms(plain_fn, iters=50, warmup=5)
+    kern_wall = _time_ms(kern_fn, iters=50, warmup=5)
+    kern_wall = 0.5 * (kern_wall + _time_ms(kern_fn, iters=50, warmup=5))
+    plain_wall = 0.5 * (plain_wall + _time_ms(plain_fn, iters=50, warmup=5))
+    kern_dev = _device_ms(kern_fn)
+    plain_dev = _device_ms(plain_fn)
+    mod.sic_weighted_rates.launches = counted   # timing launches don't count
+    nbytes = vertices * (3 * k * 8 + 4)          # p, g, w in; f32 out
+    # per group: 2K products, K(K-1) compares (and their adds), K times
+    # an add, a divide, a log2, a product and an add
+    ops = vertices * (2 * k + 2 * k * (k - 1) + 5 * k)
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_F32_FLOPS * 1e3
+    bound = max(t_bytes, t_ops)
+    log(f"[time] sic_weighted_rates {label}V={vertices} K={k} f64 (max abs "
+        f"err {err_abs!r}, max rel err {rel!r} vs plain): kernel "
+        f"device {kern_dev * 1e3:.2f} us host-inclusive {kern_wall * 1e3:.2f}"
+        f" us; plain device {plain_dev * 1e3:.2f} us host-inclusive "
+        f"{plain_wall * 1e3:.2f} us; bound {bound * 1e3:.2f} us "
+        f"({'bytes' if t_bytes >= t_ops else 'operations'}); "
+        f"{kern_dev / bound:.2f}x the bound")
+    return dict(ms=kern_dev, plain_ms=plain_dev, library_ms=None,
+                bound_ms=bound, host_ms=kern_wall, plain_host_ms=plain_wall,
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+# --------------------------------------------------------------------------
+# the scheduler at paper width
+# --------------------------------------------------------------------------
+
+def _sched_instance(m, t, seed=0):
+    """benchmarks/scheduling_bench.py:_instance, the BENCH_scheduling.json
+    instances."""
+    rng = np.random.default_rng(seed)
+    gains = np.abs(rng.normal(1e-6, 5e-7, (t, m))) + 1e-8
+    w = rng.dirichlet(np.ones(m))
+    return gains, w
+
+
+def _same_schedule(a, b):
+    return a.rounds == b.rounds and a.weighted_sum_rate == b.weighted_sum_rate
+
+
+def _fused_on_card(gains, w, k, pool, scorer, behind_sleep=False):
+    """The fused loop alone with every host sync an error; returns the
+    rounds it selected (read back after the mode is lifted).
+
+    PyTorch calls its sync-debug mode a prototype that may miss a sync, so
+    with ``behind_sleep`` the loop is also queued behind a sleep kernel: if
+    the host issues every step while the card still sleeps, no step waited
+    for the card.  That proof holds only while the loop's launches fit the
+    card's launch queue (past it the host blocks until the card drains the
+    queue, as the paper-width loops, of thousands of launches, do), so it
+    is made at the FL main path's shape, hundreds of launches."""
+    from repro_torch.core import rates_device, scheduling
+
+    pool, kk, (g, wt, solo, subs) = scheduling._device_greedy_inputs(
+        gains, w, pool, k, PMAX, NOISE, torch.device("cuda"))
+    torch.cuda.synchronize()
+    if behind_sleep:
+        torch.cuda._sleep(10 * SLEEP_CYCLES)
+        asleep = torch.cuda.Event()
+        asleep.record()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        assign, done, _ = rates_device.greedy_rounds_fused(
+            g, wt, solo, subs, pool=pool, pmax=PMAX, noise_power=NOISE,
+            scorer=scorer)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    if behind_sleep:
+        check(not asleep.query(), "the card finished its sleep before the "
+              "host had issued the fused loop: a step waited for the card")
+    assign, done = assign.cpu().numpy(), done.cpu().numpy()
+    return [tuple(int(d) for d in assign[t]) if done[t] else ()
+            for t in range(len(done))]
+
+
+def _profile_schedule(fn):
+    """Kernels launched and device-busy ms of one call (torch.profiler),
+    beside its host wall ms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    return len(kernels), busy, wall
+
+
+def run_scheduler(sic):
+    """The four backends at the BENCH_scheduling.json widths, the no-sync
+    checks of the fused loop, and the equal-gains tie-break."""
+    from repro_torch.core import scheduling
+
+    backends = (("numpy", "xla"), ("jax", "xla"), ("jax", "pallas"),
+                ("jax-stepwise", "xla"))
+
+    def schedule(gains, w, k, pool, backend, scorer):
+        return scheduling.lazy_greedy_schedule(
+            gains, w, k, noise_power=NOISE, pmax=PMAX, candidate_pool=pool,
+            backend=backend, scorer=scorer, device="cuda")
+
+    # warm-up on a small instance: the device backends' first calls
+    g_eq, w_eq = _sched_instance(48, 6, seed=1)
+    for backend, scorer in backends[1:]:
+        schedule(g_eq, w_eq, 3, 16, backend, scorer)
+    # equal gains and weights: every subset ties, the first maximum wins
+    g_tie = np.full((4, 12), 1e-6)
+    w_tie = np.full(12, 1.0 / 12)
+    ties = [schedule(g_tie, w_tie, 3, 8, b, sc) for b, sc in backends]
+    check(all(_same_schedule(ties[0], x) for x in ties[1:]),
+          f"equal-gains schedules differ: {[x.rounds for x in ties]}")
+    log(f"[sched] equal gains M=12 T=4: all backends pick {ties[0].rounds}")
+
+    for m, t, k, pool in SCHED_CASES:
+        gains, w = _sched_instance(m, t)
+        out = {}
+        for backend, scorer in backends:
+            before = sic.sic_weighted_rates.launches
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out[(backend, scorer)] = schedule(gains, w, k, pool, backend, scorer)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launches = sic.sic_weighted_rates.launches - before
+            log(f"[sched] M={m} T={t} K={k} pool={pool} {backend}/{scorer}: "
+                f"{secs:.3f} s wsum {out[(backend, scorer)].weighted_sum_rate!r}"
+                f" SIC launches {launches}")
+            if scorer == "pallas":
+                check(launches == min(t, m // k),
+                      f"SIC launches {launches}, expected {min(t, m // k)} "
+                      f"greedy steps")
+        ref = out[("numpy", "xla")]
+        for key, sched in out.items():
+            check(_same_schedule(ref, sched),
+                  f"M={m}: {key} schedule differs from the numpy backend")
+        for scorer in ("xla", "pallas"):
+            rounds = _fused_on_card(gains, w, k, pool, scorer)
+            check(rounds == ref.rounds,
+                  f"M={m}: fused loop ({scorer}) under sync-debug differs")
+        log(f"[sched] M={m}: numpy, jax/xla, jax/pallas, jax-stepwise "
+            f"identical; fused loop (xla, pallas) ran under sync-debug "
+            f"'error'")
+        for backend, scorer in backends[1:]:
+            n_kern, busy, wall = _profile_schedule(
+                lambda: schedule(gains, w, k, pool, backend, scorer))
+            log(f"[sched] M={m} {backend}/{scorer} profiled: {n_kern} "
+                f"kernels, device busy {busy:.3f} ms of {wall:.3f} ms wall "
+                f"(idle share {1 - busy / wall:.3f})")
+    # the FL main path's greedy shape: the whole loop fits the launch queue
+    gains, w = _sched_instance(300, 5)
+    ref = schedule(gains, w, 3, 24, "numpy", "xla")
+    for scorer in ("xla", "pallas"):
+        rounds = _fused_on_card(gains, w, 3, 24, scorer, behind_sleep=True)
+        check(rounds == ref.rounds, f"M=300 T=5: fused loop ({scorer}) differs")
+    log("[sched] M=300 T=5 pool=24: fused loop (xla, pallas) issued whole "
+        "while the card slept: no step waited for the card")
 
 
 # --------------------------------------------------------------------------
@@ -206,41 +554,58 @@ def _world(m, samples):
     return ds, cell, shards
 
 
-def _config(m, t):
+def _config(m, t, backend="numpy"):
     from repro_torch.config import FLConfig
 
     return FLConfig(
         num_devices=m, group_size=3, num_rounds=t, scheduler="lazy-gwmin",
-        power_mode="mapel", compression="adaptive", fl_engine="batched",
-        use_pallas=True, seed=0,
+        scheduler_backend=backend, power_mode="mapel",
+        compression="adaptive", fl_engine="batched", use_pallas=True, seed=0,
     )
 
 
-def run_main_path(kernels, m=300, t=5, samples=12_000):
-    """Paper-width run on the card; returns (result, launches per kernel)."""
-    from repro_torch.core import channel, fl
+def run_main_path(kernels, mode, m=300, t=5, samples=12_000):
+    """Paper-width run on the card; returns (result, launches per kernel).
+
+    ``mode`` picks where the schedule is planned: ``"host"`` (numpy
+    backend, before the run), ``"jax"`` (``scheduler_backend="jax"``,
+    inside the run, on the card) or ``"pallas"`` (``get_policy
+    ("lazy-gwmin")`` on the card with the SIC kernel as scorer, handed to
+    the run as ``schedule=``).  The launch counts are zeroed just before
+    and read just after the schedule and the run."""
+    from repro_torch.core import channel, fl, scheduling
 
     ds, cell, shards = _world(m, samples)
-    cfg = _config(m, t)
-    t0 = time.perf_counter()
+    cfg = _config(m, t, "numpy" if mode == "host" else "jax")
     bundle = channel.sample_channels(cfg.seed, cell, cfg.num_rounds)
     sizes = np.array([len(s) for s in shards], dtype=np.float64)
-    schedule = fl.make_schedule(bundle.gains, sizes / sizes.sum(), cell, cfg)
+    reset_launches(kernels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    schedule = None
+    if mode == "host":
+        schedule = fl.make_schedule(bundle.gains, sizes / sizes.sum(), cell,
+                                    cfg)
+    elif mode == "pallas":
+        pcfg = dataclasses.replace(
+            fl.policy_config(cell, cfg, "cuda"), scorer="pallas")
+        schedule = scheduling.build_schedule(
+            scheduling.get_policy("lazy-gwmin"), bundle.gains,
+            sizes / sizes.sum(), pcfg)
     t_sched = time.perf_counter() - t0
-    log(f"[main] M={m} K={cfg.group_size} T={t} samples={samples}: host "
-        f"schedule (lazy-gwmin + MAPEL) {t_sched:.3f} s")
+    if schedule is not None:
+        log(f"[main:{mode}] M={m} K={cfg.group_size} T={t} samples={samples}:"
+            f" schedule (lazy-gwmin + MAPEL) {t_sched:.3f} s")
 
     stamps = []    # host clock at the start, then after each round
 
     def progress(lg):
         torch.cuda.synchronize()
         stamps.append(time.perf_counter())
-        log(f"[main] round {lg.round}: devices {list(lg.devices)} bits "
+        log(f"[main:{mode}] round {lg.round}: devices {list(lg.devices)} bits "
             f"{lg.bits.tolist()} acc {lg.test_accuracy:.4f} sim_time "
             f"{lg.wall_time_s:.4f} s host {stamps[-1] - stamps[-2]:.4f} s")
 
-    for kern in kernels:
-        kern["wrapper"].launches = 0
     torch.cuda.synchronize()
     stamps.append(time.perf_counter())
     t1 = stamps[0]
@@ -250,16 +615,20 @@ def run_main_path(kernels, m=300, t=5, samples=12_000):
     )
     torch.cuda.synchronize()
     total = time.perf_counter() - t1
-    launches = {k["name"]: k["wrapper"].launches for k in kernels}
-    log(f"[main] run {total:.3f} s after the schedule; launches {launches}")
+    launches = read_launches(kernels)
+    log(f"[main:{mode}] run {total:.3f} s after the schedule"
+        f"{' (schedule inside the run)' if schedule is None else ''}; "
+        f"launches {launches}")
 
     nonempty = sum(1 for lg in res.logs if lg.devices)
     acc = res.accuracies()
     check(launches["weighted_aggregate"] == 6 * nonempty,
           f"weighted_aggregate launched {launches['weighted_aggregate']} "
           f"times, expected 6 x {nonempty} non-empty rounds")
-    check(all(v > 0 for v in launches.values()),
-          f"a kernel of the main path never launched: {launches}")
+    want_sic = min(t, m // cfg.group_size) if mode == "pallas" else 0
+    check(launches["sic_weighted_rates"] == want_sic,
+          f"sic_weighted_rates launched {launches['sic_weighted_rates']} "
+          f"times, expected {want_sic} greedy steps")
     check(bool(np.all(np.isfinite(acc))), f"non-finite accuracy {acc}")
     check(acc[-1] > acc[0], f"accuracy did not improve: {acc.tolist()}")
     for layer in res.final_params.values():
@@ -270,16 +639,17 @@ def run_main_path(kernels, m=300, t=5, samples=12_000):
 
 
 def compare_cpu_and_card(kernels, m=30, t=5, samples=12_000):
-    """The M=30 run on the CPU (plain versions) and on the card (kernels)."""
+    """The M=30 run with ``scheduler_backend="jax"`` on the CPU (plain
+    versions, greedy on the CPU) and on the card (kernels, greedy on the
+    card)."""
     from repro_torch.core import fl
 
     ds, cell, shards = _world(m, samples)
-    cfg = _config(m, t)
+    cfg = _config(m, t, "jax")
     cpu = fl.run_federated_learning(ds, shards, cell, cfg, device="cpu")
-    for kern in kernels:
-        kern["wrapper"].launches = 0
+    reset_launches(kernels)
     gpu = fl.run_federated_learning(ds, shards, cell, cfg, device="cuda")
-    launches = {k["name"]: k["wrapper"].launches for k in kernels}
+    launches = read_launches(kernels)
     check([lg.devices for lg in cpu.logs] == [lg.devices for lg in gpu.logs],
           "schedules differ between CPU and card")
     for a, b in zip(cpu.logs, gpu.logs):
@@ -297,9 +667,10 @@ def compare_cpu_and_card(kernels, m=30, t=5, samples=12_000):
             worst_max = max(worst_max, d.max().item())
     check(worst_mean < PARAM_MEAN_ATOL and worst_max < PARAM_MAX_ATOL,
           f"param drift mean {worst_mean} max {worst_max}")
-    log(f"[parity] M={m} CPU vs card: schedules/bits/rates/ratios/times "
-        f"equal, acc gap {acc_gap!r}, param drift mean {worst_mean!r} max "
-        f"{worst_max!r}, card launches {launches}")
+    log(f"[parity] M={m} scheduler_backend='jax' CPU vs card: "
+        f"schedules/bits/rates/ratios/times equal, acc gap {acc_gap!r}, "
+        f"param drift mean {worst_mean!r} max {worst_max!r}, card launches "
+        f"{launches}")
 
 
 # --------------------------------------------------------------------------
@@ -322,9 +693,23 @@ def main() -> int:
 
     kernels = kernels_of_main_path()
     build_kernels(kernels)
-    errs = {"weighted_aggregate": compare_aggregate(kernels[0]["module"])}
-    times = {"weighted_aggregate": time_aggregate(kernels[0]["module"])}
-    _, launches = run_main_path(kernels)
+    agg, sic = kernels[0]["module"], kernels[1]["module"]
+    errs = {"weighted_aggregate": compare_aggregate(agg),
+            "sic_weighted_rates": compare_sic(sic)}
+    m, t, k, pool = SCHED_CASES[0]
+    times = {"weighted_aggregate": time_aggregate(agg),
+             "sic_weighted_rates": time_sic(
+                 sic, t * math.comb(pool, k), k, label="M=300 T=35 pool=64 ")}
+    time_sic(sic, 5 * math.comb(24, k), k, label="FL main path T=5 pool=24 ")
+    m2, t2, k2, pool2 = SCHED_CASES[1]
+    time_sic(sic, t2 * math.comb(pool2, k2), k2, label="M=1000 T=50 pool=64 ")
+    run_scheduler(sic)
+    host, _ = run_main_path(kernels, "host")
+    on_card, _ = run_main_path(kernels, "jax")
+    planned, launches = run_main_path(kernels, "pallas")
+    check([lg.devices for lg in host.logs] == [lg.devices for lg in on_card.logs]
+          == [lg.devices for lg in planned.logs],
+          "the three main-path runs scheduled differently")
     compare_cpu_and_card(kernels)
 
     rows = []
@@ -335,10 +720,12 @@ def main() -> int:
             name=name, route=kern["route"], source=kern["source"],
             replaces=kern["replaces"], launches=launches[name],
             max_abs_err=errs[name], ms=t["ms"], plain_ms=t["plain_ms"],
-            bound_ms=t["bound_ms"], bound_by="bytes",
-            library_ms=t["library_ms"],
+            bound_ms=t["bound_ms"], bound_by=t.get("bound_by", "bytes"),
+            library_ms=t["library_ms"], host_ms=t["host_ms"],
+            plain_host_ms=t["plain_host_ms"],
         ))
-        check(all(math.isfinite(t[x]) for x in t), f"{name} timing not finite")
+        check(all(math.isfinite(v) for v in t.values()
+                  if isinstance(v, float)), f"{name} timing not finite")
     print(smi, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

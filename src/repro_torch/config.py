@@ -36,7 +36,8 @@ class FLConfig:
     batch_size: int = 10             # B
     local_epochs: int = 1
     scheduler: str = "lazy-gwmin"    # lazy-gwmin | round-robin (ported)
-    scheduler_backend: str = "numpy"  # numpy (ported) | jax | jax-stepwise
+    scheduler_backend: str = "numpy"  # numpy (host) | jax (device, fused) |
+                                      # jax-stepwise (device, sync per step)
     power_mode: str = "mapel"        # mapel | max (ported) | ota-align
     compression: str = "adaptive"    # adaptive | none
     paper_exact_range: bool = False  # DoReFa fixed [-1,1] range (Eq. 7)
@@ -128,10 +129,6 @@ class FLConfig:
             raise _not_ported(f"scheduler {self.scheduler!r}", 1)
         if self.uplink == "tdma":
             raise _not_ported("uplink='tdma'", 2)
-        if self.scheduler_backend in scheduling.DEVICE_BACKENDS:
-            raise _not_ported(
-                f"scheduler_backend={self.scheduler_backend!r}", 3
-            )
         if self.horizon == "scan":
             raise _not_ported("horizon='scan'", 4)
         if self.uplink == "ota":

@@ -3,6 +3,8 @@ adaptive compression and the FedAvg runtime.
 
  - channel.py      : cell + fading channel model             (paper §II-A)
  - rates.py        : batched SIC rate engine, float64 numpy  (paper Eq. 2-4)
+ - rates_device.py : the same engine on the device + the device-resident
+                     lazy GWMIN greedy                       (paper §III-A)
  - power.py        : MAPEL polyblock power allocation        (paper §III-C)
  - scheduling.py   : policy registry + lazy GWMIN MWIS greedy (paper §III-A)
  - quantization.py : DoReFa adaptive quantization, torch     (paper §II-B)

@@ -59,3 +59,9 @@ ERR_KERNEL_BUILD = (
 ERR_KERNEL_LAUNCH = (
     "CUDA kernel {name!r} failed to launch: {reason}"
 )
+
+# the reference's wording (repro/kernels/sic_rates.py), kept for the port
+ERR_SIC_GROUP_TOO_LARGE = (
+    "sic_weighted_rates_pallas supports NOMA groups of K <= {k_max} "
+    "(got K={k}); use the jnp reference path for larger groups"
+)

@@ -15,7 +15,9 @@ FedAvg over the simulated NOMA cell, per round t:
 The port of ``repro.core.fl``'s per-round loop with the batched engine:
 the host control plane (channels, schedule, MAPEL powers, rates, budgets,
 timing) is float64 numpy, steps 3-5 run on the device in
-:class:`repro_torch.core.fl_engine.BatchedRoundEngine`.  The reference
+:class:`repro_torch.core.fl_engine.BatchedRoundEngine`.  With
+``scheduler_backend="jax"`` or ``"jax-stepwise"`` the schedule's greedy
+search runs on the run's device too (float64, the same schedule).  The reference
 draws channels and initial weights with ``jax.random``; pass ``channels=``
 and ``init_params=`` to run on given draws (the parity tests inject the
 reference's), or leave them out to draw with the port's own generators.
@@ -64,14 +66,18 @@ class FLResult:
 # Scheduling front-end
 # --------------------------------------------------------------------------
 
-def policy_config(cell: chan.CellConfig, cfg: FLConfig) -> scheduling.PolicyConfig:
-    """PolicyConfig from the FL settings + the cell physics."""
+def policy_config(
+    cell: chan.CellConfig, cfg: FLConfig, device=None
+) -> scheduling.PolicyConfig:
+    """PolicyConfig from the FL settings + the cell physics; ``device`` is
+    where a device scheduler backend runs (``None`` means ``cuda``)."""
     return scheduling.PolicyConfig(
         group_size=cfg.group_size,
         power_mode=cfg.power_mode,
         pmax=cell.max_power_w,
         noise_power=cell.noise_power_w,
         backend=cfg.scheduler_backend,
+        device=device,
         seed=cfg.seed,
     )
 
@@ -82,12 +88,13 @@ def make_schedule(
     cell: chan.CellConfig,
     cfg: FLConfig,
     policy=None,
+    device=None,
 ) -> scheduling.Schedule:
     """One-shot schedule via the policy registry."""
     if policy is None:
         policy = scheduling.get_policy(cfg.scheduler)
     return scheduling.build_schedule(
-        policy, gains_tm, weights_m, policy_config(cell, cfg)
+        policy, gains_tm, weights_m, policy_config(cell, cfg, device)
     )
 
 
@@ -170,7 +177,7 @@ def run_federated_learning(
     gains = np.asarray(channels.gains)
 
     if schedule is None:
-        schedule = make_schedule(gains, weights, cell, cfg)
+        schedule = make_schedule(gains, weights, cell, cfg, device=dev)
     else:
         schedule.validate(cell.num_devices, cfg.group_size)
 

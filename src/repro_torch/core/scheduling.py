@@ -11,10 +11,18 @@ schedules, powers and rates are bit-identical to it, T*K > M tails included
 Policies are looked up by name (:func:`register_policy` /
 :func:`get_policy`).  A precomputed policy plans the whole horizon in
 ``init_state`` and replays it in ``select_round``.  The reference's other
-policies (literal-gwmin, random, proportional-fair and the online ones) and
-its device-resident greedy backends come with later slices of the port
-(``ROADMAP.md`` queue 1); :data:`REFERENCE_POLICIES` names them so
-configuration checks can tell "not ported yet" from "unknown".
+policies (literal-gwmin, random, proportional-fair and the online ones)
+come with later slices of the port (``ROADMAP.md`` queue 1);
+:data:`REFERENCE_POLICIES` names them so configuration checks can tell "not
+ported yet" from "unknown".
+
+All three lazy-greedy backends run: ``"numpy"`` on the host, and the
+device-resident ``"jax"`` (fused, one host sync per schedule) and
+``"jax-stepwise"`` (one sync per greedy step) on the run's device through
+:mod:`repro_torch.core.rates_device`.  The device backends keep the
+reference's names, which users' configurations carry; they run on ``cuda``
+unless given ``device="cpu"``, and their float64 ``scorer="xla"`` schedules
+equal the numpy backend's (tests/test_torch_greedy.py).
 
 MWIS formulation (paper §III-A): a vertex v = (S, t) is a K-subset S
 proposed for round t; edges join vertices that share a device (C1) or a
@@ -30,10 +38,13 @@ import itertools
 from typing import Callable, Sequence
 
 import numpy as np
+import torch
 
 from repro_torch.core import errors
 from repro_torch.core import power as power_lib
 from repro_torch.core import rates as rates_lib
+from repro_torch.core import rates_device
+from repro_torch.device import resolve_device
 
 PowerFn = Callable[[np.ndarray, np.ndarray], np.ndarray]
 # (gains_K, weights_K) -> powers_K; may carry a ``batched`` attribute
@@ -41,8 +52,7 @@ PowerFn = Callable[[np.ndarray, np.ndarray], np.ndarray]
 # ``power.PowerAllocator`` satisfies this interface.
 
 SCHEDULER_BACKENDS = ("numpy", "jax", "jax-stepwise")
-# the reference's lazy-greedy backends; only "numpy" is ported
-DEVICE_BACKENDS = ("jax", "jax-stepwise")
+# the reference's lazy-greedy backends: host, device fused, device step-wise
 
 REFERENCE_POLICIES = (
     "age-fair", "lazy-gwmin", "literal-gwmin", "matching-pursuit",
@@ -282,6 +292,113 @@ def _greedy_rounds_numpy(
     return rounds
 
 
+def _device_greedy_inputs(gains_tm, weights_m, candidate_pool, k, pmax,
+                          noise_power, device):
+    """Shared prologue of both device drivers (the reference's
+    ``_jax_greedy_inputs``): clamp the pool to M, enumerate the C(pool, kk)
+    subsets once as pool *positions* (lex order), build the pool-ranking
+    proxy with the *host* engine so every backend ranks candidate pools
+    from identical float64 values, and move all of it to ``device`` (gains
+    and weights as float64, positions as int64)."""
+    num_devices = gains_tm.shape[1]
+    pool = int(min(candidate_pool, num_devices))
+    kk = min(k, pool)
+    subs_pos = np.array(
+        list(itertools.combinations(range(pool), kk)), dtype=np.int32
+    ).reshape(-1, kk)
+    solo_tm = _solo_proxy(gains_tm, weights_m[None, :], pmax, noise_power)
+
+    def put(a, dtype):
+        return torch.as_tensor(np.asarray(a), device=device).to(dtype)
+
+    tensors = (
+        put(gains_tm, torch.float64), put(weights_m, torch.float64),
+        put(solo_tm, torch.float64), put(subs_pos, torch.int64),
+    )
+    return pool, kk, tensors
+
+
+def _device_greedy_tail(
+    rounds, avail_np, done_np,
+    gains_tm, weights_m, k, search_fn, noise_power, candidate_pool, pmax,
+):
+    """Shared epilogue of both device drivers: once fewer than K devices
+    remain (T*K > M horizons), the host loop finishes the leftover smaller
+    groups — the device enumeration is fixed-K."""
+    avail_host = set(np.flatnonzero(avail_np).tolist())
+    remaining_host = set(np.flatnonzero(~done_np).tolist())
+    if avail_host and remaining_host:
+        _greedy_rounds_numpy(
+            gains_tm, weights_m, k, search_fn, noise_power, candidate_pool,
+            pmax, rounds=rounds, avail=avail_host, remaining=remaining_host,
+        )
+    return rounds
+
+
+def _greedy_rounds_stepwise(
+    gains_tm, weights_m, k, search_fn, noise_power, candidate_pool, pmax,
+    *, device,
+):
+    """``backend="jax-stepwise"``: one :func:`rates_device.greedy_step` per
+    greedy step, scored in float64, with the argmax read back to the host
+    every step (the reference's ``_greedy_rounds_jax_stepwise``)."""
+    num_rounds, num_devices = gains_tm.shape
+    pool, kk, (g, w, solo, subs) = _device_greedy_inputs(
+        gains_tm, weights_m, candidate_pool, k, pmax, noise_power, device
+    )
+    rounds = [()] * num_rounds
+    avail = torch.ones(num_devices, dtype=torch.bool, device=device)
+    done = torch.zeros(num_rounds, dtype=torch.bool, device=device)
+    avail_count = num_devices
+    steps = 0
+    while steps < num_rounds and avail_count >= kk:
+        val, t_star, sub_ids, avail, done = rates_device.greedy_step(
+            g, w, solo, subs, avail, done,
+            pool=pool, pmax=float(pmax), noise_power=float(noise_power),
+        )
+        if not bool(val > -np.inf):
+            break
+        rounds[int(t_star)] = tuple(int(d) for d in sub_ids.tolist())
+        avail_count -= kk
+        steps += 1
+    return _device_greedy_tail(
+        rounds, avail.cpu().numpy(), done.cpu().numpy(),
+        gains_tm, weights_m, k, search_fn, noise_power, candidate_pool, pmax,
+    )
+
+
+def _greedy_rounds_fused(
+    gains_tm, weights_m, k, search_fn, noise_power, candidate_pool, pmax,
+    *, scorer, shards, device,
+):
+    """``backend="jax"``: the whole selection loop on the device
+    (:func:`rates_device.greedy_rounds_fused`) and exactly one copy of its
+    state to the host per schedule (the reference's
+    ``_greedy_rounds_jax_fused``)."""
+    num_rounds = gains_tm.shape[0]
+    pool, kk, (g, w, solo, subs) = _device_greedy_inputs(
+        gains_tm, weights_m, candidate_pool, k, pmax, noise_power, device
+    )
+    assign, done, avail = rates_device.greedy_rounds_fused(
+        g, w, solo, subs, pool=pool, pmax=float(pmax),
+        noise_power=float(noise_power), scorer=scorer, shards=shards,
+    )
+    # the one host sync per schedule
+    state = torch.cat(
+        [assign.reshape(-1).long(), done.long(), avail.long()]
+    ).cpu().numpy()
+    assign_np = state[: num_rounds * kk].reshape(num_rounds, kk)
+    done_np = state[num_rounds * kk: num_rounds * (kk + 1)].astype(bool)
+    avail_np = state[num_rounds * (kk + 1):].astype(bool)
+    rounds = [()] * num_rounds
+    for t in np.flatnonzero(done_np):
+        rounds[t] = tuple(int(d) for d in assign_np[t])
+    return _device_greedy_tail(
+        rounds, avail_np, done_np,
+        gains_tm, weights_m, k, search_fn, noise_power, candidate_pool, pmax,
+    )
+
+
 def lazy_greedy_schedule(
     gains_tm,
     weights_m,
@@ -292,6 +409,9 @@ def lazy_greedy_schedule(
     noise_power=1e-13,
     candidate_pool=24,
     backend="numpy",
+    scorer="xla",
+    shards=None,
+    device=None,
 ) -> Schedule:
     """Graph-free Algorithm 2: repeatedly take the max-weight (subset, round)
     among unused devices and remaining rounds (GWMIN on the MWIS graph, whose
@@ -303,14 +423,22 @@ def lazy_greedy_schedule(
 
     With power_mode="mapel" the subset *search* runs at max power and MAPEL
     refines only the selected groups — batched over all T groups in one
-    ``power.mapel_batched`` call at finalization.  Only the reference's
-    default ``backend="numpy"`` is ported; the device-resident greedy
-    (``"jax"`` / ``"jax-stepwise"``) comes with a later slice.
+    ``power.mapel_batched`` call at finalization.
+
+    ``backend="numpy"`` runs the greedy on the host.  ``backend="jax"``
+    runs the whole selection loop on ``device`` (``cuda`` unless given
+    ``"cpu"``) with one host sync per schedule; ``"jax-stepwise"`` syncs
+    every greedy step.  Both give the numpy backend's schedule.  ``scorer``
+    and ``shards`` tune ``"jax"`` only: the vertex scorer (``"xla"``,
+    float64 tensor code; ``"pallas"``, the hand-written SIC kernel in
+    float32) and the vertex shard count, which clamps to the cards
+    available (the port scores every vertex on ``device``).
     """
     power_fn = make_power_fn(power_mode, pmax, noise_power)
     rounds = _lazy_gwmin_rounds(
         gains_tm, weights_m, k, pmax=pmax, noise_power=noise_power,
-        candidate_pool=candidate_pool, backend=backend,
+        candidate_pool=candidate_pool, backend=backend, scorer=scorer,
+        shards=shards, device=device,
     )
     return finalize_schedule(
         rounds, gains_tm, weights_m, power_fn, noise_power, "lazy-gwmin"
@@ -319,21 +447,28 @@ def lazy_greedy_schedule(
 
 def _lazy_gwmin_rounds(
     gains_tm, weights_m, k, *, pmax, noise_power, candidate_pool, backend,
+    scorer="xla", shards=None, device=None,
 ):
     """Selection step of the lazy greedy (the subset *search* runs at max
     power regardless of the finalization power mode — see
     ``lazy_greedy_schedule``)."""
-    if backend in DEVICE_BACKENDS:
-        raise NotImplementedError(errors.ERR_NOT_PORTED.format(
-            feature=f"scheduler_backend={backend!r}", item=3,
-        ))
-    if backend != "numpy":
-        raise ValueError(
-            f"unknown scheduling backend {backend!r}; known: {SCHEDULER_BACKENDS}"
-        )
     search_fn = make_power_fn("max", pmax, noise_power)
-    return _greedy_rounds_numpy(
-        gains_tm, weights_m, k, search_fn, noise_power, candidate_pool, pmax
+    if backend == "numpy":
+        return _greedy_rounds_numpy(
+            gains_tm, weights_m, k, search_fn, noise_power, candidate_pool, pmax
+        )
+    if backend == "jax":
+        return _greedy_rounds_fused(
+            gains_tm, weights_m, k, search_fn, noise_power, candidate_pool,
+            pmax, scorer=scorer, shards=shards, device=resolve_device(device),
+        )
+    if backend == "jax-stepwise":
+        return _greedy_rounds_stepwise(
+            gains_tm, weights_m, k, search_fn, noise_power, candidate_pool,
+            pmax, device=resolve_device(device),
+        )
+    raise ValueError(
+        f"unknown scheduling backend {backend!r}; known: {SCHEDULER_BACKENDS}"
     )
 
 
@@ -360,7 +495,11 @@ class PolicyConfig:
     pmax: float = 0.01
     noise_power: float = 1e-13
     candidate_pool: int = 24        # lazy greedy enumeration bound
-    backend: str = "numpy"          # lazy greedy backend (SCHEDULER_BACKENDS)
+    backend: str = "numpy"          # lazy greedy driver (SCHEDULER_BACKENDS)
+    scorer: str = "xla"             # fused-backend vertex scorer (xla | pallas)
+    shards: "int | None" = None     # fused-backend vertex shards (clamped)
+    device: "str | torch.device | None" = None   # device backends' device;
+                                    # None = cuda (repro_torch.device)
     seed: int = 0
 
 
@@ -457,7 +596,8 @@ class LazyGwminPolicy(_PrecomputedPolicy):
         return _lazy_gwmin_rounds(
             gains_tm, weights_m, cfg.group_size, pmax=cfg.pmax,
             noise_power=cfg.noise_power, candidate_pool=cfg.candidate_pool,
-            backend=cfg.backend,
+            backend=cfg.backend, scorer=cfg.scorer, shards=cfg.shards,
+            device=cfg.device,
         )
 
 

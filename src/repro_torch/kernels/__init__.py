@@ -3,5 +3,8 @@
  - aggregate.py   : fused dequant + weighted FedAvg aggregation
                     (CUDA C++, csrc/aggregate.cu; replaces the Pallas
                     weighted_aggregate_pallas)
+ - sic_rates.py   : weighted SIC sum-rate vertex scorer of the MWIS greedy
+                    (CUDA C++, csrc/sic_rates.cu; replaces the Pallas
+                    sic_weighted_rates_pallas)
  - cuda_build.py  : nvcc build into build/ + ctypes loading
 """

@@ -116,7 +116,9 @@ def task_init_params(spec, arrays):
 def task_fl_run(spec, arrays):
     """run_federated_learning on the paper's world, plus every random draw
     the port needs injected (distances, gains, large-scale gains, initial
-    weights) so both packages simulate the same system."""
+    weights) so both packages simulate the same system.  ``spec["cfg"]``
+    holds the FLConfig fields, ``scheduler_backend`` included (the device
+    greedy needs the shim's ``enable_x64``)."""
     import jax
     import numpy as np
 
@@ -153,11 +155,38 @@ def task_fl_run(spec, arrays):
     return out
 
 
+def task_lazy_greedy(spec, arrays):
+    """scheduling.lazy_greedy_schedule for each run of ``spec["runs"]``
+    (backend, scorer, shards, power mode) on the gains ``g/<key>`` and
+    weights ``w/<key>``; returns each schedule's rounds as a (T, K) array
+    padded with -1 and its weighted sum rate."""
+    import numpy as np
+
+    from repro.core import scheduling
+
+    out = {}
+    for run in spec["runs"]:
+        key = run["key"]
+        sched = scheduling.lazy_greedy_schedule(
+            arrays["g/" + key], arrays["w/" + key], int(run["k"]),
+            power_mode=run["power_mode"], noise_power=float(spec["noise"]),
+            candidate_pool=int(run["pool"]), backend=run["backend"],
+            scorer=run["scorer"], shards=run["shards"],
+        )
+        rounds = np.full((len(sched.rounds), int(run["k"])), -1, np.int64)
+        for t, grp in enumerate(sched.rounds):
+            rounds[t, :len(grp)] = grp
+        out["rounds/" + key] = rounds
+        out["wsum/" + key] = np.asarray(sched.weighted_sum_rate)
+    return out
+
+
 TASKS = {
     "lenet_grad": task_lenet_grad,
     "sgd_epoch": task_sgd_epoch,
     "init_params": task_init_params,
     "fl_run": task_fl_run,
+    "lazy_greedy": task_lazy_greedy,
 }
 
 

@@ -5,19 +5,25 @@ decision is taken inside the fixture, never at import).  On the card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Tolerance rtol 1e-5 / atol 1e-6, as tests/test_kernels.py holds the Pallas
-kernels (the kernel and the plain version sum in the same order, so in
-practice they agree to the bit).
+Tolerances: the aggregation kernel within rtol 1e-5 / atol 1e-6, as
+tests/test_kernels.py holds the Pallas kernels; the SIC scorer within
+relative 2e-5, as tests/test_rates.py holds its Pallas kernel.  Each kernel
+and its plain version take the same operations in the same order, so in
+practice they agree to the bit.  The device greedy's schedules equal the
+numpy backend's exactly.
 """
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels import aggregate  # noqa: E402
+from repro_torch.core import scheduling  # noqa: E402
+from repro_torch.kernels import aggregate, sic_rates  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 RTOL, ATOL = 1e-5, 1e-6
+SIC_RTOL = 2e-5
+NOISE, PMAX = 1.6e-14, 0.01
 
 
 @pytest.fixture
@@ -74,3 +80,62 @@ def test_unaligned_rows_take_the_scalar_path(cuda):
     got = aggregate._launch(codes.contiguous(), coeff)
     want = aggregate.weighted_aggregate_plain(codes, coeff)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("k", [1, 2, 3, 8])
+@pytest.mark.parametrize("v", [1, 255, 256, 257, 100_003])
+@pytest.mark.parametrize("tie", [False, True])
+def test_sic_kernel_matches_plain(cuda, dtype, k, v, tie):
+    rng = np.random.default_rng(v * 10 + k)
+    g = np.abs(rng.normal(1e-6, 5e-7, (v, k))) + 1e-8
+    p = rng.uniform(0.0, PMAX, (v, k))
+    w = rng.dirichlet(np.ones(k), size=v)
+    if tie and k > 1:
+        g[:, 1], p[:, 1] = g[:, 0], p[:, 0]
+    p, g, w = (torch.as_tensor(a).to(cuda, dtype) for a in (p, g, w))
+    before = sic_rates.sic_weighted_rates.launches
+    got = sic_rates.sic_weighted_rates(p, g, w, NOISE)
+    assert sic_rates.sic_weighted_rates.launches == before + 1
+    want = sic_rates.sic_weighted_rates_plain(p, g, w, NOISE)
+    torch.cuda.synchronize()
+    assert got.device.type == "cuda" and got.shape == (v,)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=SIC_RTOL, atol=0)
+
+
+def test_sic_kernel_edges(cuda):
+    z = torch.zeros((0, 3), dtype=torch.float64, device=cuda)
+    before = sic_rates.sic_weighted_rates.launches
+    assert sic_rates.sic_weighted_rates(z, z, z, NOISE).shape == (0,)
+    assert sic_rates.sic_weighted_rates.launches == before
+    big = torch.ones((4, 9), dtype=torch.float64, device=cuda)
+    with pytest.raises(ValueError, match="K <= 8"):
+        sic_rates.sic_weighted_rates(big, big, big, NOISE)
+    strided = torch.ones((4, 6), dtype=torch.float64, device=cuda)[:, ::2]
+    with pytest.raises(ValueError, match="contiguous"):
+        sic_rates.sic_weighted_rates(strided, strided, strided, NOISE)
+
+
+@pytest.mark.parametrize("backend,scorer", [
+    ("jax", "xla"), ("jax", "pallas"), ("jax-stepwise", "xla"),
+])
+@pytest.mark.parametrize("m,k,t,pool,seed", [
+    (32, 3, 4, 24, 2), (5, 2, 4, 24, 5), (10, 3, 3, 2, 7), (12, 3, 4, 8, None),
+])
+def test_device_greedy_matches_numpy_on_the_card(cuda, backend, scorer, m, k,
+                                                 t, pool, seed):
+    """The first-maximum tie-break included (seed None: equal gains)."""
+    if seed is None:
+        gains, w = np.full((t, m), 1e-6), np.full(m, 1.0 / m)
+    else:
+        rng = np.random.default_rng(seed)
+        gains = np.abs(rng.normal(1e-6, 5e-7, (t, m))) + 1e-8
+        w = rng.dirichlet(np.ones(m))
+    kw = dict(noise_power=NOISE, candidate_pool=pool)
+    a = scheduling.lazy_greedy_schedule(gains, w, k, **kw)
+    b = scheduling.lazy_greedy_schedule(gains, w, k, backend=backend,
+                                        scorer=scorer, device=cuda, **kw)
+    assert a.rounds == b.rounds
+    assert a.weighted_sum_rate == b.weighted_sum_rate

@@ -153,15 +153,19 @@ def _assert_equal_runs(got, want, num_rounds):
 
 @pytest.mark.parametrize("world", [
     # the tests/test_fl_engine.py worlds: M=12 lazy-gwmin under both power
-    # modes, and the T*K > M round-robin horizon that ends in an empty round
+    # modes, and the T*K > M round-robin horizon that ends in an empty round;
+    # the last plans the schedule with the device greedy (on the CPU here)
     dict(m=12, samples=800, k=3, t=3, scheduler="lazy-gwmin", power="max"),
     dict(m=12, samples=800, k=3, t=3, scheduler="lazy-gwmin", power="mapel"),
     dict(m=4, samples=400, k=2, t=3, scheduler="round-robin", power="max"),
-], ids=["lazy-max", "lazy-mapel", "round-robin-tail"])
+    dict(m=12, samples=800, k=3, t=3, scheduler="lazy-gwmin", power="mapel",
+         backend="jax"),
+], ids=["lazy-max", "lazy-mapel", "round-robin-tail", "lazy-mapel-jax"])
 def test_slice_matches_reference_run(tmp_path, world):
     cfg_args = dict(
         num_devices=world["m"], group_size=world["k"],
         num_rounds=world["t"], scheduler=world["scheduler"],
+        scheduler_backend=world.get("backend", "numpy"),
         power_mode=world["power"], fl_engine="batched", use_pallas=True,
         seed=0,
     )
@@ -267,24 +271,37 @@ def test_entry_points_default_to_cuda(monkeypatch):
                                   device="cpu")
 
 
+# The case ids from "kwargs4-4" on are the ones these cases had before the
+# scheduler_backend="jax" case (item 3, ported) left the list.
 @pytest.mark.parametrize("kwargs,item", [
     (dict(), 1),                                        # default engine: legacy
     (dict(fl_engine="batched", scheduler="random"), 1),
     (dict(fl_engine="batched", uplink="tdma"), 2),
-    (dict(fl_engine="batched", scheduler_backend="jax"), 3),
-    (dict(fl_engine="batched", horizon="scan"), 4),
-    (dict(fl_engine="batched", scheduler="update-aware"), 5),
-    (dict(fl_engine="batched", uplink="ota", compression="none",
-          power_mode="max"), 6),
-    (dict(fl_engine="batched", topk=0.5), 7),
-    (dict(fl_engine="batched", client_bank="bucketed"), 7),
-    (dict(fl_engine="batched", model="tiny-transformer"), 7),
-    (dict(fl_engine="batched", model="qwen2_0_5b"), 8),
+    pytest.param(dict(fl_engine="batched", horizon="scan"), 4, id="kwargs4-4"),
+    pytest.param(dict(fl_engine="batched", scheduler="update-aware"), 5,
+                 id="kwargs5-5"),
+    pytest.param(dict(fl_engine="batched", uplink="ota", compression="none",
+                      power_mode="max"), 6, id="kwargs6-6"),
+    pytest.param(dict(fl_engine="batched", topk=0.5), 7, id="kwargs7-7"),
+    pytest.param(dict(fl_engine="batched", client_bank="bucketed"), 7,
+                 id="kwargs8-7"),
+    pytest.param(dict(fl_engine="batched", model="tiny-transformer"), 7,
+                 id="kwargs9-7"),
+    pytest.param(dict(fl_engine="batched", model="qwen2_0_5b"), 8,
+                 id="kwargs10-8"),
 ])
 def test_config_names_the_roadmap_item_for_unported_settings(kwargs, item):
     with pytest.raises(NotImplementedError,
                        match=f"ROADMAP.md queue 1 item {item} brings it"):
         FLConfig(**kwargs)
+
+
+@pytest.mark.parametrize("backend", ["jax", "jax-stepwise"])
+def test_config_accepts_device_scheduler_backends(backend):
+    """The device-resident greedy is ported: FLConfig takes its backends."""
+    cfg = FLConfig(fl_engine="batched", scheduler_backend=backend)
+    assert cfg.scheduler_backend == backend
+    assert fl.policy_config(channel.CellConfig(), cfg, "cpu").backend == backend
 
 
 @pytest.mark.parametrize("kwargs,match", [
@@ -298,6 +315,7 @@ def test_config_names_the_roadmap_item_for_unported_settings(kwargs, item):
     (dict(uplink="ota"), "requires compression='none'"),
     (dict(power_mode="ota-align"), "requires uplink='ota'"),
     (dict(topk=0.5, compression="none"), "topk < 1 requires"),
+    (dict(scheduler_backend="tpu"), "unknown scheduler_backend"),
 ])
 def test_config_keeps_the_reference_validation(kwargs, match):
     """Incoherent settings fail with the reference's messages before the
