@@ -39,7 +39,17 @@ package, and exits non-zero on the first failure.  Phases:
   7. the same run at M=30 with ``scheduler_backend="jax"`` on the CPU and on
      the card agree (schedules, bits, rates, ratios and times exactly;
      accuracy within 0.02; parameter drift within the bounds of
-     tests/test_fl_engine.py:_assert_equal_runs).
+     tests/test_fl_engine.py:_assert_equal_runs);
+  8. the over-the-air uplink: the OTA kernel against its plain version over
+     a sweep, in both row layouts (contiguous rows, read one element per
+     thread when N % 4 != 0; rows spaced for 16-byte loads, as the path
+     lays them out), and on one OTA round's own inputs (bit for bit), its
+     timing in both layouts,
+     the receiver-noise stream (its bits on the card equal the CPU's; the
+     per-round draw timed), the paper-width run with ``uplink="ota"``
+     (ota-align powers, noise 1e-9: one OTA launch per non-empty round) and
+     with ``uplink="tdma"`` (six aggregation launches per round), and the
+     M=30 OTA run on the CPU and on the card held to the same contract as 7.
 
 The last lines are the card's name and power limit as nvidia-smi reports
 them, one JSON object with every kernel's numbers, and the one-line result
@@ -76,6 +86,10 @@ SIC_SWEEP_V = (0, 1, 255, 256, 257, 10_120, 1_458_240, 2_083_200)
 NOISE, PMAX = 1.6e-14, 0.01     # benchmarks/scheduling_bench.py's instance
 SCHED_CASES = ((300, 35, 3, 64), (1000, 50, 3, 64))   # M, T, K, pool
 SLEEP_CYCLES = 200_000_000      # ~0.1 s of queued work ahead of a timing
+OTA_SWEEP_K = (0, 1, 3, 8)
+OTA_SWEEP_N = (0, 1, 257, 1000, 32_771, 266_610, 2_200_000)
+LENET_PARAMS = sum(LENET_LEAVES)    # 266,610
+OTA_NOISE = 1e-9                # benchmarks/ota_bench.py's NOISE_STD
 ACC_ATOL, PARAM_MEAN_ATOL, PARAM_MAX_ATOL = 0.02, 1e-6, 2e-2
 
 
@@ -98,7 +112,7 @@ def log(msg):
 
 def kernels_of_main_path():
     """Every kernel the main path runs, with its wrapper and metadata."""
-    from repro_torch.kernels import aggregate, sic_rates
+    from repro_torch.kernels import aggregate, ota_aggregate, sic_rates
 
     return [dict(
         name="weighted_aggregate",
@@ -114,6 +128,13 @@ def kernels_of_main_path():
         replaces="src/repro/kernels/sic_rates.py:56",
         wrapper=sic_rates.sic_weighted_rates,
         module=sic_rates,
+    ), dict(
+        name="ota_aggregate",
+        route="cuda",
+        source="src/repro_torch/kernels/csrc/ota_aggregate.cu",
+        replaces="src/repro/kernels/aggregate.py:170",
+        wrapper=ota_aggregate.ota_aggregate,
+        module=ota_aggregate,
     )]
 
 
@@ -402,6 +423,159 @@ def time_sic(mod, vertices, k=3, label=""):
 
 
 # --------------------------------------------------------------------------
+# the OTA kernel and the receiver-noise stream
+# --------------------------------------------------------------------------
+
+def _spaced(mod, x):
+    """``x`` copied into the OTA path's row layout (:func:`row_buffer`:
+    rows on 16-byte boundaries), in which the kernel takes its 16-byte
+    loads."""
+    out = mod.row_buffer(x.shape[0], x.shape[1], device=x.device)
+    out.copy_(x)
+    return out
+
+
+def _ota_case(mod, k, n, gen, spaced=False):
+    """Raw update rows (contiguous, or ``spaced`` as the path lays them
+    out), masked FedAvg coefficients (row 1 masked out when K > 1, as a
+    sub-threshold participant is) and scaled noise."""
+    dev = torch.device("cuda")
+    x = torch.randn(k, n, generator=gen) * 0.01
+    coeff = torch.rand(k, generator=gen)
+    if k > 1:
+        coeff[1] = 0.0
+    coeff = coeff / coeff.sum() if k else coeff
+    noise = torch.randn(n, generator=gen) * 3e-3
+    x = x.to(dev)
+    return (_spaced(mod, x) if spaced else x), coeff.to(dev), noise.to(dev)
+
+
+def _ota_errors(mod, x, coeff, noise, what):
+    """Kernel (through the wrapper) vs plain version on the card; fails
+    unless they agree to the bit; returns the max abs difference."""
+    k, n = x.shape
+    before = mod.ota_aggregate.launches
+    got = mod.ota_aggregate(x, coeff, noise)
+    want = mod.ota_aggregate_plain(x, coeff, noise)
+    torch.cuda.synchronize()
+    check(mod.ota_aggregate.launches == before + (k > 0 and n > 0),
+          f"OTA launches at {what}")
+    check(got.shape == want.shape == (n,) and got.device.type == "cuda",
+          f"OTA shape {tuple(got.shape)} at {what}")
+    err = (got - want).abs().max().item() if n else 0.0
+    check(err == 0.0, f"OTA kernel disagrees at {what}: max abs err {err!r}")
+    return err
+
+
+def compare_ota(mod):
+    """Kernel vs plain version on the card over the sweep; returns the
+    largest absolute difference."""
+    gen = torch.Generator().manual_seed(2)
+    worst = 0.0
+    for spaced in (False, True):
+        for k in OTA_SWEEP_K:
+            for n in OTA_SWEEP_N:
+                worst = max(worst, _ota_errors(
+                    mod, *_ota_case(mod, k, n, gen, spaced),
+                    f"K={k} n={n} {'spaced' if spaced else 'contiguous'}"))
+    log(f"[ota-kernel] {2 * len(OTA_SWEEP_K) * len(OTA_SWEEP_N)} cases (K in "
+        f"{OTA_SWEEP_K}, n in {OTA_SWEEP_N}, contiguous and spaced rows, a "
+        f"masked row) ok, max abs err {worst!r}")
+    return worst
+
+
+def _vector_rows(x):
+    """Whether the kernel takes its 16-byte loads on ``x``: rows a
+    multiple of 4 elements apart, on 16-byte boundaries."""
+    return x.stride(0) % 4 == 0 and x.data_ptr() % 16 == 0
+
+
+def time_ota(mod, k=3, n=LENET_PARAMS):
+    """One OTA round's reduction at the path's shape (K=3 clients, the
+    whole LeNet payload, in the path's spaced row layout): kernel, plain
+    version and ``torch.addmv`` (the yardstick library call, never on the
+    path) on the same inputs, warm in L2 as the path leaves them;
+    host-inclusive (interleaved plain/kernel/kernel/plain) and device
+    time, as :func:`time_aggregate` measures.  Beside it, the kernel's
+    device time on the same values in contiguous rows (n % 4 == 2 at
+    LeNet's P, so one element per thread)."""
+    x, coeff, noise = _ota_case(mod, k, n, torch.Generator().manual_seed(3),
+                                spaced=True)
+    check(_vector_rows(x), "the spaced rows do not take the 16-byte loads")
+    dense = x.contiguous()
+    counted = mod.ota_aggregate.launches
+    _ota_errors(mod, x, coeff, noise, f"timed K={k} n={n}")
+
+    def kern_fn():
+        return mod._launch(x, coeff, noise)
+
+    def dense_fn():
+        return mod._launch(dense, coeff, noise)
+
+    def plain_fn():
+        return mod.ota_aggregate_plain(x, coeff, noise)
+
+    def lib_fn():
+        return torch.addmv(noise, x.t(), coeff)
+
+    lib_err = (lib_fn() - kern_fn()).abs().max().item()
+    plain = _time_ms(plain_fn)
+    kern = _time_ms(kern_fn)
+    kern = 0.5 * (kern + _time_ms(kern_fn))
+    plain = 0.5 * (plain + _time_ms(plain_fn))
+    lib = _time_ms(lib_fn)
+    dev = {name: _device_ms(fn, iters=50) for name, fn in
+           (("plain", plain_fn), ("kernel", kern_fn), ("lib", lib_fn),
+            ("dense", dense_fn), ("kernel2", kern_fn))}
+    check(torch.equal(dense_fn(), kern_fn()),
+          "the two row layouts give different sums")
+    mod.ota_aggregate.launches = counted    # timing launches don't count
+    nbytes = (k + 2) * n * 4 + k * 4        # updates + noise + coeff in, out
+    flops = 2 * k * n
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    bound = max(t_bytes, t_ops)
+    log(f"[time] ota_aggregate K={k} n={n}: device kernel, 16-byte loads "
+        f"(spaced rows, the path's layout) {dev['kernel'] * 1e3:.3f} us, "
+        f"again {dev['kernel2'] * 1e3:.3f} us; one element per thread "
+        f"(contiguous rows) {dev['dense'] * 1e3:.3f} us")
+    log(f"[time] ota_aggregate K={k} n={n}: device kernel "
+        f"{dev['kernel'] * 1e3:.3f} us  plain {dev['plain'] * 1e3:.3f} us  "
+        f"addmv {dev['lib'] * 1e3:.3f} us; host-inclusive kernel "
+        f"{kern * 1e3:.3f} us  plain {plain * 1e3:.3f} us  addmv "
+        f"{lib * 1e3:.3f} us; bound {bound * 1e3:.4f} us "
+        f"({'bytes' if t_bytes >= t_ops else 'operations'}); "
+        f"{dev['kernel'] / bound:.2f}x the bound; addmv max abs diff "
+        f"{lib_err!r}")
+    return dict(ms=dev["kernel"], plain_ms=dev["plain"], library_ms=dev["lib"],
+                bound_ms=bound, host_ms=kern, plain_host_ms=plain,
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_noise(n=LENET_PARAMS):
+    """The receiver-noise stream of one round key: its bits on the card
+    equal the CPU's exactly; the draw of n normals timed on the card."""
+    from repro_torch.core import ota, prng
+
+    key = ota.horizon_keys(0, 4)[3]
+    card = prng.random_bits(key, n, device="cuda").cpu()
+    check(torch.equal(card, prng.random_bits(key, n, device="cpu")),
+          "noise bits differ between the card and the CPU")
+    z_card = prng.normal(key, n, device="cuda").cpu()
+    z_gap = (z_card - prng.normal(key, n, device="cpu")).abs().max().item()
+
+    def draw():
+        return prng.normal(key, n, device="cuda")
+
+    host = _time_ms(draw, iters=20, warmup=3)
+    dev = _device_ms(draw, iters=4)
+    log(f"[noise] round key {key.tolist()}: {n} bits equal on the card and "
+        f"the CPU; normals differ by at most {z_gap!r} (erfinv); draw of {n} "
+        f"normals per round: device {dev:.4f} ms, host-inclusive "
+        f"{host:.4f} ms")
+
+
+# --------------------------------------------------------------------------
 # the scheduler at paper width
 # --------------------------------------------------------------------------
 
@@ -554,14 +728,23 @@ def _world(m, samples):
     return ds, cell, shards
 
 
-def _config(m, t, backend="numpy"):
+def _config(m, t, backend="numpy", uplink="noma", **ota):
+    """The main path's settings; ``uplink="ota"`` takes the reference's OTA
+    configuration (raw updates, ota-align powers, receiver noise 1e-9
+    unless ``ota`` says otherwise)."""
     from repro_torch.config import FLConfig
 
-    return FLConfig(
+    extra = {}
+    if uplink == "ota":
+        extra = dict(compression="none", power_mode="ota-align",
+                     ota_noise=OTA_NOISE, ota_threshold=0.0)
+        extra.update(ota)
+    return FLConfig(**{**dict(
         num_devices=m, group_size=3, num_rounds=t, scheduler="lazy-gwmin",
         scheduler_backend=backend, power_mode="mapel",
-        compression="adaptive", fl_engine="batched", use_pallas=True, seed=0,
-    )
+        compression="adaptive", fl_engine="batched", use_pallas=True,
+        uplink=uplink, seed=0,
+    ), **extra})
 
 
 def run_main_path(kernels, mode, m=300, t=5, samples=12_000):
@@ -571,19 +754,22 @@ def run_main_path(kernels, mode, m=300, t=5, samples=12_000):
     backend, before the run), ``"jax"`` (``scheduler_backend="jax"``,
     inside the run, on the card) or ``"pallas"`` (``get_policy
     ("lazy-gwmin")`` on the card with the SIC kernel as scorer, handed to
-    the run as ``schedule=``).  The launch counts are zeroed just before
-    and read just after the schedule and the run."""
+    the run as ``schedule=``); ``"ota"`` and ``"tdma"`` take that uplink
+    with the host schedule.  The launch counts are zeroed just before and
+    read just after the schedule and the run."""
     from repro_torch.core import channel, fl, scheduling
 
     ds, cell, shards = _world(m, samples)
-    cfg = _config(m, t, "numpy" if mode == "host" else "jax")
+    uplink = mode if mode in ("ota", "tdma") else "noma"
+    cfg = _config(m, t, "jax" if mode in ("jax", "pallas") else "numpy",
+                  uplink)
     bundle = channel.sample_channels(cfg.seed, cell, cfg.num_rounds)
     sizes = np.array([len(s) for s in shards], dtype=np.float64)
     reset_launches(kernels)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     schedule = None
-    if mode == "host":
+    if mode in ("host", "ota", "tdma"):
         schedule = fl.make_schedule(bundle.gains, sizes / sizes.sum(), cell,
                                     cfg)
     elif mode == "pallas":
@@ -595,7 +781,7 @@ def run_main_path(kernels, mode, m=300, t=5, samples=12_000):
     t_sched = time.perf_counter() - t0
     if schedule is not None:
         log(f"[main:{mode}] M={m} K={cfg.group_size} T={t} samples={samples}:"
-            f" schedule (lazy-gwmin + MAPEL) {t_sched:.3f} s")
+            f" schedule (lazy-gwmin + {cfg.power_mode}) {t_sched:.3f} s")
 
     stamps = []    # host clock at the start, then after each round
 
@@ -622,9 +808,14 @@ def run_main_path(kernels, mode, m=300, t=5, samples=12_000):
 
     nonempty = sum(1 for lg in res.logs if lg.devices)
     acc = res.accuracies()
-    check(launches["weighted_aggregate"] == 6 * nonempty,
+    want_agg = 0 if uplink == "ota" else 6 * nonempty
+    check(launches["weighted_aggregate"] == want_agg,
           f"weighted_aggregate launched {launches['weighted_aggregate']} "
-          f"times, expected 6 x {nonempty} non-empty rounds")
+          f"times, expected {want_agg} ({nonempty} non-empty rounds)")
+    want_ota = nonempty if uplink == "ota" else 0
+    check(launches["ota_aggregate"] == want_ota,
+          f"ota_aggregate launched {launches['ota_aggregate']} times, "
+          f"expected {want_ota} ({nonempty} non-empty rounds)")
     want_sic = min(t, m // cfg.group_size) if mode == "pallas" else 0
     check(launches["sic_weighted_rates"] == want_sic,
           f"sic_weighted_rates launched {launches['sic_weighted_rates']} "
@@ -638,14 +829,58 @@ def run_main_path(kernels, mode, m=300, t=5, samples=12_000):
     return res, launches
 
 
-def compare_cpu_and_card(kernels, m=30, t=5, samples=12_000):
-    """The M=30 run with ``scheduler_backend="jax"`` on the CPU (plain
-    versions, greedy on the CPU) and on the card (kernels, greedy on the
-    card)."""
+def run_ota_main_path(kernels):
+    """``run_main_path(kernels, "ota")``, keeping a copy of the first OTA
+    round's kernel inputs (updates, coefficients, scaled noise), on which
+    the kernel is then held to its plain version, in the same row layout.
+    The copy is taken around the wrapper, which still launches and counts;
+    every round's payload must reach the kernel in rows it reads with
+    16-byte loads.  Returns (result,
+    launches per kernel, the kernel's max abs error on the path's round)."""
+    from repro_torch.core import ota
+    from repro_torch.kernels import ota_aggregate
+
+    seen, layouts = [], []
+    launch = ota.ota_aggregate
+
+    def keep_first(flat, coeff, noise):
+        layouts.append(_vector_rows(flat))
+        if not seen:
+            seen.append((flat.clone(), coeff.clone(), noise.clone()))
+        return launch(flat, coeff, noise)
+
+    ota.ota_aggregate = keep_first
+    try:
+        res, launches = run_main_path(kernels, "ota")
+    finally:
+        ota.ota_aggregate = launch
+    check(bool(seen), "the OTA main path never reached the OTA kernel")
+    check(all(layouts), f"OTA payload rows not spaced for 16-byte loads: "
+          f"{layouts}")
+    x, coeff, noise = seen[0]
+    x = _spaced(ota_aggregate, x)
+    counted = ota_aggregate.ota_aggregate.launches
+    err = _ota_errors(ota_aggregate, x, coeff, noise,
+                      f"the main path's round (K={x.shape[0]}, P={x.shape[1]})")
+    ota_aggregate.ota_aggregate.launches = counted   # the check doesn't count
+    log(f"[ota-kernel] main path's own round K={x.shape[0]} P={x.shape[1]}: "
+        f"max abs err {err!r}; {len(layouts)} rounds, every payload in "
+        f"16-byte-load rows")
+    return res, launches, err
+
+
+def compare_cpu_and_card(kernels, m=30, t=5, samples=12_000, uplink="noma"):
+    """The M=30 run on the CPU (plain versions) and on the card (kernels):
+    with ``scheduler_backend="jax"`` (greedy on the CPU and on the card)
+    under NOMA, and under OTA with ota-align powers, receiver noise 1e-9
+    and truncation threshold 0.1."""
     from repro_torch.core import fl
 
     ds, cell, shards = _world(m, samples)
-    cfg = _config(m, t, "jax")
+    if uplink == "ota":
+        cfg = _config(m, t, "numpy", "ota", ota_threshold=0.1)
+    else:
+        cfg = _config(m, t, "jax")
     cpu = fl.run_federated_learning(ds, shards, cell, cfg, device="cpu")
     reset_launches(kernels)
     gpu = fl.run_federated_learning(ds, shards, cell, cfg, device="cuda")
@@ -667,7 +902,12 @@ def compare_cpu_and_card(kernels, m=30, t=5, samples=12_000):
             worst_max = max(worst_max, d.max().item())
     check(worst_mean < PARAM_MEAN_ATOL and worst_max < PARAM_MAX_ATOL,
           f"param drift mean {worst_mean} max {worst_max}")
-    log(f"[parity] M={m} scheduler_backend='jax' CPU vs card: "
+    label = (f"[cpu-vs-card:ota] M={m} ota-align noise 1e-9 threshold 0.1"
+             if uplink == "ota" else f"[parity] M={m} scheduler_backend='jax'")
+    nonempty = sum(1 for lg in gpu.logs if lg.devices)
+    check(launches["ota_aggregate"] == (nonempty if uplink == "ota" else 0),
+          f"card run launched ota_aggregate {launches['ota_aggregate']} times")
+    log(f"{label} CPU vs card: "
         f"schedules/bits/rates/ratios/times equal, acc gap {acc_gap!r}, "
         f"param drift mean {worst_mean!r} max {worst_max!r}, card launches "
         f"{launches}")
@@ -679,6 +919,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     sys.path.insert(0, os.path.join(REPO, "src"))
     from repro_torch.device import resolve_device
 
@@ -712,6 +953,20 @@ def main() -> int:
           "the three main-path runs scheduled differently")
     compare_cpu_and_card(kernels)
 
+    ota_mod = kernels[2]["module"]
+    errs["ota_aggregate"] = compare_ota(ota_mod)
+    times["ota_aggregate"] = time_ota(ota_mod)
+    check_noise()
+    ota_run, ota_launches, path_err = run_ota_main_path(kernels)
+    errs["ota_aggregate"] = max(errs["ota_aggregate"], path_err)
+    tdma_run, _ = run_main_path(kernels, "tdma")
+    check([lg.devices for lg in ota_run.logs]
+          == [lg.devices for lg in tdma_run.logs]
+          == [lg.devices for lg in host.logs],
+          "the OTA, TDMA and NOMA runs scheduled differently")
+    compare_cpu_and_card(kernels, uplink="ota")
+    launches["ota_aggregate"] = ota_launches["ota_aggregate"]
+
     rows = []
     for kern in kernels:
         name = kern["name"]
@@ -726,6 +981,8 @@ def main() -> int:
         ))
         check(all(math.isfinite(v) for v in t.values()
                   if isinstance(v, float)), f"{name} timing not finite")
+    log(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s "
+        f"(build included)")
     print(smi, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

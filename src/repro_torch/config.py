@@ -38,7 +38,7 @@ class FLConfig:
     scheduler: str = "lazy-gwmin"    # lazy-gwmin | round-robin (ported)
     scheduler_backend: str = "numpy"  # numpy (host) | jax (device, fused) |
                                       # jax-stepwise (device, sync per step)
-    power_mode: str = "mapel"        # mapel | max (ported) | ota-align
+    power_mode: str = "mapel"        # mapel | max | ota-align (ported)
     compression: str = "adaptive"    # adaptive | none
     paper_exact_range: bool = False  # DoReFa fixed [-1,1] range (Eq. 7)
     fl_engine: str = "legacy"        # batched (ported) | legacy
@@ -51,7 +51,7 @@ class FLConfig:
     model: str = "lenet"             # lenet (ported)
     topk: float = 1.0                # 1.0 = dense (ported)
     client_bank: str = "padded"      # padded (ported) | bucketed
-    uplink: str = "noma"             # noma (ported) | tdma | ota
+    uplink: str = "noma"             # noma | tdma | ota (ported)
     ota_noise: float = 0.0
     ota_threshold: float = 0.0
     seed: int = 0
@@ -127,12 +127,8 @@ class FLConfig:
             raise _not_ported(f"online scheduler {self.scheduler!r}", 5)
         if self.scheduler not in scheduling.available_policies():
             raise _not_ported(f"scheduler {self.scheduler!r}", 1)
-        if self.uplink == "tdma":
-            raise _not_ported("uplink='tdma'", 2)
         if self.horizon == "scan":
             raise _not_ported("horizon='scan'", 4)
-        if self.uplink == "ota":
-            raise _not_ported("uplink='ota'", 6)
         if self.topk < 1.0:
             raise _not_ported("topk < 1", 7)
         if self.client_bank == "bucketed":

@@ -11,12 +11,19 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
 
-def params_from_jax(tree, *, device="cpu"):
+
+def params_from_jax(tree, *, device=None):
     """Nested dict of array-likes (e.g. numpy leaves of a JAX parameter
-    tree) -> the port's nested dict of float32 tensors on ``device``."""
+    tree) -> the port's nested dict of float32 tensors on ``device``
+    (``None`` means ``cuda``, which raises without CUDA: pass ``"cpu"``)."""
+    return _params_to_torch(tree, resolve_device(device))
+
+
+def _params_to_torch(tree, device: torch.device):
     if isinstance(tree, dict):
-        return {k: params_from_jax(v, device=device) for k, v in tree.items()}
+        return {k: _params_to_torch(v, device) for k, v in tree.items()}
     arr = np.array(tree, dtype=np.float32, copy=True)
     return torch.from_numpy(arr).to(device)
 

@@ -11,6 +11,11 @@ FedAvg over the simulated NOMA cell, per round t:
     5. PS aggregates: theta^{t+1} = theta^t + sum_k w_k * dq(delta_k),
        w_k = |D_k| / sum_selected |D_k|.
   Timing: NOMA round = t_slot + T_d (§IV); an empty round costs T_d only.
+  TDMA (the paper's Fig. 5 baseline): each scheduled device sends alone in
+  its own sub-slot at its interference-free rate; a round costs one
+  sub-slot per scheduled device + T_d.  OTA (over-the-air analog
+  aggregation): the raw deltas are superposed on air and the noisy sum is
+  the aggregate (:mod:`repro_torch.core.ota`); one shared slot, as NOMA.
 
 The port of ``repro.core.fl``'s per-round loop with the batched engine:
 the host control plane (channels, schedule, MAPEL powers, rates, budgets,
@@ -32,7 +37,7 @@ import numpy as np
 from repro_torch.config import FLConfig
 from repro_torch.convert import params_from_jax
 from repro_torch.core import channel as chan
-from repro_torch.core import errors, fl_engine, scheduling
+from repro_torch.core import fl_engine, noma, scheduling
 from repro_torch.core import ota as ota_lib
 from repro_torch.device import resolve_device
 from repro_torch.models.fl_models import get_fl_model
@@ -98,11 +103,25 @@ def make_schedule(
     )
 
 
-def _round_physics(devs, rates, cell, dl_time):
-    """Uplink rates, bit budgets and wall time of one scheduled NOMA round
-    (every scheduled device shares one uplink slot, which is spent only
-    when someone transmits).  Returns ``(rates, budgets, round_time)``;
-    ``rates`` / ``budgets`` are (len(devs),) float64."""
+def _round_physics(devs, powers_t, rates, t, gains, cell, uplink, dl_time):
+    """Uplink rates, bit budgets and wall time of one scheduled round.
+
+    The single owner of the §IV timing and budget rules.  Returns
+    ``(rates, budgets, round_time)``; under NOMA and OTA ``rates`` /
+    ``budgets`` are (len(devs),) float64, under TDMA float32 (the
+    reference's jnp rates)."""
+    if uplink == "tdma":
+        # each device alone in its own full sub-slot, interference-free
+        rates = noma.tdma_rates(powers_t, gains[t, list(devs)],
+                                cell.noise_power_w)
+        budgets = rates * cell.bandwidth_hz * cell.slot_seconds
+        # airtime = one sub-slot per *scheduled* device (an empty or partial
+        # T*K > M tail round is not charged K sub-slots)
+        return rates, budgets, len(devs) * cell.slot_seconds + dl_time
+    # noma and ota share one uplink slot per non-empty round (the analog
+    # superposition is a simultaneous transmission); OTA logs the SIC rates
+    # as the digital-equivalent capacity of that slot, which nothing
+    # quantizes to (compression='none' is enforced)
     rates = np.asarray(rates)
     budgets = rates * cell.bandwidth_hz * cell.slot_seconds
     uplink_time = cell.slot_seconds if devs else 0.0
@@ -141,7 +160,12 @@ def run_federated_learning(
     """Simulate the full FL process; returns per-round logs.
 
     dataset: ``repro_torch.data.Dataset``; shards: per-device index lists.
-    ``uplink`` defaults to ``cfg.uplink`` (this slice runs ``"noma"``).
+    ``uplink`` defaults to ``cfg.uplink`` and an explicit argument
+    overrides it (checked against the config's combination rules either
+    way).  Under ``"ota"`` the round's aggregate is the noisy analog
+    superposition (:mod:`repro_torch.core.ota`) instead of the digital
+    decode-and-average; under ``"tdma"`` every scheduled device sends alone
+    in its own sub-slot.
     ``channels`` (a :class:`~repro_torch.core.channel.ChannelBundle`) and
     ``init_params`` (a nested dict of array-likes, e.g. the reference's
     initial weights as numpy) replace the port's own draws.  ``device``
@@ -154,10 +178,6 @@ def run_federated_learning(
         uplink, compression=cfg.compression, topk=cfg.topk,
         power_mode=cfg.power_mode,
     )
-    if uplink != "noma":
-        raise NotImplementedError(errors.ERR_NOT_PORTED.format(
-            feature=f"uplink={uplink!r}", item=6 if uplink == "ota" else 2,
-        ))
     model = get_fl_model(cfg.model)
     if init_params is None:
         params = model.init(cfg.seed, device=dev)
@@ -185,16 +205,27 @@ def run_federated_learning(
     # Fig. 5 time scale implies a fading-free downlink)
     dl_time = float(chan.downlink_time_seconds(payload, channels.dl_gains, cell))
 
+    # OTA receiver-noise keys for the whole horizon, on the host
+    ota_keys = (
+        ota_lib.horizon_keys(cfg.seed, cfg.num_rounds)
+        if uplink == "ota" else None
+    )
+
     logs = []
     t_wall = 0.0
     for t in range(cfg.num_rounds):
         devs = schedule.rounds[t]
         rates, budgets, round_time = _round_physics(
-            devs, schedule.rates[t], cell, dl_time
+            devs, schedule.powers[t], schedule.rates[t], t, gains, cell,
+            uplink, dl_time,
         )
         agg_w = _agg_weights(sizes, devs)
+        ota_round = None
+        if ota_keys is not None and devs:
+            ota_round = dict(gains=gains[t, list(devs)], key=ota_keys[t],
+                             pmax=float(cell.max_power_w))
         params, bits_used, ratios = engine.run_round(
-            params, devs, budgets, agg_w
+            params, devs, budgets, agg_w, ota=ota_round
         )
         t_wall += round_time
         # the final round is always evaluated

@@ -15,7 +15,10 @@ The port of ``repro.core.fl_engine``'s per-round batched engine
   4. **aggregation** — with ``use_pallas`` (the reference's name for the
      fused kernel path) every parameter leaf goes through the hand-written
      aggregation kernel (:func:`repro_torch.kernels.aggregate.weighted_aggregate`);
-     otherwise through the einsum the reference computes in XLA.
+     otherwise through the einsum the reference computes in XLA.  Under
+     the over-the-air uplink, steps 3-4 are replaced by the analog
+     superposition (:func:`repro_torch.core.ota.superpose_tree`): the
+     noisy channel sum of the raw deltas is the aggregate.
 
 Scheduling, power allocation, budgets, timing and logging stay in the
 :mod:`repro_torch.core.fl` runtime on the host.
@@ -25,6 +28,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core import ota as ota_lib
 from repro_torch.core import quantization as qlib
 from repro_torch.data.client_bank import ClientBank, EvalBank, eval_sample_plan
 from repro_torch.kernels.aggregate import weighted_aggregate
@@ -141,13 +145,18 @@ def _einsum_aggregate_leaf(leaf, bits_k, agg_w, *, compress, paper_exact):
 def _train_quantize_aggregate(
     params, x, y, budgets, agg_w,
     *, lr, epochs, payload, compress, paper_exact, use_pallas, model,
+    ota=None,
 ):
     """The round body on gathered client rows: batched local SGD ->
     per-client quantization -> weighted aggregation.
 
     x: (K, nb, BS, ...); y: (K, nb, BS); budgets: (K,) float32 bit budgets;
     agg_w: (K,) float32 FedAvg weights.  Returns ``(new_params, bits)``
-    with bits (K,) int32.
+    with bits (K,) int32.  ``ota`` (dict or None) swaps quantization and
+    aggregation for the over-the-air superposition: ``gains`` (K,) float32
+    channel amplitudes on the device, ``key`` (2,) uint32 noise key,
+    ``pmax``, ``noise_std`` and ``threshold``; bits are then logged as 32
+    (nothing is quantized on air).
     """
     k = x.shape[0]
     start = _map(lambda w: w.unsqueeze(0).expand(k, *w.shape), params)
@@ -155,6 +164,17 @@ def _train_quantize_aggregate(
     for _ in range(epochs):
         new = sgd_epoch(new, x, y, lr, model=model)
     deltas = _map(lambda a, b: a - b, new, start)
+
+    if ota is not None:
+        with torch.no_grad():
+            update = ota_lib.superpose_tree(
+                deltas, ota["gains"], agg_w, ota["key"], pmax=ota["pmax"],
+                noise_std=ota["noise_std"], threshold=ota["threshold"],
+                use_pallas=use_pallas,
+            )
+            new_params = _map(lambda p, u: p + u, params, update)
+        return new_params, torch.full((k,), 32, dtype=torch.int32,
+                                      device=x.device)
 
     if compress:
         bits = qlib.adaptive_bits(payload, budgets)
@@ -175,6 +195,7 @@ def _train_quantize_aggregate(
 def _round_step(
     params, xb, yb, dev_idx, budgets, agg_w,
     *, nb, lr, epochs, payload, compress, paper_exact, use_pallas, model,
+    ota=None,
 ):
     """gather -> round body.  ``nb`` slices the bank's batch grid down to
     the scheduled group's own max batch count; batches past a client's own
@@ -185,6 +206,7 @@ def _round_step(
         params, x, y, budgets, agg_w,
         lr=lr, epochs=epochs, payload=payload, compress=compress,
         paper_exact=paper_exact, use_pallas=use_pallas, model=model,
+        ota=ota,
     )
 
 
@@ -202,6 +224,14 @@ def _eval_sampled(params, xe, ye, idx, *, model):
     once."""
     with torch.no_grad():
         return model.accuracy(params, xe[idx], ye[idx])
+
+
+def _to_device(t: torch.Tensor, device) -> torch.Tensor:
+    """A small host tensor on ``device``; a CUDA copy goes through pinned
+    memory and is queued on the stream, so the host does not wait."""
+    if torch.device(device).type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t
 
 
 class BatchedRoundEngine:
@@ -241,13 +271,17 @@ class BatchedRoundEngine:
             )
         return float(acc)
 
-    def run_round(self, params, devs, budgets, agg_w):
+    def run_round(self, params, devs, budgets, agg_w, ota=None):
         """Run one round's local training + upload + aggregation.
 
         devs: scheduled device ids; budgets: per-device uplink bit budgets
         (float64, host); agg_w: FedAvg weights |D_k| / sum |D_k| (float64,
-        host).  Returns ``(params, bits, ratios)`` with bits (K,) int32 and
-        ratios (K,) float64 numpy arrays for the round log.
+        host).  ``ota`` (dict or None) switches the upload to the
+        over-the-air superposition: ``gains`` (K,) channel amplitudes
+        (float64, host), ``key`` (2,) uint32 receiver-noise key and
+        ``pmax`` for the round; noise std and truncation threshold come
+        from the config.  Returns ``(params, bits, ratios)`` with bits (K,)
+        int32 and ratios (K,) float64 numpy arrays for the round log.
         """
         k = len(devs)
         if k == 0:    # empty T*K > M tail round: nothing to train or send
@@ -263,6 +297,16 @@ class BatchedRoundEngine:
         agg32 = torch.as_tensor(np.asarray(agg_w, np.float64)).to(
             torch.float32
         )
+        ota_dev = None
+        if ota is not None:
+            gains32 = torch.as_tensor(np.asarray(ota["gains"], np.float64)).to(
+                torch.float32
+            )
+            ota_dev = dict(
+                gains=_to_device(gains32, self.device), key=ota["key"],
+                pmax=float(ota["pmax"]), noise_std=float(cfg.ota_noise),
+                threshold=float(cfg.ota_threshold),
+            )
         params, bits = _round_step(
             params, self.bank.xb, self.bank.yb,
             torch.as_tensor(list(devs), dtype=torch.int64, device=self.device),
@@ -270,7 +314,7 @@ class BatchedRoundEngine:
             nb=nb, lr=float(cfg.learning_rate), epochs=int(cfg.local_epochs),
             payload=self.payload, compress=compress,
             paper_exact=bool(cfg.paper_exact_range),
-            use_pallas=bool(cfg.use_pallas), model=self.model,
+            use_pallas=bool(cfg.use_pallas), model=self.model, ota=ota_dev,
         )
         if compress:
             # the reference's host call computes in float32 too

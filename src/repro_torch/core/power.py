@@ -35,7 +35,6 @@ import dataclasses
 
 import numpy as np
 
-from repro_torch.core import errors
 from repro_torch.core import rates as rates_lib
 
 
@@ -432,12 +431,32 @@ def mapel_batched(
 # --------------------------------------------------------------------------
 
 POWER_MODES = ("max", "mapel", "ota-align")
-# the reference's mode names; "ota-align" belongs to the OTA uplink, which
-# a later slice of the port brings (ROADMAP.md queue 1).
 
-_OTA_ALIGN_NOT_PORTED = errors.ERR_NOT_PORTED.format(
-    feature="power_mode='ota-align'", item=6
-)
+
+def ota_align_powers(gains, weights, pmax: float) -> np.ndarray:
+    """OTA alignment powers: truncated channel inversion at schedule time.
+
+    Under the over-the-air uplink (core/ota.py) device k transmits
+    ``sqrt(eta) * w_k / h_k`` per coordinate, so its *planned* power (unit-
+    norm update convention: the scheduler never sees realized energies) is
+
+        p_k = eta * w_k^2 / h_k^2,     eta = min_k pmax * h_k^2 / w_k^2
+
+    — the binding device transmits at exactly pmax.  Zero-gain or
+    zero-weight devices are left out of the eta min and get zero power.
+    Input (unsorted) order in, same order out.
+    """
+    g = np.asarray(gains, dtype=np.float64)
+    w = np.asarray(weights, dtype=np.float64)
+    live = (g > 0.0) & (w > 0.0)
+    if not live.any():
+        return np.zeros(g.shape, dtype=np.float64)
+    with np.errstate(divide="ignore"):
+        caps = np.where(live, pmax * g * g / np.maximum(w * w, 1e-300), np.inf)
+    eta = float(np.min(caps))
+    with np.errstate(divide="ignore"):
+        p = np.where(live, eta * w * w / np.maximum(g * g, 1e-300), 0.0)
+    return np.minimum(p, pmax)   # the min-cap guarantees this; belt and braces
 
 
 @dataclasses.dataclass(frozen=True)
@@ -449,8 +468,8 @@ class PowerAllocator:
     For ``mode="mapel"`` the batched form is the lockstep polyblock
     (:func:`mapel_batched`), which reproduces the sequential solver
     group-for-group; ``mode="max"`` is the no-power-control baseline;
-    ``mode="ota-align"`` (the over-the-air channel-inversion alignment)
-    comes with the port's OTA slice and raises until then.
+    ``mode="ota-align"`` is the over-the-air channel-inversion alignment
+    (:func:`ota_align_powers`; FLConfig restricts it to uplink="ota").
 
     Instances are also callable ((gains, weights) -> powers) and expose
     ``batched`` as an alias of ``solve_batched``, so every legacy
@@ -474,7 +493,7 @@ class PowerAllocator:
         if self.mode == "max":
             return max_power(gains_k, self.pmax)
         if self.mode == "ota-align":
-            raise NotImplementedError(_OTA_ALIGN_NOT_PORTED)
+            return ota_align_powers(gains_k, weights_k, self.pmax)
         return mapel(
             gains_k, weights_k, self.pmax, self.noise_power, eps=self.eps
         ).powers
@@ -484,7 +503,12 @@ class PowerAllocator:
         if self.mode == "max":
             return np.full(np.shape(gains_vk), self.pmax, dtype=np.float64)
         if self.mode == "ota-align":
-            raise NotImplementedError(_OTA_ALIGN_NOT_PORTED)
+            gains_vk = np.asarray(gains_vk, dtype=np.float64)
+            weights_vk = np.asarray(weights_vk, dtype=np.float64)
+            return np.stack([
+                ota_align_powers(g, w, self.pmax)
+                for g, w in zip(gains_vk, weights_vk)
+            ]) if len(gains_vk) else np.zeros(np.shape(gains_vk))
         return mapel_batched(
             gains_vk, weights_vk, self.pmax, self.noise_power, eps=self.eps
         ).powers

@@ -31,7 +31,8 @@ class LenetFLModel:
     name: str = "lenet"
     kind: str = "image"
 
-    def init(self, seed: int, *, device="cpu"):
+    def init(self, seed: int, *, device=None):
+        """Fresh parameters on ``device`` (``None`` means ``cuda``)."""
         return init_lenet(seed, device=device)
 
     def batch_loss(self, params, bx, by, valid):

@@ -13,11 +13,14 @@ import math
 
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.models import lenet
 
 
-def init_lenet(seed: int, *, device="cpu"):
-    """Fresh LeNet parameters (nested dict of float32 tensors)."""
+def init_lenet(seed: int, *, device=None):
+    """Fresh LeNet parameters (nested dict of float32 tensors) on ``device``
+    (``None`` means ``cuda``, which raises without CUDA: pass ``"cpu"``)."""
+    device = resolve_device(device)
     gen = torch.Generator(device="cpu").manual_seed(int(seed))
     params = {}
     for name, fan_in, fan_out in lenet.LAYERS:

@@ -155,6 +155,17 @@ def task_fl_run(spec, arrays):
     return out
 
 
+def task_fl_runs(spec, arrays):
+    """task_fl_run for each run of ``spec["runs"]`` in this one process (a
+    reference FL run costs seconds; the process start and the JAX import are
+    paid once); each run's arrays are prefixed with ``<key>/``."""
+    out = {}
+    for run in spec["runs"]:
+        for name, value in task_fl_run(run, arrays).items():
+            out[f"{run['key']}/{name}"] = value
+    return out
+
+
 def task_lazy_greedy(spec, arrays):
     """scheduling.lazy_greedy_schedule for each run of ``spec["runs"]``
     (backend, scorer, shards, power mode) on the gains ``g/<key>`` and
@@ -186,6 +197,7 @@ TASKS = {
     "sgd_epoch": task_sgd_epoch,
     "init_params": task_init_params,
     "fl_run": task_fl_run,
+    "fl_runs": task_fl_runs,
     "lazy_greedy": task_lazy_greedy,
 }
 

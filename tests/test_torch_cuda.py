@@ -9,16 +9,18 @@ Tolerances: the aggregation kernel within rtol 1e-5 / atol 1e-6, as
 tests/test_kernels.py holds the Pallas kernels; the SIC scorer within
 relative 2e-5, as tests/test_rates.py holds its Pallas kernel.  Each kernel
 and its plain version take the same operations in the same order, so in
-practice they agree to the bit.  The device greedy's schedules equal the
-numpy backend's exactly.
+practice they agree to the bit; the OTA kernel is held to its plain version
+bit for bit (both take one fused multiply-add per client).  The device
+greedy's schedules equal the numpy backend's exactly, and the OTA noise
+stream's bits on the card equal those on the CPU.
 """
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.core import scheduling  # noqa: E402
-from repro_torch.kernels import aggregate, sic_rates  # noqa: E402
+from repro_torch.core import ota, prng, scheduling  # noqa: E402
+from repro_torch.kernels import aggregate, ota_aggregate, sic_rates  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 RTOL, ATOL = 1e-5, 1e-6
@@ -139,3 +141,72 @@ def test_device_greedy_matches_numpy_on_the_card(cuda, backend, scorer, m, k,
                                         scorer=scorer, device=cuda, **kw)
     assert a.rounds == b.rounds
     assert a.weighted_sum_rate == b.weighted_sum_rate
+
+
+@pytest.mark.parametrize("k", [0, 1, 3, 8])
+@pytest.mark.parametrize("n", [1, 257, 1000, 32_771, 266_610, 2_200_000])
+def test_ota_kernel_matches_plain_bit_for_bit(cuda, k, n):
+    gen = torch.Generator().manual_seed(k * 1000 + n)
+    x = torch.randn(k, n, generator=gen).to(cuda)
+    coeff = torch.rand(k, generator=gen)
+    if k > 1:
+        coeff[1] = 0.0                      # a participant masked out
+    coeff = (coeff / coeff.sum() if k else coeff).to(cuda)
+    noise = (torch.randn(n, generator=gen) * 1e-3).to(cuda)
+    before = ota_aggregate.ota_aggregate.launches
+    got = ota_aggregate.ota_aggregate(x, coeff, noise)
+    assert ota_aggregate.ota_aggregate.launches == before + (k > 0)
+    want = ota_aggregate.ota_aggregate_plain(x, coeff, noise)
+    torch.cuda.synchronize()
+    assert got.device.type == "cuda" and got.shape == (n,)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("k", [1, 3, 8])
+@pytest.mark.parametrize("n", [1, 2, 257, 1000, 266_610])
+def test_ota_kernel_reads_spaced_rows(cuda, k, n):
+    """The OTA path's layout (row_buffer: 16-byte loads, ragged last quad
+    element by element) against the plain version, bit for bit."""
+    gen = torch.Generator().manual_seed(k * 7 + n)
+    x = torch.randn(k, n, generator=gen)
+    coeff = torch.rand(k, generator=gen)
+    noise = torch.randn(n, generator=gen) * 1e-3
+    rows = ota_aggregate.row_buffer(k, n, device=cuda)
+    rows.copy_(x)
+    got = ota_aggregate.ota_aggregate(rows, coeff.to(cuda), noise.to(cuda))
+    want = ota_aggregate.ota_aggregate_plain(x, coeff, noise)
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
+
+
+def test_ota_kernel_edges_and_unaligned_rows(cuda):
+    out = ota_aggregate.ota_aggregate(
+        torch.zeros((3, 0), device=cuda), torch.ones(3, device=cuda),
+        torch.zeros(0, device=cuda))
+    assert out.shape == (0,)
+    x = torch.randn(2, 6, 9, device=cuda)
+    coeff = torch.tensor([0.4, 0.6], device=cuda)
+    noise = torch.randn(54, device=cuda)
+    out = ota_aggregate.ota_aggregate(x, coeff, noise)
+    assert out.shape == (6, 9)
+    torch.testing.assert_close(
+        out, ota_aggregate.ota_aggregate_plain(x.reshape(2, 54), coeff,
+                                               noise).reshape(6, 9),
+        rtol=0, atol=0)
+    base = torch.randn(3 * 1001 + 1, device=cuda)
+    rows = base[1:].reshape(3, 1001)            # rows not 16-byte aligned
+    got = ota_aggregate._launch(rows.contiguous(), coeff.new_tensor(
+        [0.5, -1.0, 2.0]), noise.new_zeros(1001))
+    torch.testing.assert_close(got, ota_aggregate.ota_aggregate_plain(
+        rows, coeff.new_tensor([0.5, -1.0, 2.0]), noise.new_zeros(1001)),
+        rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("p", [1, 54, 266_610])
+def test_noise_bits_on_the_card_equal_the_cpu(cuda, p):
+    key = ota.horizon_keys(0, 4)[3]
+    got = prng.random_bits(key, p, device=cuda)
+    torch.testing.assert_close(got.cpu(), prng.random_bits(key, p,
+                                                           device="cpu"),
+                               rtol=0, atol=0)
+    z = prng.normal(key, p, device=cuda)
+    assert z.dtype == torch.float32 and bool(torch.isfinite(z).all())

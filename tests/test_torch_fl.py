@@ -64,7 +64,7 @@ def test_lenet_loss_and_grad_match_reference(tmp_path):
     want = run_reference(tmp_path, "lenet_grad", {}, arrays)
 
     model = LenetFLModel()
-    params = convert.params_from_jax(tree(arrays, "p/"))
+    params = convert.params_from_jax(tree(arrays, "p/"), device="cpu")
     req = {a: {c: v.clone().requires_grad_(True) for c, v in d.items()}
            for a, d in params.items()}
     # one client: add the client axis the engine trains over
@@ -86,7 +86,8 @@ def test_lenet_loss_and_grad_match_reference(tmp_path):
 
 
 def test_lenet_module_matches_functional_forward():
-    params = convert.params_from_jax(tree(_numpy_params(1), "p/"))
+    params = convert.params_from_jax(tree(_numpy_params(1), "p/"),
+                                     device="cpu")
     net = lenet.LeNet(params)
     x = torch.from_numpy(make_mnist_like(num_samples=100, seed=2).x_test)
     torch.testing.assert_close(net(x), lenet.forward(params, x), rtol=0, atol=0)
@@ -108,7 +109,7 @@ def test_sgd_epoch_matches_reference(tmp_path):
     arrays.update(x=x, y=y)
     want = run_reference(tmp_path, "sgd_epoch", {"lr": 0.05}, arrays)
 
-    params = convert.params_from_jax(tree(arrays, "p/"))
+    params = convert.params_from_jax(tree(arrays, "p/"), device="cpu")
     batched = {a: {c: v.unsqueeze(0) for c, v in d.items()}
                for a, d in params.items()}
     new = fl_engine.sgd_epoch(batched, torch.from_numpy(x)[None],
@@ -121,7 +122,8 @@ def test_sgd_epoch_matches_reference(tmp_path):
 
 
 def test_all_padding_batches_leave_params_exactly_unchanged():
-    params = convert.params_from_jax(tree(_numpy_params(5), "p/"))
+    params = convert.params_from_jax(tree(_numpy_params(5), "p/"),
+                                     device="cpu")
     batched = {a: {c: v.unsqueeze(0).repeat(2, *([1] * v.dim()))
                    for c, v in d.items()} for a, d in params.items()}
     x = torch.rand(2, 3, 10, 784)
@@ -239,7 +241,9 @@ def test_port_imports_neither_jax_nor_reference():
     assert proc.returncode == 0, proc.stderr[-3000:]
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert "repro_torch.core.fl" in out["modules"]
-    assert "repro_torch.kernels.aggregate" in out["modules"]
+    for name in ("kernels.aggregate", "kernels.ota_aggregate", "core.ota",
+                 "core.prng", "core.noma", "core.power"):
+        assert "repro_torch." + name in out["modules"]
     assert out["bad"] == []
 
 
@@ -263,25 +267,42 @@ def test_entry_points_default_to_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="pass device='cpu'"):
         fl.run_federated_learning(ds, shards, cell, cfg)
     # an uplink override at the call site is checked like the config's
-    with pytest.raises(NotImplementedError, match="queue 1 item 2 brings"):
-        fl.run_federated_learning(ds, shards, cell, cfg, uplink="tdma",
+    with pytest.raises(ValueError, match="requires compression='none'"):
+        fl.run_federated_learning(ds, shards, cell, cfg, uplink="ota",
                                   device="cpu")
     with pytest.raises(ValueError, match="unknown uplink"):
         fl.run_federated_learning(ds, shards, cell, cfg, uplink="x",
                                   device="cpu")
 
 
+def test_parameter_entry_points_default_to_cuda(monkeypatch):
+    """params_from_jax, LenetFLModel.init and init_lenet put their tensors
+    on cuda unless given device='cpu', and raise without CUDA."""
+    from repro_torch.models.params import init_lenet
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (
+        lambda **kw: convert.params_from_jax(tree(_numpy_params(0), "p/"),
+                                             **kw),
+        lambda **kw: LenetFLModel().init(0, **kw),
+        lambda **kw: init_lenet(0, **kw),
+    ):
+        with pytest.raises(RuntimeError, match="pass device='cpu'"):
+            make()
+        params = make(device="cpu")
+        assert all(leaf.device.type == "cpu"
+                   for layer in params.values() for leaf in layer.values())
+
+
 # The case ids from "kwargs4-4" on are the ones these cases had before the
-# scheduler_backend="jax" case (item 3, ported) left the list.
+# scheduler_backend="jax" case (item 3), the uplink="tdma" case (item 2) and
+# the uplink="ota" case (item 6) left the list as they were ported.
 @pytest.mark.parametrize("kwargs,item", [
     (dict(), 1),                                        # default engine: legacy
     (dict(fl_engine="batched", scheduler="random"), 1),
-    (dict(fl_engine="batched", uplink="tdma"), 2),
     pytest.param(dict(fl_engine="batched", horizon="scan"), 4, id="kwargs4-4"),
     pytest.param(dict(fl_engine="batched", scheduler="update-aware"), 5,
                  id="kwargs5-5"),
-    pytest.param(dict(fl_engine="batched", uplink="ota", compression="none",
-                      power_mode="max"), 6, id="kwargs6-6"),
     pytest.param(dict(fl_engine="batched", topk=0.5), 7, id="kwargs7-7"),
     pytest.param(dict(fl_engine="batched", client_bank="bucketed"), 7,
                  id="kwargs8-7"),
@@ -294,6 +315,20 @@ def test_config_names_the_roadmap_item_for_unported_settings(kwargs, item):
     with pytest.raises(NotImplementedError,
                        match=f"ROADMAP.md queue 1 item {item} brings it"):
         FLConfig(**kwargs)
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(uplink="tdma"),
+    dict(uplink="ota", compression="none", power_mode="max"),
+    dict(uplink="ota", compression="none", power_mode="ota-align"),
+], ids=["tdma", "ota-max", "ota-align"])
+def test_config_accepts_ported_uplinks(kwargs):
+    """The TDMA and OTA uplinks (items 2 and 6) and the OTA alignment
+    powers are ported: FLConfig takes them."""
+    cfg = FLConfig(fl_engine="batched", **kwargs)
+    assert cfg.uplink == kwargs["uplink"]
+    assert fl.policy_config(channel.CellConfig(), cfg, "cpu").power_mode == (
+        kwargs.get("power_mode", "mapel"))
 
 
 @pytest.mark.parametrize("backend", ["jax", "jax-stepwise"])
