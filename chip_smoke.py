@@ -49,7 +49,22 @@ package, and exits non-zero on the first failure.  Phases:
      per-round draw timed), the paper-width run with ``uplink="ota"``
      (ota-align powers, noise 1e-9: one OTA launch per non-empty round) and
      with ``uplink="tdma"`` (six aggregation launches per round), and the
-     M=30 OTA run on the CPU and on the card held to the same contract as 7.
+     M=30 OTA run on the CPU and on the card held to the same contract as 7;
+  9. the packed DoReFa codec: the three quantizer kernels against their
+     plain versions on the card and on the CPU (codes equal, outputs
+     bit-equal) over the shapes of tests/test_kernels.py and LeNet's leaves,
+     float32 and bfloat16, bits 1-32 (``[dorefa-kernel]``); each timed at
+     LeNet's ``fc1/w`` leaf and at benchmarks/kernel_bench.py's 2^20
+     (``[time]``); ``encode_tree`` -> ``decode_tree`` and
+     ``ops.quantize_dequantize`` over the M=300 host run's LeNet update
+     (final minus initial parameters) at bits 1, 4, 8, 16 and the run's own
+     adaptive widths, equal to the CPU's plain path to the bit
+     (``[codec]``); the paper-width run with ``topk=0.1`` (one aggregation
+     launch per round on the concatenated (3, 266,610) codes stacked over
+     the b = 32 passthrough rows, the kernel
+     held to its plain version on that round's own inputs) and with
+     ``client_bank="bucketed"`` (bit-equal to the host run); and the M=30
+     ``topk=0.1`` run on the CPU and on the card held to the contract of 7.
 
 The last lines are the card's name and power limit as nvidia-smi reports
 them, one JSON object with every kernel's numbers, and the one-line result
@@ -91,6 +106,13 @@ OTA_SWEEP_N = (0, 1, 257, 1000, 32_771, 266_610, 2_200_000)
 LENET_PARAMS = sum(LENET_LEAVES)    # 266,610
 OTA_NOISE = 1e-9                # benchmarks/ota_bench.py's NOISE_STD
 ACC_ATOL, PARAM_MEAN_ATOL, PARAM_MAX_ATOL = 0.02, 1e-6, 2e-2
+DOREFA_SHAPES = ((17,), (128,), (4096,), (32768,), (100_001,), (3, 77, 11)) \
+    + tuple((n,) for n in LENET_LEAVES)
+DOREFA_BITS = (1, 2, 4, 8, 16, 24, 31, 32)
+DOREFA_TIME_N = (235_200, 1 << 20)   # LeNet fc1/w; kernel_bench.py's N
+DOREFA_ODD_SCALES = (1.0, float("nan"), float("inf"), 0.0, -1.0)
+CODEC_BITS = (1, 4, 8, 16)
+TOPK = 0.1
 
 
 class SmokeFailure(RuntimeError):
@@ -112,7 +134,7 @@ def log(msg):
 
 def kernels_of_main_path():
     """Every kernel the main path runs, with its wrapper and metadata."""
-    from repro_torch.kernels import aggregate, ota_aggregate, sic_rates
+    from repro_torch.kernels import aggregate, dorefa, ota_aggregate, sic_rates
 
     return [dict(
         name="weighted_aggregate",
@@ -135,7 +157,15 @@ def kernels_of_main_path():
         replaces="src/repro/kernels/aggregate.py:170",
         wrapper=ota_aggregate.ota_aggregate,
         module=ota_aggregate,
-    )]
+    )] + [dict(
+        name=name,
+        route="cuda",
+        source="src/repro_torch/kernels/csrc/dorefa.cu",
+        replaces=f"src/repro/kernels/dorefa.py:{line}",
+        wrapper=getattr(dorefa, name),
+        module=dorefa,
+    ) for name, line in (("quantize_codes", 43), ("dequantize_codes", 71),
+                         ("quantize_dequantize", 101))]
 
 
 def build_kernels(kernels):
@@ -143,12 +173,15 @@ def build_kernels(kernels):
     from repro_torch.kernels import cuda_build
 
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(kernels)) as pool:
+    modules = list({kern["module"].KERNEL: kern["module"]
+                    for kern in kernels}.values())
+    with concurrent.futures.ThreadPoolExecutor(len(modules)) as pool:
         paths = list(pool.map(
-            lambda kern: cuda_build.build(kern["module"].KERNEL), kernels))
-    for kern, path in zip(kernels, paths):
-        log(f"[build] {kern['name']}: {os.path.relpath(path, REPO)}")
-        kern["module"]._library()
+            lambda mod: cuda_build.build(mod.KERNEL), modules))
+    for mod, path in zip(modules, paths):
+        names = [k["name"] for k in kernels if k["module"] is mod]
+        log(f"[build] {', '.join(names)}: {os.path.relpath(path, REPO)}")
+        mod._library()
     log(f"[build] {time.perf_counter() - t0:.2f} s")
 
 
@@ -161,18 +194,19 @@ def read_launches(kernels):
     return {k["name"]: k["wrapper"].launches for k in kernels}
 
 
-def _aggregate_case(k, n, dtype, gen):
+def _aggregate_case(k, n, dtype, gen, int_bits=4):
     """Inputs shaped like the main path's: DoReFa codes in [-a_k, a_k]
-    (int32 at 4 bits, or float32-held at per-client widths up to 32),
+    (int32 at ``int_bits``, or float32-held at per-client widths up to 32),
     max-abs scales and FedAvg weights that sum to one."""
     dev = torch.device("cuda")
     if dtype == torch.int32:
-        bits = torch.full((k,), 4)
+        bits = torch.full((k,), int_bits)
     else:
         bits = torch.randint(1, 33, (k,), generator=gen)
     levels = torch.pow(torch.full((k,), 2.0), bits.float()) - 1.0
     x = torch.clamp(torch.randn(k, n, generator=gen) / 3.0, -1.0, 1.0)
-    codes = torch.round(levels[:, None] * x).to(dtype)
+    exact_levels = torch.pow(2.0, bits.double()) - 1.0   # 2^31 - 1 exact
+    codes = torch.round(exact_levels[:, None] * x.double()).to(dtype)
     scales = torch.rand(k, generator=gen) * 1.5 + 0.5
     w = torch.rand(k, generator=gen)
     w = w / w.sum() if k else w
@@ -185,11 +219,15 @@ def compare_aggregate(mod):
     gen = torch.Generator().manual_seed(0)
     worst = 0.0
     cases = [(k, n) for k in SWEEP_K for n in SWEEP_N] + [(0, 300), (3, 0)]
-    for dtype in (torch.float32, torch.int32):
+    # int32 codes at 4 bits, and at 31 bits, where codes above 2^24 are
+    # rounded to float32 before the multiply-add
+    kinds = ((torch.float32, None), (torch.int32, 4), (torch.int32, 31))
+    for dtype, int_bits in kinds:
         for k, n in cases:
-            codes, scales, w, levels = _aggregate_case(k, n, dtype, gen)
+            codes, scales, w, levels = _aggregate_case(k, n, dtype, gen,
+                                                       int_bits)
             if dtype == torch.int32:
-                got = mod.weighted_aggregate(codes, scales, w, 4)
+                got = mod.weighted_aggregate(codes, scales, w, int_bits)
             else:
                 got = mod.weighted_aggregate(codes, scales, w, levels=levels)
             want = (
@@ -203,11 +241,13 @@ def compare_aggregate(mod):
             err = (got - want).abs()
             tol = ATOL + RTOL * want.abs()
             check(bool(torch.all(err <= tol)),
-                  f"aggregate disagrees at K={k} n={n} {dtype}: "
+                  f"aggregate disagrees at K={k} n={n} {dtype} "
+                  f"int bits {int_bits}: "
                   f"max err {err.max().item() if n else 0.0}")
             if n:
                 worst = max(worst, err.max().item())
-    log(f"[compare] weighted_aggregate: {2 * len(cases)} cases ok, "
+    log(f"[compare] weighted_aggregate: {len(kinds) * len(cases)} cases "
+        f"(float32-held codes; int32 at 4 and 31 bits) ok, "
         f"max abs err {worst!r}")
     return worst
 
@@ -576,6 +616,255 @@ def check_noise(n=LENET_PARAMS):
 
 
 # --------------------------------------------------------------------------
+# the DoReFa quantizer kernels and the packed codec
+# --------------------------------------------------------------------------
+
+def _bits_equal(got, want):
+    """Same shape and type and equal bits (the card's tensor against a
+    plain version's on the card or the CPU); returns the max abs error."""
+    got = got.cpu()
+    want = want.cpu()
+    check(got.shape == want.shape and got.dtype == want.dtype,
+          f"{tuple(got.shape)} {got.dtype} vs {tuple(want.shape)} {want.dtype}")
+    if got.dtype.is_floating_point:
+        # NaN at the same places (a NaN's payload may differ), the rest
+        # bit for bit
+        nan = torch.isnan(got)
+        check(torch.equal(nan, torch.isnan(want)), "NaN at other places")
+        got, want = got[~nan], want[~nan]
+        view = torch.int16 if got.element_size() == 2 else torch.int32
+        same = torch.equal(got.view(view), want.view(view))
+    else:
+        same = torch.equal(got, want)
+    diff = (got.double() - want.double()).abs().masked_fill(got == want, 0)
+    err = diff.max().item() if got.numel() else 0.0     # equal Infs give 0
+    check(same, f"bits differ (max abs err {err!r})")
+    return err
+
+
+def _dorefa_case(shape, dtype, seed):
+    """Normals x0.3 (tests/test_kernels.py's data) and their max-abs
+    scale, on the card."""
+    gen = torch.Generator().manual_seed(seed)
+    x = (torch.randn(shape, generator=gen) * 0.3).to(dtype)
+    scale = torch.amax(torch.abs(x.to(torch.float32))).clamp_min(1e-12)
+    return x.to("cuda"), scale.to("cuda")
+
+
+def _dorefa_one(mod, x, s, bits, n_out, what):
+    """The three kernels once on (x, s) against their plain versions on the
+    card and on the CPU; returns the largest absolute difference."""
+    xc, sc = x.cpu(), s.cpu()
+    n = x.numel()
+    wrappers = (mod.quantize_codes, mod.dequantize_codes,
+                mod.quantize_dequantize)
+    before = [fn.launches for fn in wrappers]
+    codes = mod.quantize_codes(x, s, bits, n_out)
+    deq = mod.dequantize_codes(codes[:n], s, bits)
+    qdq = mod.quantize_dequantize(x, s, bits)
+    torch.cuda.synchronize()
+    check([fn.launches for fn in wrappers] == [b + 1 for b in before],
+          f"DoReFa launches at {what}")
+    worst = 0.0
+    try:
+        for got, card, cpu in (
+            (codes, mod.quantize_codes_plain(x, s, bits, n_out),
+             mod.quantize_codes_plain(xc, sc, bits, n_out)),
+            (deq, mod.dequantize_codes_plain(codes[:n], s, bits),
+             mod.dequantize_codes_plain(codes[:n].cpu(), sc, bits)),
+            (qdq, mod.quantize_dequantize_plain(x, s, bits),
+             mod.quantize_dequantize_plain(xc, sc, bits)),
+        ):
+            worst = max(worst, _bits_equal(got, card), _bits_equal(got, cpu))
+    except SmokeFailure as exc:
+        raise SmokeFailure(f"DoReFa kernel at {what}: {exc}")
+    check(bool(torch.all(codes[n:] == 0)), f"nonzero pad codes at {what}")
+    return worst
+
+
+def compare_dorefa(mod):
+    """The three kernels against their plain versions, on the card and on
+    the CPU, over shapes x types x bits; the quantize kernel also with the
+    reference's tile padding (zero codes past n).  Then NaN and Inf
+    elements under a finite, NaN, Inf, zero or negative scale: NaN must
+    stay NaN (code 0), as in the reference.  Returns the largest absolute
+    difference of any kind (it must be 0)."""
+    n_cases = 0
+    worst = 0.0
+    for si, shape in enumerate(DOREFA_SHAPES):
+        for dtype in (torch.float32, torch.bfloat16):
+            x, s = _dorefa_case(shape, dtype, seed=si)
+            n_out = -(-x.numel() // (256 * 128)) * (256 * 128)
+            for bits in DOREFA_BITS:
+                worst = max(worst, _dorefa_one(
+                    mod, x, s, bits, n_out, f"{shape} {dtype} b={bits}"))
+                n_cases += 1
+    n_odd = 0
+    special = torch.tensor([float("nan"), float("inf"), -float("inf"), 0.5,
+                            -0.5, 0.0, -0.0, 1e30, -float("nan")])
+    for dtype in (torch.float32, torch.bfloat16):
+        x, _ = _dorefa_case((4099,), dtype, seed=99)
+        x[:special.numel()] = special.to(dtype)
+        for scale in DOREFA_ODD_SCALES:
+            s = torch.tensor(scale, dtype=torch.float32, device="cuda")
+            for bits in (3, 31, 32):
+                what = f"non-finite {dtype} scale={scale} b={bits}"
+                worst = max(worst, _dorefa_one(mod, x, s, bits, 32_768, what))
+                check(mod.quantize_codes(x, s, bits)[0].item() == 0
+                      and bool(torch.isnan(
+                          mod.quantize_dequantize(x, s, bits)[0])),
+                      f"a NaN element lost its NaN at {what}")
+                n_odd += 1
+    log(f"[dorefa-kernel] {n_cases} cases x 3 kernels (shapes "
+        f"{[s[0] if len(s) == 1 else s for s in DOREFA_SHAPES]}, float32 and "
+        f"bfloat16, bits {DOREFA_BITS}) and {n_odd} with NaN / Inf elements "
+        f"(scales {DOREFA_ODD_SCALES}, bits 3, 31, 32): codes equal, outputs "
+        f"bit-equal to the plain versions on the card and on the CPU (NaN at "
+        f"the same places), pad codes 0; max abs err {worst!r}")
+    return worst
+
+
+def time_dorefa(mod, n, bits=8):
+    """Each quantizer kernel at n float32 elements: device time (behind
+    the sleep kernel) and host-inclusive time (interleaved
+    plain/kernel/kernel/plain) beside its plain version, one PyTorch call
+    computing the same function (for quantize_codes and quantize_dequantize
+    one that rounds x * (a / s) instead, timed only), and the bound: each
+    input read once, each output written once, at 3.35 TB/s.  Returns
+    {kernel name: timing dict}."""
+    x, s = _dorefa_case((n,), torch.float32, seed=n)
+    n_out = -(-n // (256 * 128)) * (256 * 128)
+    codes = mod.quantize_codes(x, s, bits, n_out)
+    step = s * mod.inv_levels(bits)
+    a = mod.levels(bits)
+    fq_scale = s.item() / a     # read once: a sync inside a call would spoil
+                                # the timing behind the sleep kernel
+    counted = {name: getattr(mod, name).launches for name in
+               ("quantize_codes", "dequantize_codes", "quantize_dequantize")}
+    cases = {
+        # name: (kernel, plain, library or None, bytes, operations)
+        "quantize_codes": (
+            lambda: mod._quantize_codes_launch(x, s, bits, n_out),
+            lambda: mod.quantize_codes_plain(x, s, bits, n_out),
+            lambda: torch.quantize_per_tensor(x, fq_scale, 0, torch.qint32),
+            4 * n + 4 * n_out + 4, 5 * n),
+        "dequantize_codes": (
+            lambda: mod._dequantize_codes_launch(codes[:n], s, bits),
+            lambda: mod.dequantize_codes_plain(codes[:n], s, bits),
+            lambda: torch.mul(codes[:n], step), 8 * n + 4, 2 * n),
+        "quantize_dequantize": (
+            lambda: mod._quantize_dequantize_launch(x, s, bits),
+            lambda: mod.quantize_dequantize_plain(x, s, bits),
+            lambda: torch.fake_quantize_per_tensor_affine(
+                x, fq_scale, 0, -int(a), int(a)),
+            8 * n + 4, 6 * n),
+    }
+    lib_err = _bits_equal(cases["dequantize_codes"][2](),
+                          cases["dequantize_codes"][0]())
+    q_lib = cases["quantize_codes"][2]().int_repr()
+    q_off = (q_lib - cases["quantize_codes"][0]()[:n]).abs()
+    q_diff, q_worst = int(torch.count_nonzero(q_off)), int(q_off.max())
+    out = {}
+    for name, (kern_fn, plain_fn, lib_fn, nbytes, ops) in cases.items():
+        plain = _time_ms(plain_fn, iters=50, warmup=5)
+        kern = _time_ms(kern_fn)
+        kern = 0.5 * (kern + _time_ms(kern_fn))
+        plain = 0.5 * (plain + _time_ms(plain_fn, iters=50, warmup=5))
+        dev_k = _device_ms(kern_fn, iters=50)
+        dev_p = _device_ms(plain_fn, iters=20)
+        dev_l = _device_ms(lib_fn, iters=50) if lib_fn else None
+        lib_host = _time_ms(lib_fn) if lib_fn else None
+        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        t_ops = ops / PEAK_F32_FLOPS * 1e3
+        bound = max(t_bytes, t_ops)
+        lib_txt = ("none" if lib_fn is None else
+                   f"device {dev_l * 1e3:.3f} us host-inclusive "
+                   f"{lib_host * 1e3:.3f} us")
+        log(f"[time] {name} n={n} b={bits}: kernel device "
+            f"{dev_k * 1e3:.3f} us host-inclusive {kern * 1e3:.3f} us; plain "
+            f"device {dev_p * 1e3:.3f} us host-inclusive {plain * 1e3:.3f} "
+            f"us; library {lib_txt}; bound {bound * 1e3:.3f} us "
+            f"({'bytes' if t_bytes >= t_ops else 'operations'}); "
+            f"{dev_k / bound:.2f}x the bound")
+        out[name] = dict(ms=dev_k, plain_ms=dev_p, library_ms=dev_l,
+                         bound_ms=bound, host_ms=kern, plain_host_ms=plain,
+                         bound_by="bytes" if t_bytes >= t_ops else "operations")
+    for name, value in counted.items():
+        getattr(mod, name).launches = value   # timing launches don't count
+    log(f"[time] dequantize_codes n={n}: torch.mul(codes, s * fl(1/a)) "
+        f"equals the kernel to the bit (max abs err {lib_err!r}); "
+        f"quantize_per_tensor (qint32, scale s/a) and "
+        f"fake_quantize_per_tensor_affine are timed only (another rounding: "
+        f"{q_diff} of {n} codes differ from the kernel's, by at most "
+        f"{q_worst})")
+    return out
+
+
+def run_codec(kernels, host_run):
+    """The packed codec on the card over the M=300 host run's LeNet update
+    (final minus initial parameters): encode_tree -> decode_tree and
+    ops.quantize_dequantize with the kernels (use_pallas=True) at each
+    width, each result equal to the CPU's plain path to the bit.  Launch
+    counts are zeroed just before and read just after; returns (launches
+    per kernel, max abs err)."""
+    from repro_torch.core import compression
+    from repro_torch.core import tree as tree_lib
+    from repro_torch.kernels import ops
+    from repro_torch.models.fl_models import get_fl_model
+
+    init = get_fl_model("lenet").init(0, device="cuda")
+    update = tree_lib.tree_map(lambda a, b: a - b, host_run.final_params, init)
+    update_cpu = tree_lib.tree_map(lambda v: v.cpu(), update)
+    leaves = tree_lib.tree_flatten(update)[0]
+    run_bits = sorted({int(b) for lg in host_run.logs for b in lg.bits})
+    widths = sorted(set(CODEC_BITS) | {b for b in run_bits if b < 32})
+    worst = 0.0
+    reset_launches(kernels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for bits in widths:
+        enc = compression.encode_tree(update, bits, use_pallas=True)
+        dec = compression.decode_tree(enc, use_pallas=True)
+        qdq = [ops.quantize_dequantize(v, bits, use_pallas=True)
+               for v in leaves]
+        want_enc = compression.encode_tree(update_cpu, bits, use_pallas=True)
+        want_dec = compression.decode_tree(want_enc, use_pallas=True)
+        n = sum(v.numel() for v in leaves)
+        check(enc.total_bits == n * (bits + 1) + 32 * len(leaves)
+              == want_enc.total_bits, f"total_bits at b={bits}")
+        check(enc.shapes == want_enc.shapes, f"shapes at b={bits}")
+        try:
+            for c, wc in zip(enc.codes, want_enc.codes):
+                worst = max(worst, _bits_equal(c, wc))
+            for sc, ws in zip(enc.scales, want_enc.scales):
+                worst = max(worst, _bits_equal(sc, ws))
+            for d, wd, q, v in zip(tree_lib.tree_flatten(dec)[0],
+                                   tree_lib.tree_flatten(want_dec)[0], qdq,
+                                   tree_lib.tree_flatten(update_cpu)[0]):
+                worst = max(worst, _bits_equal(d, wd), _bits_equal(
+                    q, ops.quantize_dequantize(v, bits, use_pallas=True)))
+                check(bool(torch.isfinite(d).all()), f"decode at b={bits}")
+        except SmokeFailure as exc:
+            raise SmokeFailure(f"[codec] at b={bits}: {exc}")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read_launches(kernels)
+    per = len(widths) * len(leaves)
+    for name in ("quantize_codes", "dequantize_codes", "quantize_dequantize"):
+        check(launches[name] == per,
+              f"{name} launched {launches[name]} times, expected {per}")
+    check(launches["weighted_aggregate"] == 0, "[codec] launched aggregation")
+    log(f"[codec] LeNet update of the M=300 host run at bits {widths} (the "
+        f"run's own adaptive widths {run_bits}): codes, scales, decoded and "
+        f"fused outputs equal the CPU plain path to the bit (max abs err "
+        f"{worst!r}); total_bits = sum n(b+1) + 32 per leaf; launches "
+        f"{ {k: v for k, v in launches.items() if v} } ({len(leaves)} "
+        f"quantize + {len(leaves)} dequantize per round trip and "
+        f"{len(leaves)} fused per width); {secs:.3f} s with the CPU side")
+    return launches, worst
+
+
+# --------------------------------------------------------------------------
 # the scheduler at paper width
 # --------------------------------------------------------------------------
 
@@ -728,17 +1017,17 @@ def _world(m, samples):
     return ds, cell, shards
 
 
-def _config(m, t, backend="numpy", uplink="noma", **ota):
+def _config(m, t, backend="numpy", uplink="noma", **overrides):
     """The main path's settings; ``uplink="ota"`` takes the reference's OTA
-    configuration (raw updates, ota-align powers, receiver noise 1e-9
-    unless ``ota`` says otherwise)."""
+    configuration (raw updates, ota-align powers, receiver noise 1e-9);
+    ``overrides`` replace any field."""
     from repro_torch.config import FLConfig
 
     extra = {}
     if uplink == "ota":
         extra = dict(compression="none", power_mode="ota-align",
                      ota_noise=OTA_NOISE, ota_threshold=0.0)
-        extra.update(ota)
+    extra.update(overrides)
     return FLConfig(**{**dict(
         num_devices=m, group_size=3, num_rounds=t, scheduler="lazy-gwmin",
         scheduler_backend=backend, power_mode="mapel",
@@ -755,21 +1044,24 @@ def run_main_path(kernels, mode, m=300, t=5, samples=12_000):
     inside the run, on the card) or ``"pallas"`` (``get_policy
     ("lazy-gwmin")`` on the card with the SIC kernel as scorer, handed to
     the run as ``schedule=``); ``"ota"`` and ``"tdma"`` take that uplink
-    with the host schedule.  The launch counts are zeroed just before and
-    read just after the schedule and the run."""
+    with the host schedule, ``"topk"`` the top-k stage (``topk=0.1``) and
+    ``"bucketed"`` the bucketed client bank.  The launch counts are zeroed
+    just before and read just after the schedule and the run."""
     from repro_torch.core import channel, fl, scheduling
 
     ds, cell, shards = _world(m, samples)
     uplink = mode if mode in ("ota", "tdma") else "noma"
+    overrides = {"topk": dict(topk=TOPK),
+                 "bucketed": dict(client_bank="bucketed")}.get(mode, {})
     cfg = _config(m, t, "jax" if mode in ("jax", "pallas") else "numpy",
-                  uplink)
+                  uplink, **overrides)
     bundle = channel.sample_channels(cfg.seed, cell, cfg.num_rounds)
     sizes = np.array([len(s) for s in shards], dtype=np.float64)
     reset_launches(kernels)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     schedule = None
-    if mode in ("host", "ota", "tdma"):
+    if mode in ("host", "ota", "tdma", "topk", "bucketed"):
         schedule = fl.make_schedule(bundle.gains, sizes / sizes.sum(), cell,
                                     cfg)
     elif mode == "pallas":
@@ -808,7 +1100,8 @@ def run_main_path(kernels, mode, m=300, t=5, samples=12_000):
 
     nonempty = sum(1 for lg in res.logs if lg.devices)
     acc = res.accuracies()
-    want_agg = 0 if uplink == "ota" else 6 * nonempty
+    # one launch per leaf, or one on the concatenated payload under top-k
+    want_agg = {"ota": 0, "topk": nonempty}.get(mode, 6 * nonempty)
     check(launches["weighted_aggregate"] == want_agg,
           f"weighted_aggregate launched {launches['weighted_aggregate']} "
           f"times, expected {want_agg} ({nonempty} non-empty rounds)")
@@ -820,6 +1113,8 @@ def run_main_path(kernels, mode, m=300, t=5, samples=12_000):
     check(launches["sic_weighted_rates"] == want_sic,
           f"sic_weighted_rates launched {launches['sic_weighted_rates']} "
           f"times, expected {want_sic} greedy steps")
+    for name in ("quantize_codes", "dequantize_codes", "quantize_dequantize"):
+        check(launches[name] == 0, f"{name} launched on the FL path")
     check(bool(np.all(np.isfinite(acc))), f"non-finite accuracy {acc}")
     check(acc[-1] > acc[0], f"accuracy did not improve: {acc.tolist()}")
     for layer in res.final_params.values():
@@ -827,6 +1122,23 @@ def run_main_path(kernels, mode, m=300, t=5, samples=12_000):
             check(leaf.device.type == "cuda" and bool(torch.isfinite(leaf).all()),
                   "final parameters not finite on the card")
     return res, launches
+
+
+def _check_identical_runs(got, want, label):
+    """Logs and final parameters equal to the bit."""
+    for a, b in zip(got.logs, want.logs):
+        check(a.devices == b.devices and a.test_accuracy == b.test_accuracy
+              and a.wall_time_s == b.wall_time_s,
+              f"{label} round {a.round} differs")
+        for field in ("bits", "rates", "compression_ratios"):
+            check(np.array_equal(getattr(a, field), getattr(b, field)),
+                  f"{label} round {a.round} {field} differ")
+    check(len(got.logs) == len(want.logs), f"{label} round count")
+    for name, layer in want.final_params.items():
+        for leaf, v in layer.items():
+            check(torch.equal(got.final_params[name][leaf], v),
+                  f"{label} final {name}/{leaf} differs")
+    log(f"{label} logs and final parameters equal the host run's to the bit")
 
 
 def run_ota_main_path(kernels):
@@ -869,16 +1181,76 @@ def run_ota_main_path(kernels):
     return res, launches, err
 
 
-def compare_cpu_and_card(kernels, m=30, t=5, samples=12_000, uplink="noma"):
+def run_topk_main_path(kernels):
+    """``run_main_path(kernels, "topk")``, recording each round's kept
+    counts and a copy of the first round's aggregation-kernel inputs (the
+    concatenated (3, 266,610) codes stacked over the (3, 266,610) masked
+    values that b = 32 clients pass through, with their scales, weights and
+    levels: a (6, 266,610) matrix), on which
+    the kernel is then held to its plain version bit for bit.  The copy is
+    taken around the wrapper, which still launches and counts.  Returns
+    (result, launches per kernel, the kernel's max abs error on the
+    round)."""
+    from repro_torch.core import fl_engine
+    from repro_torch.kernels import aggregate
+
+    kept_seen, inputs = [], []
+    sparse, launch = fl_engine._sparse_quantize_aggregate, \
+        fl_engine.weighted_aggregate
+
+    def keep_kept(*args, **kwargs):
+        out = sparse(*args, **kwargs)
+        kept_seen.append(out[1].cpu().tolist())
+        return out
+
+    def keep_first(codes, scales, w, levels):
+        if not inputs:
+            inputs.append((codes.clone(), scales.clone(), w.clone(),
+                           levels.clone()))
+        return launch(codes, scales, w, levels=levels)
+
+    fl_engine._sparse_quantize_aggregate = keep_kept
+    fl_engine.weighted_aggregate = keep_first
+    try:
+        res, launches = run_main_path(kernels, "topk")
+    finally:
+        fl_engine._sparse_quantize_aggregate = sparse
+        fl_engine.weighted_aggregate = launch
+    cap = math.ceil(TOPK * LENET_PARAMS)
+    check(len(kept_seen) == sum(1 for lg in res.logs if lg.devices),
+          f"the top-k stage ran {len(kept_seen)} times")
+    check(all(1 <= k <= cap for row in kept_seen for k in row),
+          f"kept outside [1, {cap}]: {kept_seen}")
+    codes, scales, w, levels = inputs[0]
+    check(tuple(codes.shape) == (2 * 3, LENET_PARAMS),
+          f"top-k payload {tuple(codes.shape)}")
+    counted = aggregate.weighted_aggregate.launches
+    got = aggregate.weighted_aggregate(codes, scales, w, levels=levels)
+    want = aggregate.weighted_aggregate_plain(
+        codes, aggregate.coefficients(scales, w, levels))
+    err = _bits_equal(got, want)
+    aggregate.weighted_aggregate.launches = counted  # the check doesn't count
+    log(f"[main:topk] kept per round {kept_seen} (cap {cap}); aggregation "
+        f"kernel on round 0's (2 x 3, {LENET_PARAMS}) payload (codes over "
+        f"passthrough rows) bit-equal to its "
+        f"plain version (max abs err {err!r})")
+    return res, launches, err
+
+
+def compare_cpu_and_card(kernels, m=30, t=5, samples=12_000, uplink="noma",
+                         topk=1.0):
     """The M=30 run on the CPU (plain versions) and on the card (kernels):
     with ``scheduler_backend="jax"`` (greedy on the CPU and on the card)
-    under NOMA, and under OTA with ota-align powers, receiver noise 1e-9
-    and truncation threshold 0.1."""
+    under NOMA, under OTA with ota-align powers, receiver noise 1e-9
+    and truncation threshold 0.1, and with the top-k stage (``topk`` < 1,
+    host schedule)."""
     from repro_torch.core import fl
 
     ds, cell, shards = _world(m, samples)
     if uplink == "ota":
         cfg = _config(m, t, "numpy", "ota", ota_threshold=0.1)
+    elif topk < 1.0:
+        cfg = _config(m, t, "numpy", topk=topk)
     else:
         cfg = _config(m, t, "jax")
     cpu = fl.run_federated_learning(ds, shards, cell, cfg, device="cpu")
@@ -902,11 +1274,19 @@ def compare_cpu_and_card(kernels, m=30, t=5, samples=12_000, uplink="noma"):
             worst_max = max(worst_max, d.max().item())
     check(worst_mean < PARAM_MEAN_ATOL and worst_max < PARAM_MAX_ATOL,
           f"param drift mean {worst_mean} max {worst_max}")
-    label = (f"[cpu-vs-card:ota] M={m} ota-align noise 1e-9 threshold 0.1"
-             if uplink == "ota" else f"[parity] M={m} scheduler_backend='jax'")
+    if uplink == "ota":
+        label = f"[cpu-vs-card:ota] M={m} ota-align noise 1e-9 threshold 0.1"
+    elif topk < 1.0:
+        label = f"[cpu-vs-card:topk] M={m} topk={topk}"
+    else:
+        label = f"[parity] M={m} scheduler_backend='jax'"
     nonempty = sum(1 for lg in gpu.logs if lg.devices)
     check(launches["ota_aggregate"] == (nonempty if uplink == "ota" else 0),
           f"card run launched ota_aggregate {launches['ota_aggregate']} times")
+    if topk < 1.0:
+        check(launches["weighted_aggregate"] == nonempty,
+              f"card run launched weighted_aggregate "
+              f"{launches['weighted_aggregate']} times, expected {nonempty}")
     log(f"{label} CPU vs card: "
         f"schedules/bits/rates/ratios/times equal, acc gap {acc_gap!r}, "
         f"param drift mean {worst_mean!r} max {worst_max!r}, card launches "
@@ -966,6 +1346,25 @@ def main() -> int:
           "the OTA, TDMA and NOMA runs scheduled differently")
     compare_cpu_and_card(kernels, uplink="ota")
     launches["ota_aggregate"] = ota_launches["ota_aggregate"]
+
+    dorefa_mod = kernels[3]["module"]
+    worst = compare_dorefa(dorefa_mod)
+    for n in DOREFA_TIME_N:
+        dorefa_times = time_dorefa(dorefa_mod, n)
+        if n == LENET_LEAVES[0]:            # the codec path's largest leaf
+            times.update(dorefa_times)
+    codec_launches, codec_err = run_codec(kernels, host)
+    for name in ("quantize_codes", "dequantize_codes", "quantize_dequantize"):
+        errs[name] = max(worst, codec_err)
+        launches[name] = codec_launches[name]
+    topk_run, _, topk_err = run_topk_main_path(kernels)
+    errs["weighted_aggregate"] = max(errs["weighted_aggregate"], topk_err)
+    bucketed_run, _ = run_main_path(kernels, "bucketed")
+    check([lg.devices for lg in topk_run.logs]
+          == [lg.devices for lg in host.logs],
+          "the top-k and host runs scheduled differently")
+    _check_identical_runs(bucketed_run, host, "[main:bucketed]")
+    compare_cpu_and_card(kernels, topk=TOPK)
 
     rows = []
     for kern in kernels:

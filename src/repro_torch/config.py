@@ -49,8 +49,9 @@ class FLConfig:
     eval_sample: float = 1.0         # fraction of the test set evaluated per
                                      # round; 1.0 = full test set
     model: str = "lenet"             # lenet (ported)
-    topk: float = 1.0                # 1.0 = dense (ported)
-    client_bank: str = "padded"      # padded (ported) | bucketed
+    topk: float = 1.0                # kept fraction; 1.0 = dense, < 1 runs
+                                     # top-k before DoReFa (both ported)
+    client_bank: str = "padded"      # padded | bucketed (ported)
     uplink: str = "noma"             # noma | tdma | ota (ported)
     ota_noise: float = 0.0
     ota_threshold: float = 0.0
@@ -129,10 +130,5 @@ class FLConfig:
             raise _not_ported(f"scheduler {self.scheduler!r}", 1)
         if self.horizon == "scan":
             raise _not_ported("horizon='scan'", 4)
-        if self.topk < 1.0:
-            raise _not_ported("topk < 1", 7)
-        if self.client_bank == "bucketed":
-            raise _not_ported("client_bank='bucketed'", 7)
         if self.model != "lenet":
-            item = 7 if self.model.startswith("tiny-transformer") else 8
-            raise _not_ported(f"model={self.model!r}", item)
+            raise _not_ported(f"model={self.model!r}", 8)

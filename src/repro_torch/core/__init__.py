@@ -8,6 +8,8 @@ adaptive compression and the FedAvg runtime.
  - power.py        : MAPEL polyblock power allocation        (paper §III-C)
  - scheduling.py   : policy registry + lazy GWMIN MWIS greedy (paper §III-A)
  - quantization.py : DoReFa adaptive quantization, torch     (paper §II-B)
+ - compression.py  : packed tree codec, top-k plan and mask  (paper Alg. 1)
+ - tree.py         : nested-dict trees in JAX's leaf order
  - ota.py          : uplink-combination rules
  - fl_engine.py    : batched round engine on the device      (paper Alg. 1)
  - fl.py           : FedAvg over the simulated NOMA cell     (paper §IV)

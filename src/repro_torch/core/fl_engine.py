@@ -18,7 +18,15 @@ The port of ``repro.core.fl_engine``'s per-round batched engine
      otherwise through the einsum the reference computes in XLA.  Under
      the over-the-air uplink, steps 3-4 are replaced by the analog
      superposition (:func:`repro_torch.core.ota.superpose_tree`): the
-     noisy channel sum of the raw deltas is the aggregate.
+     noisy channel sum of the raw deltas is the aggregate.  With
+     ``topk < 1`` steps 3-4 run once over the concatenated (K, P) update
+     (:func:`_sparse_quantize_aggregate`): top-k sparsification, then
+     DoReFa, then one aggregation.
+
+With ``client_bank="bucketed"`` the bank is a
+:class:`repro_torch.data.BucketedClientBank` and step 1 gathers across its
+buckets outside the round body; the gathered rows equal the padded bank's,
+so the round is bit-identical.
 
 Scheduling, power allocation, budgets, timing and logging stay in the
 :mod:`repro_torch.core.fl` runtime on the host.
@@ -28,10 +36,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core import compression as comp
 from repro_torch.core import ota as ota_lib
 from repro_torch.core import quantization as qlib
-from repro_torch.data.client_bank import ClientBank, EvalBank, eval_sample_plan
+from repro_torch.core import tree as tree_lib
+from repro_torch.data.client_bank import (
+    BucketedClientBank, ClientBank, EvalBank, eval_sample_plan,
+)
 from repro_torch.kernels.aggregate import weighted_aggregate
+from repro_torch.kernels.fma import fma_dot
 from repro_torch.models.fl_models import get_fl_model
 
 ENGINES = ("legacy", "batched")
@@ -39,19 +52,6 @@ ENGINES = ("legacy", "batched")
 
 HORIZON_MODES = ("per-round", "scan")
 # the reference's horizon modes; this slice ports "per-round"
-
-
-def _leaves(params):
-    """(layer, leaf) keys of a nested parameter dict, in sorted order."""
-    return [(a, b) for a in sorted(params) for b in sorted(params[a])]
-
-
-def _map(fn, *trees):
-    """Apply ``fn`` leafwise over nested parameter dicts of one structure."""
-    return {
-        a: {b: fn(*(t[a][b] for t in trees)) for b in trees[0][a]}
-        for a in trees[0]
-    }
 
 
 # --------------------------------------------------------------------------
@@ -70,21 +70,16 @@ def sgd_epoch(params, x, y, lr, *, model):
     valid = (y >= 0).to(torch.float32)
     p = params
     for b in range(x.shape[1]):
-        leaves = _leaves(p)
-        req = {
-            a: {c: p[a][c].detach().requires_grad_(True) for c in p[a]}
-            for a in p
-        }
+        leaves, treedef = tree_lib.tree_flatten(p)
+        leaves = [w.detach().requires_grad_(True) for w in leaves]
+        req = tree_lib.tree_unflatten(treedef, leaves)
         with torch.enable_grad():
             loss = model.batch_loss(req, x[:, b], y[:, b], valid[:, b]).sum()
-            grads = torch.autograd.grad(
-                loss, [req[a][c] for a, c in leaves]
-            )
-        g = {}
-        for (a, c), gw in zip(leaves, grads):
-            g.setdefault(a, {})[c] = gw
+            grads = torch.autograd.grad(loss, leaves)
         with torch.no_grad():
-            p = _map(lambda w, gw: w - lr * gw, req, g)
+            p = tree_lib.tree_unflatten(
+                treedef, [w - lr * gw for w, gw in zip(leaves, grads)]
+            )
     return p
 
 
@@ -142,28 +137,83 @@ def _einsum_aggregate_leaf(leaf, bits_k, agg_w, *, compress, paper_exact):
     return out.reshape(leaf.shape[1:])
 
 
+def _sparse_quantize_aggregate(
+    deltas, budgets, agg_w, *, payload, topk, paper_exact, use_pallas,
+):
+    """Top-k sparsification then DoReFa over the concatenated update.
+
+    Flattens the delta tree (sorted leaf order) to one (K, P) matrix —
+    sparsification picks coordinates of the whole payload, not per leaf —
+    derives per-client (kept, bits) from the budgets
+    (:func:`repro_torch.core.compression.topk_plan`), masks all but each
+    row's ``kept`` largest magnitudes, quantizes the survivors, and reduces
+    through the aggregation kernel (``use_pallas``, one launch over the
+    codes rows and the b >= 32 rows' full-precision values) or two einsums.
+    Masking keeps each row's largest magnitude, so the max-abs scale is
+    unchanged.  The einsums are :func:`repro_torch.kernels.fma.fma_dot`,
+    the fused multiply-adds XLA compiles them to, so the update equals the
+    reference's to the bit.  Returns ``(update_tree, kept, bits)``.
+    """
+    leaves, treedef = tree_lib.tree_flatten(deltas)
+    k = leaves[0].shape[0]
+    flat = torch.cat(
+        [leaf.reshape(k, -1).to(torch.float32) for leaf in leaves], dim=1
+    )                                            # (K, P)
+    kept, bits = comp.topk_plan(payload // 32, budgets, topk=topk)
+    masked = flat * comp.topk_mask(flat, kept)
+
+    ones = torch.ones(k, dtype=torch.float32, device=flat.device)
+    codes, scales, a = qlib.quantize_codes_batched(
+        masked, bits, scales=ones if paper_exact else None
+    )
+    full = (bits >= 32).to(torch.float32)
+    # XLA folds each ``y + einsum(...)`` into the einsum's fused
+    # multiply-add chain as its starting value: the kernel's chain over the
+    # codes rows continues over the passthrough rows, so both go through
+    # one launch on the stacked (2K, P) matrix (their coefficients
+    # 1 * (w * full) / 1 are exactly w * full)
+    if use_pallas:
+        out = weighted_aggregate(
+            torch.cat([codes, masked]), torch.cat([scales, ones]),
+            torch.cat([agg_w * (1.0 - full), agg_w * full]),
+            levels=torch.cat([a, ones]),
+        )
+    else:
+        out = fma_dot(agg_w * (1.0 - full) / a * scales, codes,
+                      acc=fma_dot(agg_w * full, masked))
+    parts = torch.split(out, [leaf[0].numel() for leaf in leaves])
+    update = tree_lib.tree_unflatten(
+        treedef, [p.reshape(leaf.shape[1:]) for p, leaf in zip(parts, leaves)]
+    )
+    return update, kept, bits
+
+
 def _train_quantize_aggregate(
     params, x, y, budgets, agg_w,
     *, lr, epochs, payload, compress, paper_exact, use_pallas, model,
-    ota=None,
+    topk, ota=None,
 ):
     """The round body on gathered client rows: batched local SGD ->
     per-client quantization -> weighted aggregation.
 
     x: (K, nb, BS, ...); y: (K, nb, BS); budgets: (K,) float32 bit budgets;
-    agg_w: (K,) float32 FedAvg weights.  Returns ``(new_params, bits)``
-    with bits (K,) int32.  ``ota`` (dict or None) swaps quantization and
-    aggregation for the over-the-air superposition: ``gains`` (K,) float32
-    channel amplitudes on the device, ``key`` (2,) uint32 noise key,
-    ``pmax``, ``noise_std`` and ``threshold``; bits are then logged as 32
-    (nothing is quantized on air).
+    agg_w: (K,) float32 FedAvg weights.  Returns ``(new_params, bits,
+    kept)``: bits (K,) int32, kept (K,) int32 coordinates per client under
+    ``topk < 1`` (with ``compress``), else ``None``.  ``ota`` (dict or
+    None) swaps quantization and aggregation for the over-the-air
+    superposition: ``gains`` (K,) float32 channel amplitudes on the device,
+    ``key`` (2,) uint32 noise key, ``pmax``, ``noise_std`` and
+    ``threshold``; bits are then logged as 32 (nothing is quantized on
+    air).
     """
     k = x.shape[0]
-    start = _map(lambda w: w.unsqueeze(0).expand(k, *w.shape), params)
+    start = tree_lib.tree_map(
+        lambda w: w.unsqueeze(0).expand(k, *w.shape), params
+    )
     new = start
     for _ in range(epochs):
         new = sgd_epoch(new, x, y, lr, model=model)
-    deltas = _map(lambda a, b: a - b, new, start)
+    deltas = tree_lib.tree_map(lambda a, b: a - b, new, start)
 
     if ota is not None:
         with torch.no_grad():
@@ -172,9 +222,18 @@ def _train_quantize_aggregate(
                 noise_std=ota["noise_std"], threshold=ota["threshold"],
                 use_pallas=use_pallas,
             )
-            new_params = _map(lambda p, u: p + u, params, update)
+            new_params = tree_lib.tree_map(lambda p, u: p + u, params, update)
         return new_params, torch.full((k,), 32, dtype=torch.int32,
-                                      device=x.device)
+                                      device=x.device), None
+
+    if compress and topk < 1.0:
+        with torch.no_grad():
+            update, kept, bits = _sparse_quantize_aggregate(
+                deltas, budgets, agg_w, payload=payload, topk=topk,
+                paper_exact=paper_exact, use_pallas=use_pallas,
+            )
+            new_params = tree_lib.tree_map(lambda p, u: p + u, params, update)
+        return new_params, bits, kept
 
     if compress:
         bits = qlib.adaptive_bits(payload, budgets)
@@ -182,32 +241,14 @@ def _train_quantize_aggregate(
         bits = torch.full((k,), 32, dtype=torch.int32, device=x.device)
     agg = _pallas_aggregate_leaf if use_pallas else _einsum_aggregate_leaf
     with torch.no_grad():
-        update = _map(
+        update = tree_lib.tree_map(
             lambda leaf: agg(
                 leaf, bits, agg_w, compress=compress, paper_exact=paper_exact
             ),
             deltas,
         )
-        new_params = _map(lambda p, u: p + u, params, update)
-    return new_params, bits
-
-
-def _round_step(
-    params, xb, yb, dev_idx, budgets, agg_w,
-    *, nb, lr, epochs, payload, compress, paper_exact, use_pallas, model,
-    ota=None,
-):
-    """gather -> round body.  ``nb`` slices the bank's batch grid down to
-    the scheduled group's own max batch count; batches past a client's own
-    count are all padding and contribute exactly-zero gradients."""
-    x = xb[dev_idx, :nb]                 # (K, nb, BS, ...)
-    y = yb[dev_idx, :nb]                 # (K, nb, BS, ...)
-    return _train_quantize_aggregate(
-        params, x, y, budgets, agg_w,
-        lr=lr, epochs=epochs, payload=payload, compress=compress,
-        paper_exact=paper_exact, use_pallas=use_pallas, model=model,
-        ota=ota,
-    )
+        new_params = tree_lib.tree_map(lambda p, u: p + u, params, update)
+    return new_params, bits, None
 
 
 # --------------------------------------------------------------------------
@@ -243,7 +284,10 @@ class BatchedRoundEngine:
         self.device = torch.device(device)
         self.payload = int(payload_bits)
         self.model = model if model is not None else get_fl_model(cfg.model)
-        self.bank = ClientBank.build(
+        bank_cls = (
+            BucketedClientBank if cfg.client_bank == "bucketed" else ClientBank
+        )
+        self.bank = bank_cls.build(
             dataset.x_train, dataset.y_train, shards, cfg.batch_size,
             device=self.device,
         )
@@ -281,7 +325,10 @@ class BatchedRoundEngine:
         (float64, host), ``key`` (2,) uint32 receiver-noise key and
         ``pmax`` for the round; noise std and truncation threshold come
         from the config.  Returns ``(params, bits, ratios)`` with bits (K,)
-        int32 and ratios (K,) float64 numpy arrays for the round log.
+        int32 and ratios (K,) float64 numpy arrays for the round log.  With
+        the top-k stage on, bits are the widths of the kept coordinates and
+        ratios the honest sparse on-air ratios I / S_k
+        (``compression.sparse_compression_ratio``).
         """
         k = len(devs)
         if k == 0:    # empty T*K > M tail round: nothing to train or send
@@ -307,16 +354,26 @@ class BatchedRoundEngine:
                 pmax=float(ota["pmax"]), noise_std=float(cfg.ota_noise),
                 threshold=float(cfg.ota_threshold),
             )
-        params, bits = _round_step(
-            params, self.bank.xb, self.bank.yb,
-            torch.as_tensor(list(devs), dtype=torch.int64, device=self.device),
-            budgets32.to(self.device), agg32.to(self.device),
-            nb=nb, lr=float(cfg.learning_rate), epochs=int(cfg.local_epochs),
+        # the round's K shards, cut to the group's own max batch count:
+        # batches past a client's own count are all padding and contribute
+        # exactly-zero gradients
+        x, y = self.bank.gather(devs, nb)
+        params, bits, kept = _train_quantize_aggregate(
+            params, x, y, budgets32.to(self.device), agg32.to(self.device),
+            lr=float(cfg.learning_rate), epochs=int(cfg.local_epochs),
             payload=self.payload, compress=compress,
             paper_exact=bool(cfg.paper_exact_range),
-            use_pallas=bool(cfg.use_pallas), model=self.model, ota=ota_dev,
+            use_pallas=bool(cfg.use_pallas), model=self.model,
+            topk=float(cfg.topk), ota=ota_dev,
         )
-        if compress:
+        if kept is not None:
+            # honest sparse accounting: on-air size from the realized
+            # (kept, bits) pair, not the dense 32-bit payload
+            ratios = comp.sparse_compression_ratio(
+                self.payload, kept.cpu().numpy(), bits.cpu().numpy(),
+                self.payload // 32,
+            )
+        elif compress:
             # the reference's host call computes in float32 too
             ratios = qlib.compression_ratio(self.payload, budgets32)
             ratios = ratios.numpy().astype(np.float64)

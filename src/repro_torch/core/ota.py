@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import errors, prng
+from repro_torch.core import tree as tree_lib
 from repro_torch.kernels.ota_aggregate import ota_aggregate, row_buffer
 
 UPLINK_MODES = ("noma", "tdma", "ota")
@@ -142,8 +143,7 @@ def superpose_tree(deltas, gains_k, agg_w, key, *, pmax: float,
     into one (K, P) matrix first, in the reference's leaf order (sorted
     keys: ``fc1/b`` before ``fc1/w``), which decides which parameter each
     noise coordinate lands on."""
-    names = [(a, b) for a in sorted(deltas) for b in sorted(deltas[a])]
-    leaves = [deltas[a][b] for a, b in names]
+    leaves, treedef = tree_lib.tree_flatten(deltas)
     k = leaves[0].shape[0]
     sizes = [int(np.prod(leaf.shape[1:])) for leaf in leaves]
     # rows spaced for the kernel's 16-byte loads (kernels/ota_aggregate.py)
@@ -155,7 +155,7 @@ def superpose_tree(deltas, gains_k, agg_w, key, *, pmax: float,
         flat, gains_k, agg_w, key, pmax=pmax, noise_std=noise_std,
         threshold=threshold, use_pallas=use_pallas,
     )
-    update = {}
-    for (a, b), part, leaf in zip(names, torch.split(out, sizes), leaves):
-        update.setdefault(a, {})[b] = part.reshape(leaf.shape[1:])
-    return update
+    return tree_lib.tree_unflatten(treedef, [
+        part.reshape(leaf.shape[1:])
+        for part, leaf in zip(torch.split(out, sizes), leaves)
+    ])

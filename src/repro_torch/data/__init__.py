@@ -1,9 +1,11 @@
 """Synthetic MNIST-like data, non-iid partitioning and the device banks."""
-from repro_torch.data.client_bank import ClientBank, EvalBank, eval_sample_plan
+from repro_torch.data.client_bank import (
+    BucketedClientBank, ClientBank, EvalBank, eval_sample_plan,
+)
 from repro_torch.data.mnist_like import Dataset, make_mnist_like
 from repro_torch.data.partition import dirichlet_partition
 
 __all__ = [
-    "ClientBank", "Dataset", "EvalBank", "dirichlet_partition",
+    "BucketedClientBank", "ClientBank", "Dataset", "EvalBank", "dirichlet_partition",
     "eval_sample_plan", "make_mnist_like",
 ]

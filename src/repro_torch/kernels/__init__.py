@@ -9,5 +9,12 @@
  - sic_rates.py   : weighted SIC sum-rate vertex scorer of the MWIS greedy
                     (CUDA C++, csrc/sic_rates.cu; replaces the Pallas
                     sic_weighted_rates_pallas)
+ - dorefa.py      : DoReFa quantize / dequantize / fused q-dq of the uplink
+                    codec (CUDA C++, csrc/dorefa.cu; replaces the Pallas
+                    quantize_codes_pallas, dequantize_codes_pallas and
+                    quantize_dequantize_pallas)
+ - ops.py         : the public wrappers (use_pallas: kernel path or oracle)
+ - ref.py         : the oracles behind ops.*(use_pallas=False)
+ - fma.py         : exactly rounded fused multiply-adds in tensor ops
  - cuda_build.py  : nvcc build into build/ + ctypes loading
 """

@@ -30,6 +30,7 @@ import torch
 
 from repro_torch.core import errors
 from repro_torch.kernels import cuda_build
+from repro_torch.kernels.fma import fma_dot
 
 KERNEL = "aggregate"
 
@@ -64,13 +65,11 @@ def coefficients(scales, weights, levels) -> torch.Tensor:
 def weighted_aggregate_plain(codes: torch.Tensor, coeff: torch.Tensor):
     """Plain PyTorch version: (K, N) codes, (K,) coeff -> (N,) float32.
 
-    Sums k = 0..K-1 in order, one rounded product and one rounded add per
-    client, as the Pallas kernel and the CUDA kernel do, so on the card the
-    two agree to the bit."""
-    out = torch.zeros(codes.shape[1], dtype=torch.float32, device=codes.device)
-    for k in range(codes.shape[0]):
-        out = out + codes[k].to(torch.float32) * coeff[k]
-    return out
+    Sums k = 0..K-1 in order from zero, one fused multiply-add per client:
+    the Pallas kernel's ``acc + c * coeff`` as XLA compiles it in the
+    reference's jitted round, and the CUDA kernel's ``__fmaf_rn``, so the
+    three agree to the bit."""
+    return fma_dot(coeff, codes)
 
 
 def _launch(flat: torch.Tensor, coeff: torch.Tensor) -> torch.Tensor:

@@ -8,8 +8,9 @@
 //     out[n] = sum_{k=0..K-1} codes[k, n] * coeff[k],
 //     coeff[k] = scale_k * w_k / a_k           (computed by the wrapper)
 //
-// in float32, k in order 0..K-1, each product and sum rounded on its own
-// (no fused multiply-add), which is the Pallas kernel's own arithmetic.
+// in float32, k in order 0..K-1 from zero, one fused multiply-add per
+// client (__fmaf_rn): the Pallas kernel's `acc + codes * coeff` as XLA
+// compiles it in the reference's jitted round, which contracts it.
 //
 // What bounds it on this card: memory.  It reads K * N * 4 bytes of codes
 // and writes N * 4, (K + 1) * N * 4 in all: at K = 3 and the largest LeNet
@@ -52,8 +53,8 @@ __global__ void aggregate_scalar(const T* __restrict__ codes,
        i += stride) {
     float acc = 0.0f;
     for (int c = 0; c < k; ++c) {
-      acc = __fadd_rn(acc, __fmul_rn(to_f32(codes[(int64_t)c * n + i]),
-                                     __ldg(coeff + c)));
+      acc = __fmaf_rn(to_f32(codes[(int64_t)c * n + i]), __ldg(coeff + c),
+                      acc);
     }
     out[i] = acc;
   }
@@ -74,10 +75,10 @@ __global__ void aggregate_vec4(const T* __restrict__ codes,
     for (int c = 0; c < k; ++c) {
       const V v = reinterpret_cast<const V*>(codes + (int64_t)c * n)[i];
       const float w = __ldg(coeff + c);
-      acc.x = __fadd_rn(acc.x, __fmul_rn(to_f32(v.x), w));
-      acc.y = __fadd_rn(acc.y, __fmul_rn(to_f32(v.y), w));
-      acc.z = __fadd_rn(acc.z, __fmul_rn(to_f32(v.z), w));
-      acc.w = __fadd_rn(acc.w, __fmul_rn(to_f32(v.w), w));
+      acc.x = __fmaf_rn(to_f32(v.x), w, acc.x);
+      acc.y = __fmaf_rn(to_f32(v.y), w, acc.y);
+      acc.z = __fmaf_rn(to_f32(v.z), w, acc.z);
+      acc.w = __fmaf_rn(to_f32(v.w), w, acc.w);
     }
     reinterpret_cast<float4*>(out)[i] = acc;
   }

@@ -32,6 +32,7 @@ import torch
 
 from repro_torch.core import errors
 from repro_torch.kernels import cuda_build
+from repro_torch.kernels.fma import fma_f32
 
 KERNEL = "ota_aggregate"
 
@@ -61,29 +62,6 @@ def row_buffer(k: int, n: int, *, device) -> torch.Tensor:
     the layout in which the kernel takes its 16-byte loads."""
     ld = -(-n // 4) * 4
     return torch.empty(k, ld, dtype=torch.float32, device=device)[:, :n]
-
-
-def fma_f32(acc: torch.Tensor, x: torch.Tensor, c: torch.Tensor):
-    """``acc + x * c`` in float32 with one rounding, as a fused
-    multiply-add gives it (CUDA's ``__fmaf_rn``).
-
-    The product of two float32 values is exact in float64, and the float64
-    sum ``s`` is rounded once; rounding ``s`` to float32 then gives the
-    correctly rounded result unless ``s`` landed exactly halfway between
-    two float32 values while the exact sum did not.  The exact error ``e``
-    of the float64 sum (TwoSum) says on which side the exact sum lies."""
-    a = acc.to(torch.float64)
-    p = x.to(torch.float64) * c.to(torch.float64)      # exact
-    s = a + p
-    bv = s - a
-    e = (a - (s - bv)) + (p - bv)                       # exact: a + p = s + e
-    r = s.to(torch.float32)
-    r64 = r.to(torch.float64)
-    d = s - r64
-    inf = torch.full_like(r, float("inf"))
-    nb = torch.nextafter(r, torch.where(d > 0, inf, -inf))
-    midpoint = (d != 0) & (s == 0.5 * (r64 + nb.to(torch.float64)))
-    return torch.where(midpoint & (e != 0) & ((e > 0) == (d > 0)), nb, r)
 
 
 def ota_aggregate_plain(flat: torch.Tensor, coeff: torch.Tensor,

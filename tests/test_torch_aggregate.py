@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
 jnp = pytest.importorskip("jax.numpy")
 
 from repro.core import fl_engine as ref_engine  # noqa: E402
@@ -78,6 +79,34 @@ def test_plain_matches_pallas_per_client_levels(k, n):
     )
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
                                atol=ATOL)
+
+
+@pytest.mark.parametrize("k", [1, 3])
+def test_plain_rounds_wide_int32_codes_like_the_jitted_kernel(k):
+    """int32 codes at b = 31 lie above 2^24, where float32 holds them
+    rounded: the kernel converts each code to float32 before its fused
+    multiply-add, and so does the plain version, bit-equal to the Pallas
+    kernel as the jitted round compiles it (at K = 1, one float32
+    product)."""
+    rng = np.random.default_rng(31 + k)
+    a = 2 ** 31 - 1
+    codes = rng.integers(-a, a + 1, (k, 4096)).astype(np.int32)
+    codes[:, :3] = [a, -a, 2 ** 24 + 1]
+    scales = rng.uniform(0.5, 2.0, k).astype(np.float32)
+    w = rng.dirichlet(np.ones(k)).astype(np.float32)
+    want = np.asarray(jax.jit(weighted_aggregate_pallas, static_argnums=3)(
+        jnp.asarray(codes), jnp.asarray(scales), jnp.asarray(w), 31))
+    got = aggregate.weighted_aggregate(
+        torch.from_numpy(codes), torch.from_numpy(scales),
+        torch.from_numpy(w), 31,
+    )
+    np.testing.assert_array_equal(got.numpy(), want)
+    if k == 1:
+        coeff = aggregate.coefficients(
+            torch.from_numpy(scales), torch.from_numpy(w),
+            torch.tensor([float(a)])).numpy()
+        np.testing.assert_array_equal(
+            got.numpy(), codes[0].astype(np.float32) * coeff[0])
 
 
 def test_empty_edges_and_argument_rule():

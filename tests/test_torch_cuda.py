@@ -12,15 +12,22 @@ and its plain version take the same operations in the same order, so in
 practice they agree to the bit; the OTA kernel is held to its plain version
 bit for bit (both take one fused multiply-add per client).  The device
 greedy's schedules equal the numpy backend's exactly, and the OTA noise
-stream's bits on the card equal those on the CPU.
+stream's bits on the card equal those on the CPU.  The three DoReFa kernels
+equal their plain versions to the bit (codes equal, outputs bit-equal), on
+the card and on the CPU, and so do the packed codec and the top-k round's
+aggregate computed on the card and on the CPU.
 """
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.core import ota, prng, scheduling  # noqa: E402
-from repro_torch.kernels import aggregate, ota_aggregate, sic_rates  # noqa: E402
+from repro_torch.core import compression, fl_engine, ota, prng  # noqa: E402
+from repro_torch.core import scheduling  # noqa: E402
+from repro_torch.core import tree as tree_lib  # noqa: E402
+from repro_torch.kernels import (  # noqa: E402
+    aggregate, dorefa, ota_aggregate, sic_rates,
+)
 
 pytestmark = pytest.mark.cuda
 RTOL, ATOL = 1e-5, 1e-6
@@ -210,3 +217,147 @@ def test_noise_bits_on_the_card_equal_the_cpu(cuda, p):
                                rtol=0, atol=0)
     z = prng.normal(key, p, device=cuda)
     assert z.dtype == torch.float32 and bool(torch.isfinite(z).all())
+
+
+def _same_bits(got, want):
+    """Equal bits, NaN at the same places (a NaN's payload may differ)."""
+    got, want = got.cpu(), want.cpu()
+    assert got.shape == want.shape and got.dtype == want.dtype
+    if got.dtype.is_floating_point:
+        nan = torch.isnan(got)
+        assert torch.equal(nan, torch.isnan(want))
+        got, want = got[~nan], want[~nan]
+        view = torch.int16 if got.element_size() == 2 else torch.int32
+        got, want = got.view(view), want.view(view)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("bits", [1, 3, 8, 16, 24, 31, 32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [17, 32_768, 100_001, 235_200, 1 << 20])
+def test_dorefa_kernels_match_plain_bit_for_bit(cuda, n, dtype, bits):
+    gen = torch.Generator().manual_seed(n + bits)
+    x = (torch.randn(n, generator=gen) * 0.3).to(dtype)
+    s = torch.amax(torch.abs(x.float()))
+    xc, sc = x.to(cuda), s.to(cuda)
+    n_out = -(-n // 32_768) * 32_768
+    wrappers = (dorefa.quantize_codes, dorefa.dequantize_codes,
+                dorefa.quantize_dequantize)
+    before = [fn.launches for fn in wrappers]
+    codes = dorefa.quantize_codes(xc, sc, bits, n_out)
+    deq = dorefa.dequantize_codes(codes[:n], sc, bits)
+    qdq = dorefa.quantize_dequantize(xc, sc, bits)
+    torch.cuda.synchronize()
+    assert [fn.launches for fn in wrappers] == [b + 1 for b in before]
+    assert qdq.dtype == dtype and deq.dtype == torch.float32
+    for got, plain in (
+        (codes, lambda t, u: dorefa.quantize_codes_plain(t, u, bits, n_out)),
+        (qdq, lambda t, u: dorefa.quantize_dequantize_plain(t, u, bits)),
+    ):
+        _same_bits(got, plain(xc, sc))        # plain version on the card
+        _same_bits(got, plain(x, s))          # and on the CPU
+    _same_bits(deq, dorefa.dequantize_codes_plain(codes[:n], sc, bits))
+    _same_bits(deq, dorefa.dequantize_codes_plain(codes[:n].cpu(), s, bits))
+    assert bool(torch.all(codes[n:] == 0))
+
+
+@pytest.mark.parametrize("bits", [31, 32])
+def test_dorefa_codes_saturate_on_the_card(cuda, bits):
+    x = torch.linspace(-1.0, 1.0, 4099, device=cuda)
+    codes = dorefa.quantize_codes(x, torch.ones((), device=cuda), bits)
+    assert codes.min().item() == -(2 ** 31)
+    assert codes.max().item() == 2 ** 31 - 1
+    _same_bits(codes, dorefa.quantize_codes_plain(x.cpu(), torch.ones(()),
+                                                  bits))
+
+
+@pytest.mark.parametrize("bits", [3, 31, 32])
+@pytest.mark.parametrize("scale", [1.0, float("nan"), float("inf"), 0.0, -1.0])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dorefa_kernels_keep_non_finite_values(cuda, dtype, scale, bits):
+    """NaN and Inf elements and scales: NaN outputs and code 0 where the
+    plain versions (and the reference) give them."""
+    gen = torch.Generator().manual_seed(bits)
+    x = torch.randn(4099, generator=gen) * 0.3
+    x[:9] = torch.tensor([float("nan"), float("inf"), -float("inf"), 0.5,
+                          -0.5, 0.0, -0.0, 1e30, -float("nan")])
+    x = x.to(dtype)
+    s = torch.tensor(scale, dtype=torch.float32)
+    xc, sc = x.to(cuda), s.to(cuda)
+    codes = dorefa.quantize_codes(xc, sc, bits, 32_768)
+    deq = dorefa.dequantize_codes(codes[:4099], sc, bits)
+    qdq = dorefa.quantize_dequantize(xc, sc, bits)
+    _same_bits(codes, dorefa.quantize_codes_plain(x, s, bits, 32_768))
+    _same_bits(deq, dorefa.dequantize_codes_plain(codes[:4099].cpu(), s,
+                                                  bits))
+    _same_bits(qdq, dorefa.quantize_dequantize_plain(x, s, bits))
+    assert codes[0].item() == 0 and torch.isnan(qdq[0]).item()
+
+
+def test_dorefa_kernels_refuse_and_skip(cuda):
+    """Empty inputs return without a launch; a scale off the card, an
+    integer input to the quantizers or float codes are refused."""
+    wrappers = (dorefa.quantize_codes, dorefa.dequantize_codes,
+                dorefa.quantize_dequantize)
+    before = [fn.launches for fn in wrappers]
+    s = torch.ones((), device=cuda)
+    assert dorefa.quantize_codes(torch.zeros(0, device=cuda), s, 4).shape == (0,)
+    assert dorefa.dequantize_codes(
+        torch.zeros(0, dtype=torch.int32, device=cuda), s, 4).shape == (0,)
+    assert dorefa.quantize_dequantize(torch.zeros(0, device=cuda), s,
+                                      4).shape == (0,)
+    assert [fn.launches for fn in wrappers] == before
+    x = torch.ones(8, device=cuda)
+    with pytest.raises(ValueError, match="scale must be one float32"):
+        dorefa.quantize_codes(x, torch.ones(()), 4)
+    with pytest.raises(TypeError, match="must be one of"):
+        dorefa.quantize_dequantize(x.to(torch.int32), s, 4)
+    with pytest.raises(TypeError, match="must be one of"):
+        dorefa.dequantize_codes(x, s, 4)
+
+
+@pytest.mark.parametrize("bits", [1, 4, 8, 16])
+def test_codec_on_the_card_equals_the_cpu(cuda, bits):
+    rng = np.random.default_rng(bits)
+    tree = {"fc1": {"w": rng.standard_normal((784, 300)) * 0.01,
+                    "b": rng.standard_normal(300) * 0.01},
+            "fc3": {"w": rng.standard_normal((100, 10)) * 0.1}}
+    cpu = tree_lib.tree_map(lambda v: torch.tensor(v, dtype=torch.float32),
+                            tree)
+    card = tree_lib.tree_map(lambda v: v.to(cuda), cpu)
+    enc = compression.encode_tree(card, bits, use_pallas=True)
+    want = compression.encode_tree(cpu, bits, use_pallas=True)
+    assert enc.total_bits == want.total_bits
+    for c, w in zip(enc.codes + enc.scales, want.codes + want.scales):
+        _same_bits(c, w)
+    dec = tree_lib.tree_flatten(compression.decode_tree(enc, use_pallas=True))
+    ref = tree_lib.tree_flatten(compression.decode_tree(want, use_pallas=True))
+    for d, w in zip(dec[0], ref[0]):
+        _same_bits(d, w)
+
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_sparse_round_on_the_card_equals_the_cpu(cuda, use_pallas):
+    """The top-k round's aggregate: the same kept, bits and update bits on
+    the card (aggregation kernel, float64 fused multiply-adds) as on the
+    CPU."""
+    rng = np.random.default_rng(5)
+    deltas = {"a": {"w": rng.standard_normal((3, 300, 100)) * 0.01},
+              "b": {"w": rng.standard_normal((3, 1000)) * 0.01}}
+    cpu = tree_lib.tree_map(lambda v: torch.tensor(v, dtype=torch.float32),
+                            deltas)
+    budgets = torch.tensor([4e5, 1e5, 3e6])
+    w = torch.tensor([0.2, 0.3, 0.5])
+    kw = dict(payload=31_000 * 32, topk=0.1, paper_exact=False,
+              use_pallas=use_pallas)
+    before = aggregate.weighted_aggregate.launches
+    got = fl_engine._sparse_quantize_aggregate(
+        tree_lib.tree_map(lambda v: v.to(cuda), cpu), budgets.to(cuda),
+        w.to(cuda), **kw)
+    assert aggregate.weighted_aggregate.launches == before + int(use_pallas)
+    want = fl_engine._sparse_quantize_aggregate(cpu, budgets, w, **kw)
+    _same_bits(got[1], want[1])
+    _same_bits(got[2], want[2])
+    for g, r in zip(tree_lib.tree_flatten(got[0])[0],
+                    tree_lib.tree_flatten(want[0])[0]):
+        _same_bits(g, r)

@@ -25,7 +25,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from test_torch_harness import (  # noqa: E402
-    ACC_ATOL, LEAVES, REPO, assert_param_drift, flat, run_reference, tree,
+    ACC_ATOL, LEAVES, REPO, assert_equal_runs, assert_param_drift, flat,
+    run_reference, tree,
 )
 
 from repro_torch import convert  # noqa: E402
@@ -136,23 +137,6 @@ def test_all_padding_batches_leave_params_exactly_unchanged():
             assert not torch.equal(new[a][c][0], batched[a][c][0])
 
 
-def _assert_equal_runs(got, want, num_rounds):
-    """tests/test_fl_engine.py:_assert_equal_runs against the reference's
-    exported logs."""
-    for t in range(num_rounds):
-        log = got.logs[t]
-        assert log.devices == tuple(int(d) for d in want[f"devices/{t}"])
-        np.testing.assert_array_equal(log.bits, want[f"bits/{t}"])
-        np.testing.assert_array_equal(log.rates, want[f"rates/{t}"])
-        np.testing.assert_array_equal(log.compression_ratios,
-                                      want[f"ratios/{t}"])
-    np.testing.assert_array_equal(got.times(), want["times"])
-    np.testing.assert_allclose(got.accuracies(), want["acc"], atol=ACC_ATOL)
-    assert_param_drift(flat(got.final_params, ""), {
-        name: want["final/" + name] for name in LEAVES
-    })
-
-
 @pytest.mark.parametrize("world", [
     # the tests/test_fl_engine.py worlds: M=12 lazy-gwmin under both power
     # modes, and the T*K > M round-robin horizon that ends in an empty round;
@@ -185,7 +169,7 @@ def test_slice_matches_reference_run(tmp_path, world):
         ds, shards, cell, FLConfig(**cfg_args), channels=bundle,
         init_params=tree(want, "init/"), device="cpu",
     )
-    _assert_equal_runs(got, want, world["t"])
+    assert_equal_runs(got, want, world["t"])
     if world["scheduler"] == "round-robin":
         assert got.logs[-1].devices == () and got.logs[-1].bits.size == 0
 
@@ -242,7 +226,9 @@ def test_port_imports_neither_jax_nor_reference():
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert "repro_torch.core.fl" in out["modules"]
     for name in ("kernels.aggregate", "kernels.ota_aggregate", "core.ota",
-                 "core.prng", "core.noma", "core.power"):
+                 "core.prng", "core.noma", "core.power", "kernels.dorefa",
+                 "kernels.ops", "kernels.ref", "kernels.fma",
+                 "core.compression", "core.tree"):
         assert "repro_torch." + name in out["modules"]
     assert out["bad"] == []
 
@@ -295,18 +281,17 @@ def test_parameter_entry_points_default_to_cuda(monkeypatch):
 
 
 # The case ids from "kwargs4-4" on are the ones these cases had before the
-# scheduler_backend="jax" case (item 3), the uplink="tdma" case (item 2) and
-# the uplink="ota" case (item 6) left the list as they were ported.
+# scheduler_backend="jax" case (item 3), the uplink="tdma" case (item 2),
+# the uplink="ota" case (item 6), and the topk and client_bank="bucketed"
+# cases (item 7) left the list as they were ported; the tiny-transformer
+# case keeps its id and now expects item 8, which brings the LLM models.
 @pytest.mark.parametrize("kwargs,item", [
     (dict(), 1),                                        # default engine: legacy
     (dict(fl_engine="batched", scheduler="random"), 1),
     pytest.param(dict(fl_engine="batched", horizon="scan"), 4, id="kwargs4-4"),
     pytest.param(dict(fl_engine="batched", scheduler="update-aware"), 5,
                  id="kwargs5-5"),
-    pytest.param(dict(fl_engine="batched", topk=0.5), 7, id="kwargs7-7"),
-    pytest.param(dict(fl_engine="batched", client_bank="bucketed"), 7,
-                 id="kwargs8-7"),
-    pytest.param(dict(fl_engine="batched", model="tiny-transformer"), 7,
+    pytest.param(dict(fl_engine="batched", model="tiny-transformer"), 8,
                  id="kwargs9-7"),
     pytest.param(dict(fl_engine="batched", model="qwen2_0_5b"), 8,
                  id="kwargs10-8"),
@@ -329,6 +314,18 @@ def test_config_accepts_ported_uplinks(kwargs):
     assert cfg.uplink == kwargs["uplink"]
     assert fl.policy_config(channel.CellConfig(), cfg, "cpu").power_mode == (
         kwargs.get("power_mode", "mapel"))
+
+
+@pytest.mark.parametrize("kwargs", [
+    pytest.param(dict(topk=0.5), id="kwargs7-7"),
+    pytest.param(dict(client_bank="bucketed"), id="kwargs8-7"),
+])
+def test_config_accepts_ported_payload_paths(kwargs):
+    """The top-k sparse stage and the bucketed client bank (item 7) are
+    ported: FLConfig takes them."""
+    cfg = FLConfig(fl_engine="batched", **kwargs)
+    for name, value in kwargs.items():
+        assert getattr(cfg, name) == value
 
 
 @pytest.mark.parametrize("backend", ["jax", "jax-stepwise"])

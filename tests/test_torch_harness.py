@@ -85,6 +85,39 @@ def assert_param_drift(got, want, *, mean_atol=PARAM_MEAN_ATOL,
         assert d.max() < max_atol, f"{name}: max param drift {d.max()}"
 
 
+def _ulps(a, b):
+    """Elementwise distance in float32 ulps (same-sign finite values)."""
+    a = np.asarray(a, np.float32).view(np.int32).astype(np.int64)
+    b = np.asarray(b, np.float32).view(np.int32).astype(np.int64)
+    return np.abs(a - b)
+
+
+def assert_equal_runs(got, want, num_rounds, *, rate_ulp=0):
+    """tests/test_fl_engine.py:_assert_equal_runs against the reference's
+    exported logs: schedules, bits, rates, ratios and times exact (rates and
+    ratios within ``rate_ulp`` float32 ulps where a known difference says
+    so, the TDMA rates' 2), accuracy within ACC_ATOL, parameter drift
+    within the mean / max bounds."""
+    for t in range(num_rounds):
+        log = got.logs[t]
+        assert log.devices == tuple(int(d) for d in want[f"devices/{t}"])
+        np.testing.assert_array_equal(log.bits, want[f"bits/{t}"])
+        if rate_ulp:
+            assert log.rates.dtype == want[f"rates/{t}"].dtype == np.float32
+            assert _ulps(log.rates, want[f"rates/{t}"]).max() <= rate_ulp
+            assert _ulps(log.compression_ratios,
+                         want[f"ratios/{t}"]).max() <= rate_ulp
+        else:
+            np.testing.assert_array_equal(log.rates, want[f"rates/{t}"])
+            np.testing.assert_array_equal(log.compression_ratios,
+                                          want[f"ratios/{t}"])
+    np.testing.assert_array_equal(got.times(), want["times"])
+    np.testing.assert_allclose(got.accuracies(), want["acc"], atol=ACC_ATOL)
+    assert_param_drift(flat(got.final_params, ""), {
+        name: want["final/" + name] for name in LEAVES
+    })
+
+
 def test_reference_runner_returns_reference_init(tmp_path):
     """The shimmed subprocess imports repro.models (which fails in this
     process under JAX 0.9.0) and returns LeNet's initial weights: the

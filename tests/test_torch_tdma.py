@@ -22,7 +22,7 @@ torch = pytest.importorskip("torch")
 jnp = pytest.importorskip("jax.numpy")
 
 from test_torch_harness import (  # noqa: E402
-    ACC_ATOL, LEAVES, assert_param_drift, flat, run_reference, tree,
+    _ulps, assert_equal_runs, run_reference, tree,
 )
 
 from repro.core import noma as ref_noma  # noqa: E402
@@ -36,13 +36,6 @@ from repro_torch.models import lenet  # noqa: E402
 
 RATE_ULP = 2
 PAYLOAD = lenet.NUM_PARAMS * 32
-
-
-def _ulps(a, b):
-    """Elementwise distance in float32 ulps (same-sign finite values)."""
-    a = np.asarray(a, np.float32).view(np.int32).astype(np.int64)
-    b = np.asarray(b, np.float32).view(np.int32).astype(np.int64)
-    return np.abs(a - b)
 
 
 @pytest.mark.parametrize("powers", ["pmax", "uniform"])
@@ -121,16 +114,4 @@ def test_tdma_run_matches_reference(reference_runs, power_mode):
         ds, shards, cell, FLConfig(**_cfg_args(power_mode)), channels=bundle,
         init_params=tree(want, "init/"), device="cpu",
     )
-    for t in range(WORLD["t"]):
-        log = got.logs[t]
-        assert log.devices == tuple(int(d) for d in want[f"devices/{t}"])
-        np.testing.assert_array_equal(log.bits, want[f"bits/{t}"])
-        assert log.rates.dtype == want[f"rates/{t}"].dtype == np.float32
-        assert _ulps(log.rates, want[f"rates/{t}"]).max() <= RATE_ULP
-        assert _ulps(log.compression_ratios,
-                     want[f"ratios/{t}"]).max() <= RATE_ULP
-    np.testing.assert_array_equal(got.times(), want["times"])
-    np.testing.assert_allclose(got.accuracies(), want["acc"], atol=ACC_ATOL)
-    assert_param_drift(flat(got.final_params, ""), {
-        name: want["final/" + name] for name in LEAVES
-    })
+    assert_equal_runs(got, want, WORLD["t"], rate_ulp=RATE_ULP)
