@@ -46,9 +46,11 @@ package, and exits non-zero on the first failure.  Phases:
      lays them out), and on one OTA round's own inputs (bit for bit), its
      timing in both layouts,
      the receiver-noise stream (its bits on the card equal the CPU's; the
-     per-round draw timed), the paper-width run with ``uplink="ota"``
-     (ota-align powers, noise 1e-9: one OTA launch per non-empty round) and
-     with ``uplink="tdma"`` (six aggregation launches per round), and the
+     Threefry kernel's per-round normal draw, one launch, equal to its
+     plain version ``prng.draw_plain`` to the bit and timed beside it),
+     the paper-width run with ``uplink="ota"`` (ota-align powers, noise
+     1e-9: one OTA launch per non-empty round) and with ``uplink="tdma"``
+     (six aggregation launches per round), and the
      M=30 OTA run on the CPU and on the card held to the same contract as 7;
   9. the packed DoReFa codec: the three quantizer kernels against their
      plain versions on the card and on the CPU (codes equal, outputs
@@ -64,7 +66,27 @@ package, and exits non-zero on the first failure.  Phases:
      the b = 32 passthrough rows, the kernel
      held to its plain version on that round's own inputs) and with
      ``client_bank="bucketed"`` (bit-equal to the host run); and the M=30
-     ``topk=0.1`` run on the CPU and on the card held to the contract of 7.
+     ``topk=0.1`` run on the CPU and on the card held to the contract of 7;
+ 10. the flash-decode kernel: against its plain version on the card
+     (``[flash-kernel]``), within tests/test_kernels.py's float32 contract
+     (atol and rtol 1e-5) and in bfloat16 within one rounding of the
+     output (atol 1e-6, rtol 2^-7; zeros at valid_len = 0) at the
+     test shapes and at decode_32k (B=128, S=32,768) with Qwen2-0.5B's
+     Hkv=2, G=7, D=64, float32 and bfloat16, valid_len 0, 1, 300, S-1, S;
+     timed at decode_32k (``[time] flash_decode``: device and
+     host-inclusive time, plain version, ``scaled_dot_product_attention``
+     with ``enable_gqa=True`` as the library yardstick (the faster of the
+     call with a boolean mask and the call without one),
+     and the bound: the bytes of k and v below valid_len); and its path,
+     ``kernels.ops.flash_decode(use_pallas=True)`` at decode_32k
+     (``[main:flash]``: one launch per call, held to the oracle);
+ 11. the seeded draws (``[draws]``): the reference's positions and gains of
+     the paper cell (M=300, T=35) and LeNet's initial weights, drawn on the
+     card through the Threefry kernel, equal the CPU's to the bit, and so
+     do 2^20 of the kernel's uniforms, normals and truncated normals
+     against its plain version on the card and the CPU.  Every main-path
+     run draws LeNet's initial weights with the kernel (three launches)
+     and the OTA run one noise draw per round.
 
 The last lines are the card's name and power limit as nvidia-smi reports
 them, one JSON object with every kernel's numbers, and the one-line result
@@ -113,6 +135,24 @@ DOREFA_TIME_N = (235_200, 1 << 20)   # LeNet fc1/w; kernel_bench.py's N
 DOREFA_ODD_SCALES = (1.0, float("nan"), float("inf"), 0.0, -1.0)
 CODEC_BITS = (1, 4, 8, 16)
 TOPK = 0.1
+# tests/test_kernels.py's flash-decode shapes (B, Hkv, G, D, S), then
+# decode_32k (src/repro/config.py) at Qwen2-0.5B's head layout
+# (src/repro/configs/qwen2_0_5b.py: 14 query heads, 2 kv heads, D=64)
+FLASH_SHAPES = ((1, 1, 1, 128, 256), (2, 2, 3, 128, 512), (1, 4, 2, 64, 1024),
+                (3, 1, 8, 128, 256))
+DECODE_32K = (128, 2, 7, 64, 32_768)
+# (atol, rtol) of the flash-decode kernel against its plain version and the
+# oracle: float32 at tests/test_kernels.py's 1e-5; in bfloat16 all three
+# read the same inputs and compute in float32, so they differ by at most
+# one bfloat16 rounding of the output (2^-7 relative), far inside that
+# contract's 5e-2, which a kernel returning zeros would pass
+FLASH_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-6, 2.0 ** -7)}
+PEAK_FLOPS = {torch.float32: PEAK_F32_FLOPS, torch.bfloat16: 989e12}
+# operations per normal of the Threefry kernel, counted from its source:
+# the hash 118 integer operations, the uniform 6, erf_inv about 66 (a
+# fused multiply-add counted as two)
+THREEFRY_OPS = 190
+LENET_WEIGHT_LEAVES = 3     # truncated-normal draws of LeNet's init
 
 
 class SmokeFailure(RuntimeError):
@@ -134,7 +174,9 @@ def log(msg):
 
 def kernels_of_main_path():
     """Every kernel the main path runs, with its wrapper and metadata."""
-    from repro_torch.kernels import aggregate, dorefa, ota_aggregate, sic_rates
+    from repro_torch.kernels import (
+        aggregate, dorefa, flash_decode, ota_aggregate, sic_rates, threefry,
+    )
 
     return [dict(
         name="weighted_aggregate",
@@ -165,7 +207,23 @@ def kernels_of_main_path():
         wrapper=getattr(dorefa, name),
         module=dorefa,
     ) for name, line in (("quantize_codes", 43), ("dequantize_codes", 71),
-                         ("quantize_dequantize", 101))]
+                         ("quantize_dequantize", 101))] + [dict(
+        name="flash_decode",
+        route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_decode.cu",
+        replaces="src/repro/kernels/flash_decode.py:67",
+        wrapper=flash_decode.flash_decode,
+        module=flash_decode,
+    ), dict(
+        # not a Pallas kernel: the reference draws its noise, fading and
+        # initial weights with jax.random under XLA
+        name="threefry_draw",
+        route="cuda",
+        source="src/repro_torch/kernels/csrc/threefry.cu",
+        replaces="src/repro/core/ota.py:154",
+        wrapper=threefry.threefry_draw,
+        module=threefry,
+    )]
 
 
 def build_kernels(kernels):
@@ -290,6 +348,17 @@ def _device_ms(fn, iters=20):
             return start.elapsed_time(stop) / iters
         check(iters > 1, "could not queue one call behind the sleep kernel")
         iters //= 2
+
+
+def _busy_ms(fn, iters=2):
+    """Device-busy ms and kernel launches per call, from torch.profiler:
+    for calls of more launches than the card queues behind a sleep kernel
+    (about a thousand: the host then blocks until the sleep ends, so
+    :func:`_device_ms` cannot hide the host's launch time)."""
+    fn()
+    launches, busy, _ = _profile_schedule(
+        lambda: [fn() for _ in range(iters)])
+    return busy / iters, launches / iters
 
 
 def time_aggregate(mod, k=3):
@@ -592,27 +661,53 @@ def time_ota(mod, k=3, n=LENET_PARAMS):
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
-def check_noise(n=LENET_PARAMS):
+def check_noise(mod, n=LENET_PARAMS):
     """The receiver-noise stream of one round key: its bits on the card
-    equal the CPU's exactly; the draw of n normals timed on the card."""
+    equal the CPU's; the Threefry kernel's normal draw (one launch) equals
+    its plain version (``prng.draw_plain``) on the card and on the CPU to
+    the bit, and is timed beside it.  Returns (timings, max abs error)."""
     from repro_torch.core import ota, prng
 
     key = ota.horizon_keys(0, 4)[3]
     card = prng.random_bits(key, n, device="cuda").cpu()
     check(torch.equal(card, prng.random_bits(key, n, device="cpu")),
           "noise bits differ between the card and the CPU")
-    z_card = prng.normal(key, n, device="cuda").cpu()
-    z_gap = (z_card - prng.normal(key, n, device="cpu")).abs().max().item()
+    counted = mod.threefry_draw.launches
 
-    def draw():
+    def kern_fn():
         return prng.normal(key, n, device="cuda")
 
-    host = _time_ms(draw, iters=20, warmup=3)
-    dev = _device_ms(draw, iters=4)
+    def plain_fn():
+        return prng.draw_plain(key, n, prng.NORMAL_LO, 1.0, normal=True,
+                               device="cuda")
+
+    z = kern_fn()
+    check(mod.threefry_draw.launches == counted + 1,
+          "the normal draw did not launch the Threefry kernel once")
+    err = _bits_equal(z, plain_fn())
+    _bits_equal(z, prng.normal(key, n, device="cpu"))
+    host = _time_ms(kern_fn, iters=200, warmup=20)
+    plain_host = _time_ms(plain_fn, iters=5, warmup=1)
+    dev = {"kernel": _device_ms(kern_fn), "kernel2": _device_ms(kern_fn)}
+    # the plain version's ~1,300 launches per call exceed the queue
+    dev["plain"], plain_launches = _busy_ms(plain_fn)
+    mod.threefry_draw.launches = counted    # timing launches don't count
+    t_bytes = 4 * n / PEAK_BYTES_PER_S * 1e3
+    t_ops = THREEFRY_OPS * n / PEAK_F32_FLOPS * 1e3
+    bound = max(t_bytes, t_ops)
     log(f"[noise] round key {key.tolist()}: {n} bits equal on the card and "
-        f"the CPU; normals differ by at most {z_gap!r} (erfinv); draw of {n} "
-        f"normals per round: device {dev:.4f} ms, host-inclusive "
-        f"{host:.4f} ms")
+        f"the CPU; normals of the Threefry kernel bit-equal to its plain "
+        f"version on the card and the CPU (max abs err {err!r}); draw of "
+        f"{n} normals per round: device kernel {dev['kernel'] * 1e3:.3f} us "
+        f"(again {dev['kernel2'] * 1e3:.3f})  plain {dev['plain'] * 1e3:.1f} "
+        f"us busy in {plain_launches:.0f} launches (torch.profiler); "
+        f"host-inclusive kernel {host * 1e3:.3f} us  plain "
+        f"{plain_host * 1e3:.1f} us; bound {bound * 1e3:.4f} us "
+        f"({'bytes' if t_bytes >= t_ops else 'operations'}: {4 * n} B, "
+        f"{THREEFRY_OPS * n} op); {dev['kernel'] / bound:.2f}x the bound")
+    return dict(ms=dev["kernel"], plain_ms=dev["plain"], library_ms=None,
+                bound_ms=bound, host_ms=host, plain_host_ms=plain_host,
+                bound_by="bytes" if t_bytes >= t_ops else "operations"), err
 
 
 # --------------------------------------------------------------------------
@@ -1115,6 +1210,11 @@ def run_main_path(kernels, mode, m=300, t=5, samples=12_000):
           f"times, expected {want_sic} greedy steps")
     for name in ("quantize_codes", "dequantize_codes", "quantize_dequantize"):
         check(launches[name] == 0, f"{name} launched on the FL path")
+    # LeNet's initial weights, then one noise draw per OTA round
+    want_draws = LENET_WEIGHT_LEAVES + want_ota
+    check(launches["threefry_draw"] == want_draws,
+          f"threefry_draw launched {launches['threefry_draw']} times, "
+          f"expected {want_draws}")
     check(bool(np.all(np.isfinite(acc))), f"non-finite accuracy {acc}")
     check(acc[-1] > acc[0], f"accuracy did not improve: {acc.tolist()}")
     for layer in res.final_params.values():
@@ -1294,6 +1394,240 @@ def compare_cpu_and_card(kernels, m=30, t=5, samples=12_000, uplink="noma",
 
 
 # --------------------------------------------------------------------------
+# the flash-decode kernel and its path
+# --------------------------------------------------------------------------
+
+def _flash_case(shape, dtype, seed):
+    """Normal q, k, v of ``shape`` = (B, Hkv, G, D, S) in ``dtype``, made
+    on the card from a seed."""
+    b, h, g, d, s = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn(b, h, g, d, device="cuda", generator=gen).to(dtype)
+    k = torch.randn(b, s, h, d, device="cuda", generator=gen).to(dtype)
+    v = torch.randn(b, s, h, d, device="cuda", generator=gen).to(dtype)
+    return q, k, v
+
+
+def _flash_err(got, want, dtype, what):
+    """Max abs error of the kernel against a reference version, within
+    (atol, rtol) = FLASH_TOL[dtype]."""
+    got, want = got.float(), want.float()
+    atol, rtol = FLASH_TOL[dtype]
+    check(bool(torch.isfinite(got).all()), f"non-finite output at {what}")
+    bad = (got - want).abs() > atol + rtol * want.abs()
+    err = (got - want).abs().max().item()
+    check(not bool(bad.any()), f"flash_decode at {what}: max abs err {err!r} "
+          f"beyond atol {atol}, rtol {rtol}")
+    return err
+
+
+def compare_flash(mod):
+    """The kernel against its plain version on the card: the test shapes
+    and decode_32k, float32 and bfloat16, valid_len 0, 1, 300, S-1, S (a
+    card-resident int32, as the path hands it over); zeros at 0.  Returns
+    the largest absolute error per type."""
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    n_cases = 0
+    for si, shape in enumerate(FLASH_SHAPES + (DECODE_32K,)):
+        s_len = shape[4]
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = _flash_case(shape, dtype, seed=si)
+            for vl in sorted({0, 1, 300, s_len - 1, s_len}):
+                what = f"{shape} {dtype} valid_len={vl}"
+                vt = torch.tensor(vl, dtype=torch.int32, device="cuda")
+                before = mod.flash_decode.launches
+                got = mod.flash_decode(q, k, v, vt)
+                torch.cuda.synchronize()
+                check(mod.flash_decode.launches == before + 1,
+                      f"flash_decode did not launch at {what}")
+                if vl == 0:
+                    check(bool((got == 0).all()), f"nonzero output at {what}")
+                    continue
+                want = mod.flash_decode_plain(q, k, v, vl)
+                worst[dtype] = max(worst[dtype],
+                                   _flash_err(got, want, dtype, what))
+                n_cases += 1
+            del q, k, v
+    torch.cuda.empty_cache()
+    log(f"[flash-kernel] {n_cases} cases (shapes {FLASH_SHAPES} and "
+        f"decode_32k {DECODE_32K} as (B, Hkv, G, D, S), float32 and "
+        f"bfloat16, valid_len 0, 1, 300, S-1, S): within (atol, rtol) "
+        f"{FLASH_TOL[torch.float32]} / {FLASH_TOL[torch.bfloat16]} of the "
+        f"plain version, zeros at valid_len 0; max abs err float32 "
+        f"{worst[torch.float32]!r}, bfloat16 {worst[torch.bfloat16]!r}")
+    return worst
+
+
+def time_flash(mod, dtype, shape=DECODE_32K):
+    """The kernel at decode_32k with the whole cache valid: device time
+    (behind the sleep kernel) and host-inclusive time beside its plain
+    version, ``scaled_dot_product_attention`` (``enable_gqa=True``: the
+    library yardstick, never on the path; the faster of the call with a
+    boolean mask of the valid positions and, since the whole cache is
+    valid, the call without one, which leaves SDPA's flash and cuDNN
+    backends open) and the bound: the bytes of k and v below valid_len (plus q
+    and the output) at 3.35 TB/s, against 4 * B * Hkv * G * n * D
+    operations at the type's peak."""
+    import torch.nn.functional as F
+
+    b, h, g, d, s_len = shape
+    q, k, v = _flash_case(shape, dtype, seed=7)
+    vl = s_len
+    vt = torch.tensor(vl, dtype=torch.int32, device="cuda")
+    qh = q.reshape(b, h * g, 1, d)
+    kh, vh = k.transpose(1, 2), v.transpose(1, 2)
+    mask = (torch.arange(s_len, device="cuda") < vt).reshape(1, 1, 1, s_len)
+    counted = mod.flash_decode.launches
+
+    def kern_fn():
+        return mod._launch(q, k, v, vt, mod.BLOCK_S)
+
+    def plain_fn():
+        return mod.flash_decode_plain(q, k, v, vl)
+
+    def lib_fn():
+        return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
+                                              enable_gqa=True)
+
+    def lib_full_fn():      # no mask: valid_len = S leaves every backend open
+        return F.scaled_dot_product_attention(qh, kh, vh, enable_gqa=True)
+
+    err = _flash_err(kern_fn(), plain_fn(), dtype, f"timed {shape} {dtype}")
+    lib_err = max((fn().reshape(b, h, g, d).float()
+                   - plain_fn().float()).abs().max().item()
+                  for fn in (lib_fn, lib_full_fn))
+    plain = _time_ms(plain_fn, iters=5, warmup=1)
+    kern = _time_ms(kern_fn, iters=20, warmup=3)
+    kern = 0.5 * (kern + _time_ms(kern_fn, iters=20, warmup=1))
+    plain = 0.5 * (plain + _time_ms(plain_fn, iters=5, warmup=1))
+    lib_masked = _time_ms(lib_fn, iters=5, warmup=1)
+    lib_full = _time_ms(lib_full_fn, iters=5, warmup=1)
+    dev = {name: _device_ms(fn, iters=n) for name, fn, n in
+           (("kernel", kern_fn, 20), ("lib_masked", lib_fn, 4),
+            ("lib_full", lib_full_fn, 4), ("kernel2", kern_fn, 20))}
+    # the library's time is the faster of the two calls
+    dev["lib"] = min(dev["lib_masked"], dev["lib_full"])
+    lib = min(lib_masked, lib_full)
+    # the plain version's ~1,300 launches per call exceed the queue
+    dev["plain"], plain_launches = _busy_ms(plain_fn)
+    mod.flash_decode.launches = counted    # timing launches don't count
+    size = k.element_size()
+    nbytes = 2 * b * vl * h * d * size + 2 * q.numel() * size
+    flops = 4 * b * h * g * vl * d
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    bound = max(t_bytes, t_ops)
+    name = str(dtype).replace("torch.", "")
+    log(f"[time] flash_decode {name} B={b} Hkv={h} G={g} D={d} S={s_len} "
+        f"valid_len={vl}: device kernel {dev['kernel'] * 1e3:.1f} us (again "
+        f"{dev['kernel2'] * 1e3:.1f})  plain {dev['plain'] * 1e3:.1f} us  "
+        f"sdpa {dev['lib'] * 1e3:.1f} us (masked "
+        f"{dev['lib_masked'] * 1e3:.1f}, no mask "
+        f"{dev['lib_full'] * 1e3:.1f}); host-inclusive kernel "
+        f"{kern * 1e3:.1f} us  plain {plain * 1e3:.1f} us  sdpa "
+        f"{lib * 1e3:.1f} us (masked {lib_masked * 1e3:.1f}, no mask "
+        f"{lib_full * 1e3:.1f}); bound {bound * 1e3:.1f} us "
+        f"({'bytes' if t_bytes >= t_ops else 'operations'}: {nbytes} B, "
+        f"{flops} op); plain device time is its busy time over "
+        f"{plain_launches:.0f} launches (torch.profiler); "
+        f"{dev['kernel'] / bound:.2f}x the bound, "
+        f"{dev['lib'] / dev['kernel']:.2f}x faster than sdpa; max abs err "
+        f"kernel vs plain {err!r}, sdpa vs plain {lib_err!r}")
+    del q, k, v, qh, kh, vh
+    torch.cuda.empty_cache()
+    return dict(ms=dev["kernel"], plain_ms=dev["plain"], library_ms=dev["lib"],
+                bound_ms=bound, host_ms=kern, plain_host_ms=plain,
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def run_flash_main_path(kernels, shape=DECODE_32K):
+    """The kernel's path, ``kernels.ops.flash_decode(use_pallas=True)``,
+    at decode_32k in bfloat16 and float32 with valid_len S - 1 on the
+    card: the launch counts are zeroed just before and read just after;
+    each output is then held to the oracle (``use_pallas=False``).
+    Returns (launches per kernel, max abs error against the oracle)."""
+    from repro_torch.kernels import ops
+
+    b, h, g, d, s_len = shape
+    vt = torch.tensor(s_len - 1, dtype=torch.int32, device="cuda")
+    cases = [(dtype, *_flash_case(shape, dtype, seed=11))
+             for dtype in (torch.bfloat16, torch.float32)]
+    reset_launches(kernels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = [ops.flash_decode(q, k, v, vt, use_pallas=True)
+            for _, q, k, v in cases]
+    torch.cuda.synchronize()
+    took = time.perf_counter() - t0
+    launches = read_launches(kernels)
+    check(launches["flash_decode"] == len(cases),
+          f"flash_decode launched {launches['flash_decode']} times on its "
+          f"path, expected {len(cases)}")
+    check(sum(launches.values()) == len(cases), f"other launches {launches}")
+    worst = 0.0
+    for out, (dtype, q, k, v) in zip(outs, cases):
+        check(out.shape == q.shape and out.dtype == dtype, "output shape")
+        oracle = ops.flash_decode(q, k, v, vt, use_pallas=False)
+        worst = max(worst, _flash_err(out, oracle, dtype,
+                                      f"the path {shape} {dtype}"))
+    del cases, outs
+    torch.cuda.empty_cache()
+    log(f"[main:flash] ops.flash_decode(use_pallas=True) at decode_32k "
+        f"{shape} valid_len {s_len - 1}, bfloat16 and float32: {took:.4f} s "
+        f"host for both calls; launches {launches}; within (atol, rtol) "
+        f"{FLASH_TOL[torch.float32]} / {FLASH_TOL[torch.bfloat16]} of the "
+        f"oracle (max abs err {worst!r})")
+    return launches, worst
+
+
+# --------------------------------------------------------------------------
+# the seeded draws
+# --------------------------------------------------------------------------
+
+def check_draws(seed=0, m=300, t=35):
+    """The reference's draws from ``seed`` on the card equal the CPU's to
+    the bit: the paper cell's positions and gains, LeNet's initial weights,
+    and long uniform, normal and truncated-normal streams of the Threefry
+    kernel against its plain version on the card and the CPU."""
+    from repro_torch.core import channel, prng
+    from repro_torch.models.params import init_lenet
+
+    cell = channel.CellConfig(num_devices=m)
+    t0 = time.perf_counter()
+    card = channel.sample_channels(seed, cell, t, device="cuda")
+    t_card = time.perf_counter() - t0
+    host = channel.sample_channels(seed, cell, t)
+    for field in ("distances", "gains", "dl_gains"):
+        _bits_equal(torch.from_numpy(getattr(card, field)),
+                    torch.from_numpy(getattr(host, field)))
+    w_card = init_lenet(seed, device="cuda")
+    w_host = init_lenet(seed, device="cpu")
+    for layer, leaves in w_host.items():
+        for leaf, v in leaves.items():
+            check(w_card[layer][leaf].device.type == "cuda", "weights device")
+            _bits_equal(w_card[layer][leaf], v)
+    key = prng.fold_in(prng.prng_key(seed), 2)
+    n = 1 << 20
+    a, b = prng.ERF_BOUNDS[(-3.0, 3.0)]
+    clip = (float(np.nextafter(np.float32(-3), 0)),
+            float(np.nextafter(np.float32(3), 0)))
+    for lo, hi, normal, cut in ((-2.5, 7.0, False, None),
+                                (prng.NORMAL_LO, 1.0, True, None),
+                                (a, b, True, clip)):
+        got = prng.draw(key, n, lo, hi, normal=normal, clip=cut,
+                        device="cuda")
+        _bits_equal(got, prng.draw_plain(key, n, lo, hi, normal=normal,
+                                         clip=cut, device="cuda"))
+        _bits_equal(got, prng.draw_plain(key, n, lo, hi, normal=normal,
+                                         clip=cut, device="cpu"))
+    log(f"[draws] seed {seed}: positions and gains of M={m} T={t} (drawn on "
+        f"the card in {t_card:.3f} s), LeNet's initial weights, 2^20 "
+        f"uniforms, normals and truncated normals: the card's (the Threefry "
+        f"kernel) equal the plain version's on the card and the CPU to the "
+        f"bit")
+
+
+# --------------------------------------------------------------------------
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1336,8 +1670,10 @@ def main() -> int:
     ota_mod = kernels[2]["module"]
     errs["ota_aggregate"] = compare_ota(ota_mod)
     times["ota_aggregate"] = time_ota(ota_mod)
-    check_noise()
+    threefry_mod = kernels[7]["module"]
+    times["threefry_draw"], errs["threefry_draw"] = check_noise(threefry_mod)
     ota_run, ota_launches, path_err = run_ota_main_path(kernels)
+    launches["threefry_draw"] = ota_launches["threefry_draw"]
     errs["ota_aggregate"] = max(errs["ota_aggregate"], path_err)
     tdma_run, _ = run_main_path(kernels, "tdma")
     check([lg.devices for lg in ota_run.logs]
@@ -1365,6 +1701,16 @@ def main() -> int:
           "the top-k and host runs scheduled differently")
     _check_identical_runs(bucketed_run, host, "[main:bucketed]")
     compare_cpu_and_card(kernels, topk=TOPK)
+
+    flash_mod = kernels[6]["module"]
+    flash_err = compare_flash(flash_mod)
+    flash_times = {dtype: time_flash(flash_mod, dtype)
+                   for dtype in (torch.bfloat16, torch.float32)}
+    times["flash_decode"] = flash_times[torch.bfloat16]
+    flash_launches, path_err = run_flash_main_path(kernels)
+    errs["flash_decode"] = max(max(flash_err.values()), path_err)
+    launches["flash_decode"] = flash_launches["flash_decode"]
+    check_draws()
 
     rows = []
     for kern in kernels:

@@ -22,10 +22,13 @@ the host control plane (channels, schedule, MAPEL powers, rates, budgets,
 timing) is float64 numpy, steps 3-5 run on the device in
 :class:`repro_torch.core.fl_engine.BatchedRoundEngine`.  With
 ``scheduler_backend="jax"`` or ``"jax-stepwise"`` the schedule's greedy
-search runs on the run's device too (float64, the same schedule).  The reference
-draws channels and initial weights with ``jax.random``; pass ``channels=``
-and ``init_params=`` to run on given draws (the parity tests inject the
-reference's), or leave them out to draw with the port's own generators.
+search runs on the run's device too (float64, the same schedule).  Without
+``channels=`` and ``init_params=`` the run draws what the reference draws
+from ``PRNGKey(seed)``: positions under ``fold_in(key, 1)``, fading under
+``fold_in(key, 2)`` and the initial weights under the per-leaf keys of
+``init_params`` (:mod:`repro_torch.core.prng`, bit for bit), so seed s is
+the reference's seed s.  ``channels=`` and ``init_params=`` replace those
+draws with given ones.
 """
 from __future__ import annotations
 
@@ -168,7 +171,7 @@ def run_federated_learning(
     in its own sub-slot.
     ``channels`` (a :class:`~repro_torch.core.channel.ChannelBundle`) and
     ``init_params`` (a nested dict of array-likes, e.g. the reference's
-    initial weights as numpy) replace the port's own draws.  ``device``
+    initial weights as numpy) replace the draws from ``cfg.seed``.  ``device``
     defaults to ``cuda`` and raises when CUDA is absent; pass ``"cpu"`` to
     run on the CPU.
     """

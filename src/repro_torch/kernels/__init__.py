@@ -13,6 +13,12 @@
                     codec (CUDA C++, csrc/dorefa.cu; replaces the Pallas
                     quantize_codes_pallas, dequantize_codes_pallas and
                     quantize_dequantize_pallas)
+ - flash_decode.py : one-token grouped-query decode attention
+                    (CUDA C++, csrc/flash_decode.cu; replaces the Pallas
+                    flash_decode_pallas)
+ - threefry.py    : jax.random's Threefry uniforms, normals and truncated
+                    normals in one launch on the card (CUDA C++,
+                    csrc/threefry.cu; its plain version is core/prng.py)
  - ops.py         : the public wrappers (use_pallas: kernel path or oracle)
  - ref.py         : the oracles behind ops.*(use_pallas=False)
  - fma.py         : exactly rounded fused multiply-adds in tensor ops

@@ -16,11 +16,11 @@ def fma_f32(acc: torch.Tensor, x: torch.Tensor, c: torch.Tensor):
     """``acc + x * c`` in float32 with one rounding, as a fused
     multiply-add gives it (CUDA's ``__fmaf_rn``).
 
-    The product of two float32 values is exact in float64, and the float64
-    sum ``s`` is rounded once; rounding ``s`` to float32 then gives the
-    correctly rounded result unless ``s`` landed exactly halfway between
-    two float32 values while the exact sum did not.  The exact error ``e``
-    of the float64 sum (TwoSum) says on which side the exact sum lies."""
+    The product of two float32 values is exact in float64; the float64 sum
+    ``s`` is rounded to odd (an inexact sum whose last bit is even moves
+    one float64 ulp toward the exact sum, whose side the TwoSum error ``e``
+    gives), and a round-to-odd value with 53 bits rounds to the 24 of
+    float32 exactly as the exact sum would."""
     a = acc.to(torch.float64)
     # x is rounded to float32 first, as the kernels' int -> float
     # conversion rounds an int32 code above 2^24: then the product is exact
@@ -28,13 +28,11 @@ def fma_f32(acc: torch.Tensor, x: torch.Tensor, c: torch.Tensor):
     s = a + p
     bv = s - a
     e = (a - (s - bv)) + (p - bv)                       # exact: a + p = s + e
-    r = s.to(torch.float32)
-    r64 = r.to(torch.float64)
-    d = s - r64
-    inf = torch.full_like(r, float("inf"))
-    nb = torch.nextafter(r, torch.where(d > 0, inf, -inf))
-    midpoint = (d != 0) & (s == 0.5 * (r64 + nb.to(torch.float64)))
-    return torch.where(midpoint & (e != 0) & ((e > 0) == (d > 0)), nb, r)
+    bits = s.view(torch.int64)
+    odd = (e != 0) & ((bits & 1) == 0) & torch.isfinite(s)
+    step = torch.where((e > 0) == (s > 0), 1, -1)       # toward s + e
+    return (bits + torch.where(odd, step, 0)).view(torch.float64) \
+        .to(torch.float32)
 
 
 def fma_dot(w: torch.Tensor, x: torch.Tensor, acc=None) -> torch.Tensor:

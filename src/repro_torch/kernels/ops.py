@@ -14,15 +14,20 @@ codes and the fused kernel does not, as in the reference.
 The kernel path makes no padded copy of its input: the quantize kernel
 writes the pad's zero codes itself, and the dequantize kernel reads only
 the first ``size`` codes.
+
+:func:`flash_decode` is one-token grouped-query decode attention: its
+kernel path is the flash-decode kernel
+(:mod:`repro_torch.kernels.flash_decode`, zeros at ``valid_len = 0``), its
+oracle ``ref.flash_decode_ref`` (NaN there), as in the reference.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core import errors
 from repro_torch.kernels import dorefa, ref
 from repro_torch.kernels.aggregate import weighted_aggregate as _aggregate
+from repro_torch.kernels.flash_decode import flash_decode as _flash_decode
 from repro_torch.kernels.sic_rates import sic_weighted_rates as _sic_rates
 
 LANE = 128          # the reference's tile: (BLOCK_ROWS, LANE)
@@ -101,7 +106,11 @@ def sic_weighted_rates(powers_vk, gains_vk, weights_vk, noise_power: float,
 
 def flash_decode(q, k, v, valid_len, *, use_pallas: bool = False,
                  block_s: int = 256):
-    """One-token GQA decode attention: not ported yet."""
-    raise NotImplementedError(
-        errors.ERR_NOT_PORTED.format(feature="flash_decode", item=8)
-    )
+    """One-token GQA decode attention over a cache (serving hot loop).
+
+    q: (B, Hkv, G, D); k, v: (B, S, Hkv, D); valid_len: an int or a 0-d
+    integer tensor.  ``use_pallas`` selects the flash-decode kernel path
+    (``S % block_s == 0``)."""
+    if use_pallas:
+        return _flash_decode(q, k, v, valid_len, block_s=block_s)
+    return ref.flash_decode_ref(q, k, v, valid_len)

@@ -12,8 +12,9 @@ int32 cast, as the reference's ``astype(jnp.int32)`` does, also inside
 :func:`quantize_dequantize_ref` (so at b = 32 it differs from the fused
 kernel, which never casts).
 
-``flash_decode_ref`` comes with the LLM substrate (ROADMAP.md queue 1
-item 8).
+``flash_decode_ref`` is the decode-attention oracle as the source writes
+it: one float32 softmax over every position, ``-inf`` at positions >=
+``valid_len`` (so ``valid_len = 0`` gives NaN, as in the reference).
 """
 from __future__ import annotations
 
@@ -51,6 +52,24 @@ def weighted_aggregate_ref(codes: torch.Tensor, scales: torch.Tensor,
     step = scales.to(torch.float32) * dorefa.inv_levels(bits)
     deq = codes.to(torch.float32) * step[:, None]
     return torch.sum(weights.to(torch.float32)[:, None] * deq, dim=0)
+
+
+def flash_decode_ref(q, k, v, valid_len) -> torch.Tensor:
+    """One-token GQA decode oracle. q: (B, H, G, D); k, v: (B, S, H, D)
+    -> (B, H, G, D) in q's type.  The scale divides by the float32
+    ``sqrt(D)``, tensor by tensor, as the reference's ``/ jnp.sqrt(d)``."""
+    d = q.shape[-1]
+    s = torch.einsum("bhgd,bshd->bhgs", q.to(torch.float32),
+                     k.to(torch.float32))
+    s = s / torch.sqrt(torch.tensor(float(d), dtype=torch.float32,
+                                    device=q.device))
+    pos = torch.arange(k.shape[1], device=q.device)
+    if isinstance(valid_len, torch.Tensor):
+        valid_len = valid_len.to(q.device)
+    s = torch.where(pos < valid_len, s, -torch.inf)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhgs,bshd->bhgd", p,
+                        v.to(torch.float32)).to(q.dtype)
 
 
 def sic_weighted_rates_ref(powers_vk, gains_vk, weights_vk, noise_power):

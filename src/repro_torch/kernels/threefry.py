@@ -1,0 +1,81 @@
+"""Threefry-2x32 draws on the card: jax.random's uniforms, normals and
+truncated normals in one kernel launch.
+
+:mod:`repro_torch.core.prng` recomputes the reference's streams in integer
+and float64 tensor ops, bit for bit on any device (its :func:`draw_plain
+<repro_torch.core.prng.draw_plain>` is this kernel's plain version), but
+one normal draw takes about 1,300 of those ops.  On the card the same
+function is ``csrc/threefry.cu`` (CUDA C++, built by :mod:`cuda_build`,
+loaded with ``ctypes``): one launch, the same bits.  ``prng.draw`` (and so
+``prng.uniform``, ``normal`` and ``truncated_normal``) sends a CUDA device
+here and a CPU device to the plain version; this wrapper launches or
+raises, never falls back.  ``threefry_draw.launches`` counts its launches.
+It replaces no Pallas kernel: the reference draws with ``jax.random`` under
+XLA.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from repro_torch.core import errors
+from repro_torch.kernels import cuda_build
+
+KERNEL = "threefry"
+MASK32 = 0xFFFFFFFF
+
+_lib = None
+
+
+def _library() -> ctypes.CDLL:
+    """The built kernel library, loaded once per process."""
+    global _lib
+    if _lib is None:
+        lib = cuda_build.load(KERNEL)
+        lib.threefry_draw_f32.argtypes = [
+            ctypes.c_uint32, ctypes.c_uint32, ctypes.c_int64, ctypes.c_int,
+            ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_float,
+            ctypes.c_void_p, ctypes.c_void_p,
+        ]
+        lib.threefry_draw_f32.restype = ctypes.c_int
+        lib.threefry_error_string.argtypes = [ctypes.c_int]
+        lib.threefry_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def threefry_draw(key, n: int, minval: float, maxval: float, *,
+                  normal: bool = False, clip=None, device) -> torch.Tensor:
+    """(n,) float32 on the CUDA ``device``: ``jax.random.uniform(key, (n,),
+    float32, minval, maxval)``, or with ``normal`` ``sqrt(2) * erf_inv`` of
+    that uniform clamped to ``clip = (lo, hi)`` (``None``: unclamped)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(errors.ERR_BAD_DEVICE.format(device=str(device)))
+    lib = _library()    # a failed build raises here, before any launch
+    n = int(n)
+    out = torch.empty(n, dtype=torch.float32, device=device)
+    if n == 0:
+        return out
+    lo, hi = np.float32(minval), np.float32(maxval)
+    clip_lo, clip_hi = (-np.inf, np.inf) if clip is None else clip
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        status = lib.threefry_draw_f32(
+            int(key[0]) & MASK32, int(key[1]) & MASK32, n, int(bool(normal)),
+            float(lo), float(hi - lo), float(clip_lo), float(clip_hi),
+            out.data_ptr(), stream,
+        )
+    if status != 0:
+        reason = lib.threefry_error_string(status).decode()
+        raise RuntimeError(
+            errors.ERR_KERNEL_LAUNCH.format(name="threefry_draw_f32",
+                                            reason=reason)
+        )
+    threefry_draw.launches += 1
+    return out
+
+
+threefry_draw.launches = 0

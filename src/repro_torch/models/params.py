@@ -1,33 +1,45 @@
-"""Parameter initialization from a ``torch.Generator``.
+"""Parameter initialization: the reference's draws, from the reference's
+keys.
 
-The reference's rule for LeNet: weights are a truncated normal on [-3, 3]
-scaled by the fan-in standard deviation 1 / sqrt(fan_in), biases are zero.
-The draws come from a seeded CPU generator, so one seed gives the same
-weights whichever device the run trains on; they differ from the
-reference's ``jax.random`` draws (inject those through
-``convert.params_from_jax`` where both packages must start alike).
+``repro/models/params.py:init_params`` over LeNet's schema: each leaf gets
+the key ``fold_in(key, crc32(keystr(path)) % 2^31)``, where ``keystr`` is
+JAX's path string (``"['fc1']['w']"``); weights are a truncated normal on
+[-3, 3] times the fan-in standard deviation ``1 / sqrt(fan_in)`` (float32),
+biases are zero.  The draws are :mod:`repro_torch.core.prng`'s, which equal
+``jax.random``'s bit for bit, so ``init_lenet(seed)`` returns the
+reference's ``LenetFLModel().init(PRNGKey(seed))``.
 """
 from __future__ import annotations
 
-import math
+import zlib
 
+import numpy as np
 import torch
 
+from repro_torch.core import prng
 from repro_torch.device import resolve_device
 from repro_torch.models import lenet
 
 
+def leaf_key(key, path: str) -> np.ndarray:
+    """The key of the leaf at JAX path string ``path`` (e.g.
+    ``"['fc1']['w']"``): ``fold_in(key, crc32(path) % 2^31)``."""
+    return prng.fold_in(key, zlib.crc32(path.encode()) % (2 ** 31))
+
+
 def init_lenet(seed: int, *, device=None):
-    """Fresh LeNet parameters (nested dict of float32 tensors) on ``device``
-    (``None`` means ``cuda``, which raises without CUDA: pass ``"cpu"``)."""
+    """Fresh LeNet parameters (nested dict of float32 tensors) drawn on
+    ``device`` from ``PRNGKey(seed)`` (``None`` means ``cuda``, which raises
+    without CUDA: pass ``"cpu"``); the same bits on either."""
     device = resolve_device(device)
-    gen = torch.Generator(device="cpu").manual_seed(int(seed))
+    key = prng.prng_key(seed)
     params = {}
     for name, fan_in, fan_out in lenet.LAYERS:
-        w = torch.empty(fan_in, fan_out, dtype=torch.float32)
-        torch.nn.init.trunc_normal_(w, 0.0, 1.0, -3.0, 3.0, generator=gen)
+        std = np.float32(1.0 / np.sqrt(fan_in))
+        w = prng.truncated_normal(leaf_key(key, f"['{name}']['w']"), -3, 3,
+                                  fan_in * fan_out, device=device)
         params[name] = {
-            "w": (w * (1.0 / math.sqrt(fan_in))).to(device),
+            "w": (w * float(std)).reshape(fan_in, fan_out),
             "b": torch.zeros(fan_out, dtype=torch.float32, device=device),
         }
     return params

@@ -113,17 +113,43 @@ def task_init_params(spec, arrays):
     return _params_to_arrays(params, "p/")
 
 
+def _perturbed_init(init, perturb):
+    """LenetFLModel.init with one initial weight moved by ``ulps`` float32
+    ulps: ``perturb = {"leaf": "fc2/w", "index": [i, j], "ulps": n}``."""
+    import jax.numpy as jnp
+    import numpy as np
+
+    def perturbed(self, key):
+        params = init(self, key)
+        layer, leaf = perturb["leaf"].split("/")
+        w = np.array(params[layer][leaf])
+        idx = tuple(perturb["index"])
+        for _ in range(abs(int(perturb["ulps"]))):
+            w[idx] = np.nextafter(w[idx], np.float32(
+                np.inf if perturb["ulps"] > 0 else -np.inf))
+        params[layer][leaf] = jnp.asarray(w)
+        return params
+
+    return perturbed
+
+
 def task_fl_run(spec, arrays):
     """run_federated_learning on the paper's world, plus every random draw
     the port needs injected (distances, gains, large-scale gains, initial
     weights) so both packages simulate the same system.  ``spec["cfg"]``
     holds the FLConfig fields, ``scheduler_backend`` included (the device
-    greedy needs the shim's ``enable_x64``)."""
+    greedy needs the shim's ``enable_x64``).  ``spec["perturb"]`` (optional,
+    see :func:`_perturbed_init`) moves one initial weight of the run by a
+    few ulps; the exported ``init/`` weights are then the unperturbed
+    draw's.  With ``spec["keep_rounds"]`` the parameters after every round
+    are returned too (``round/<t>/<leaf>``): ``progress=`` sees only the
+    round's log, so the batched engine's ``run_round`` is wrapped in this
+    process to keep what it returns."""
     import jax
     import numpy as np
 
     from repro.config import FLConfig
-    from repro.core import channel, fl
+    from repro.core import channel, fl, fl_engine
     from repro.data import dirichlet_partition, make_mnist_like
     from repro.models.fl_models import LenetFLModel
 
@@ -132,7 +158,24 @@ def task_fl_run(spec, arrays):
     cell = channel.CellConfig(num_devices=m)
     shards = dirichlet_partition(ds.y_train, m, seed=0)
     cfg = FLConfig(**spec["cfg"])
-    res = fl.run_federated_learning(ds, shards, cell, cfg)
+    init = LenetFLModel.init
+    run_round = fl_engine.BatchedRoundEngine.run_round
+    kept = []
+
+    def keep(self, params, *args, **kwargs):
+        out = run_round(self, params, *args, **kwargs)
+        kept.append(_params_to_arrays(out[0], f"round/{len(kept)}/"))
+        return out
+
+    if spec.get("perturb"):
+        LenetFLModel.init = _perturbed_init(init, spec["perturb"])
+    if spec.get("keep_rounds"):
+        fl_engine.BatchedRoundEngine.run_round = keep
+    try:
+        res = fl.run_federated_learning(ds, shards, cell, cfg)
+    finally:
+        LenetFLModel.init = init
+        fl_engine.BatchedRoundEngine.run_round = run_round
 
     key = jax.random.PRNGKey(cfg.seed)
     dist = channel.sample_positions(jax.random.fold_in(key, 1), cell)
@@ -152,6 +195,8 @@ def task_fl_run(spec, arrays):
         out[f"bits/{t}"] = np.asarray(log.bits)
         out[f"rates/{t}"] = np.asarray(log.rates)
         out[f"ratios/{t}"] = np.asarray(log.compression_ratios)
+    for rnd in kept:
+        out.update(rnd)
     return out
 
 
@@ -192,12 +237,49 @@ def task_lazy_greedy(spec, arrays):
     return out
 
 
+def task_draws(spec, arrays):
+    """The reference's random draws for each seed of ``spec["seeds"]``
+    (``<seed>/``-prefixed): the keys of ``repro/core/fl.py``
+    (``PRNGKey(seed)``, ``fold_in`` 1 and 2, the position key
+    ``split(fold_in(key, 1))`` and the per-round keys ``split(fold_in(key,
+    2), T)``), the positions, gains and large-scale gains of an
+    ``spec["num_devices"]``-device cell over ``spec["num_rounds"]`` rounds,
+    and LeNet's initial weights.  ``spec["runs"]`` (optional) adds
+    task_fl_runs' output in the same process."""
+    import jax
+    import numpy as np
+
+    from repro.core import channel
+    from repro.models.fl_models import LenetFLModel
+
+    cell = channel.CellConfig(num_devices=int(spec["num_devices"]))
+    t = int(spec["num_rounds"])
+    out = {}
+    for seed in spec["seeds"]:
+        key = jax.random.PRNGKey(int(seed))
+        k1, k2 = jax.random.fold_in(key, 1), jax.random.fold_in(key, 2)
+        dist = channel.sample_positions(k1, cell)
+        gains = channel.sample_round_channels(k2, dist, cell, t)
+        draws = {
+            "key": key, "fold1": k1, "fold2": k2,
+            "split1": jax.random.split(k1), "split2": jax.random.split(k2, t),
+            "distances": dist, "gains": gains,
+            "dl_gains": channel.large_scale_gain(dist, cell),
+        }
+        draws.update(_params_to_arrays(LenetFLModel().init(key), "init/"))
+        out.update({f"{seed}/{k}": np.asarray(v) for k, v in draws.items()})
+    if spec.get("runs"):
+        out.update(task_fl_runs(spec, arrays))
+    return out
+
+
 TASKS = {
     "lenet_grad": task_lenet_grad,
     "sgd_epoch": task_sgd_epoch,
     "init_params": task_init_params,
     "fl_run": task_fl_run,
     "fl_runs": task_fl_runs,
+    "draws": task_draws,
     "lazy_greedy": task_lazy_greedy,
 }
 

@@ -22,7 +22,7 @@ torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 jnp = pytest.importorskip("jax.numpy")
 
-from test_torch_harness import _ulps  # noqa: E402
+from test_torch_harness import _ulps, one_torch_thread  # noqa: E402,F401
 
 from repro.core import compression as RC  # noqa: E402
 from repro.core import quantization as RQ  # noqa: E402

@@ -3,11 +3,9 @@
 Channels, rates, MAPEL, the lazy-GWMIN schedule, the downlink time, the
 adaptive bit-widths and ratios, the DoReFa codes, the client bank and the
 synthetic data must all equal the reference bit for bit (the reference pins
-them exactly: tests/test_fl_engine.py:_assert_equal_runs).  The one
-exception is ``large_scale_gain``, where XLA's float32 ``pow`` differs from
-the correctly rounded value by one ulp on a few distances: it is held to
-2 ulp (rtol 2.5e-7), and the FL parity tests inject the reference's own
-large-scale gains.
+them exactly: tests/test_fl_engine.py:_assert_equal_runs).  That includes
+``large_scale_gain``: the port calls the C library's ``powf``, which is
+what XLA's float32 ``pow`` calls on the CPU.
 """
 import numpy as np
 import pytest
@@ -64,7 +62,7 @@ def test_large_scale_gain_and_downlink_time():
     ref = np.asarray(ref_channel.large_scale_gain(jnp.asarray(dist), REF_CELL))
     got = channel.large_scale_gain(dist, CELL)
     assert got.dtype == ref.dtype == np.float32
-    np.testing.assert_allclose(got, ref, rtol=2.5e-7, atol=0)
+    np.testing.assert_array_equal(got, ref)
     # the downlink time from the same gains: exact (float64 on the host)
     assert channel.downlink_time_seconds(PAYLOAD, ref, CELL) == \
         ref_channel.downlink_time_seconds(PAYLOAD, ref, REF_CELL)

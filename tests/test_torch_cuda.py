@@ -11,11 +11,19 @@ relative 2e-5, as tests/test_rates.py holds its Pallas kernel.  Each kernel
 and its plain version take the same operations in the same order, so in
 practice they agree to the bit; the OTA kernel is held to its plain version
 bit for bit (both take one fused multiply-add per client).  The device
-greedy's schedules equal the numpy backend's exactly, and the OTA noise
-stream's bits on the card equal those on the CPU.  The three DoReFa kernels
+greedy's schedules equal the numpy backend's exactly, and the random
+streams (the OTA noise, the seeded channels and initial weights) have the
+same bits on the card as on the CPU; the Threefry kernel that draws them
+there equals its plain version (core/prng.py) to the bit.  The three
+DoReFa kernels
 equal their plain versions to the bit (codes equal, outputs bit-equal), on
 the card and on the CPU, and so do the packed codec and the top-k round's
-aggregate computed on the card and on the CPU.
+aggregate computed on the card and on the CPU.  The flash-decode kernel
+visits the cache in another order than its plain version (the Pallas
+kernel's block order) and takes base-2 exponentials: it is held within
+tests/test_kernels.py's float32 tolerance, atol and rtol 1e-5, and in
+bfloat16 within one rounding of the output (atol 1e-6, rtol 2^-7), also
+against the oracle; at valid_len = 0 it gives zeros.
 """
 import numpy as np
 import pytest
@@ -26,7 +34,7 @@ from repro_torch.core import compression, fl_engine, ota, prng  # noqa: E402
 from repro_torch.core import scheduling  # noqa: E402
 from repro_torch.core import tree as tree_lib  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
-    aggregate, dorefa, ota_aggregate, sic_rates,
+    aggregate, dorefa, flash_decode, ota_aggregate, ref, sic_rates,
 )
 
 pytestmark = pytest.mark.cuda
@@ -217,6 +225,55 @@ def test_noise_bits_on_the_card_equal_the_cpu(cuda, p):
                                rtol=0, atol=0)
     z = prng.normal(key, p, device=cuda)
     assert z.dtype == torch.float32 and bool(torch.isfinite(z).all())
+    _same_bits(z, prng.normal(key, p, device="cpu"))
+
+
+@pytest.mark.parametrize("n", [0, 1, 255, 266_610, (1 << 20) + 3])
+@pytest.mark.parametrize("kind", ["uniform", "normal", "truncated"])
+def test_threefry_kernel_matches_plain_bit_for_bit(cuda, kind, n):
+    """One launch per draw, the plain version's bits on the card and on
+    the CPU."""
+    from repro_torch.kernels import threefry
+
+    key = prng.fold_in(prng.prng_key(n), 2)
+    args = {"uniform": (-2.5, 7.0, False, None),
+            "normal": (prng.NORMAL_LO, 1.0, True, None),
+            "truncated": (*prng.ERF_BOUNDS[(-3.0, 3.0)], True,
+                          (float(np.nextafter(np.float32(-3), 0)),
+                           float(np.nextafter(np.float32(3), 0))))}[kind]
+    lo, hi, normal, clip = args
+    before = threefry.threefry_draw.launches
+    got = prng.draw(key, n, lo, hi, normal=normal, clip=clip, device=cuda)
+    assert threefry.threefry_draw.launches == before + (n > 0)
+    assert got.device.type == "cuda" and got.shape == (n,)
+    _same_bits(got, prng.draw_plain(key, n, lo, hi, normal=normal,
+                                    clip=clip, device=cuda))
+    _same_bits(got, prng.draw_plain(key, n, lo, hi, normal=normal,
+                                    clip=clip, device="cpu"))
+
+
+@pytest.mark.parametrize("seed", [0, 3])
+def test_seeded_draws_on_the_card_equal_the_cpu(cuda, seed):
+    """The reference's draws from a seed (channels of the paper cell,
+    LeNet's initial weights, a truncated-normal stream) have the same bits
+    on the card as on the CPU."""
+    from repro_torch.core import channel
+    from repro_torch.models.params import init_lenet
+
+    cell = channel.CellConfig(num_devices=300)
+    card = channel.sample_channels(seed, cell, 5, device=cuda)
+    host = channel.sample_channels(seed, cell, 5)
+    for field in ("distances", "gains", "dl_gains"):
+        _same_bits(torch.from_numpy(getattr(card, field)),
+                   torch.from_numpy(getattr(host, field)))
+    w_card, w_host = init_lenet(seed, device=cuda), init_lenet(seed,
+                                                              device="cpu")
+    for layer in w_host:
+        for leaf in w_host[layer]:
+            _same_bits(w_card[layer][leaf], w_host[layer][leaf])
+    key = prng.fold_in(prng.prng_key(seed), 2)
+    _same_bits(prng.truncated_normal(key, -3, 3, 4099, device=cuda),
+               prng.truncated_normal(key, -3, 3, 4099, device="cpu"))
 
 
 def _same_bits(got, want):
@@ -361,3 +418,58 @@ def test_sparse_round_on_the_card_equals_the_cpu(cuda, use_pallas):
     for g, r in zip(tree_lib.tree_flatten(got[0])[0],
                     tree_lib.tree_flatten(want[0])[0]):
         _same_bits(g, r)
+
+
+# tests/test_kernels.py's flash-decode shapes (B, Hkv, G, D, S), plus
+# Qwen2-0.5B's head layout (Hkv = 2, G = 7, D = 64) at a short cache
+FLASH_SHAPES = [(1, 1, 1, 128, 256), (2, 2, 3, 128, 512), (1, 4, 2, 64, 1024),
+                (3, 1, 8, 128, 256), (4, 2, 7, 64, 2048)]
+# (atol, rtol): float32 at tests/test_kernels.py's 1e-5; in bfloat16 the
+# kernel, its plain version and the oracle read the same inputs and compute
+# in float32, so they differ by at most one bfloat16 rounding of the output
+# (2^-7 relative), far inside that test's 5e-2
+FLASH_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-6, 2.0 ** -7)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", FLASH_SHAPES)
+def test_flash_decode_kernel_matches_plain(cuda, shape, dtype):
+    b, hkv, g, d, s = shape
+    gen = torch.Generator().manual_seed(b * 1000 + s + g)
+    q = torch.randn(b, hkv, g, d, generator=gen).to(dtype).to(cuda)
+    k = torch.randn(b, s, hkv, d, generator=gen).to(dtype).to(cuda)
+    v = torch.randn(b, s, hkv, d, generator=gen).to(dtype).to(cuda)
+    atol, rtol = FLASH_TOL[dtype]
+    for vl in (0, 1, 129, 300, s - 1, s, s + 5):
+        before = flash_decode.flash_decode.launches
+        got = flash_decode.flash_decode(q, k, v, vl)
+        # the valid length read from the card, as the path hands it over
+        again = flash_decode.flash_decode(
+            q, k, v, torch.tensor(vl, dtype=torch.int32, device=cuda))
+        torch.cuda.synchronize()
+        assert flash_decode.flash_decode.launches == before + 2
+        assert torch.equal(got, again) and got.dtype == dtype
+        want = flash_decode.flash_decode_plain(q, k, v, vl)
+        if min(vl, s) == 0:
+            assert torch.equal(got, torch.zeros_like(got))
+            continue
+        torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                                   rtol=rtol)
+        oracle = ref.flash_decode_ref(q, k, v, vl)
+        torch.testing.assert_close(got.float(), oracle.float(), atol=atol,
+                                   rtol=rtol)
+
+
+def test_flash_decode_kernel_refuses_what_it_does_not_take(cuda):
+    q = torch.zeros(1, 1, 9, 64, device=cuda)
+    kv = torch.zeros(1, 256, 1, 64, device=cuda)
+    with pytest.raises(ValueError, match="1 <= G <= 8"):
+        flash_decode.flash_decode(q, kv, kv, 1)
+    q = torch.zeros(1, 1, 2, 32, device=cuda)
+    kv = torch.zeros(1, 256, 1, 32, device=cuda)
+    with pytest.raises(ValueError, match="D in"):
+        flash_decode.flash_decode(q, kv, kv, 1)
+    with pytest.raises(TypeError, match="share one type"):
+        flash_decode.flash_decode(torch.zeros(1, 1, 2, 64, device=cuda),
+                                  kv.new_zeros(1, 256, 1, 64).bfloat16(),
+                                  kv.new_zeros(1, 256, 1, 64).bfloat16(), 1)

@@ -289,10 +289,22 @@ def test_ops_reductions_match_the_reference(use_pallas):
 
 
 def test_flash_decode_names_its_roadmap_item():
-    q = torch.zeros((1, 1, 1, 8))
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md queue 1 item 8 brings it"):
-        ops.flash_decode(q, q, q, 1, use_pallas=True)
+    """ROADMAP.md queue 1 item 8a is done: ops.flash_decode no longer
+    raises; both of its paths match the reference's jitted ops within
+    tests/test_kernels.py's float32 tolerance (the full sweep is in
+    tests/test_torch_flash_decode.py)."""
+    rng = np.random.default_rng(8)
+    q = rng.standard_normal((1, 2, 3, 64)).astype(np.float32)
+    k = rng.standard_normal((1, 512, 2, 64)).astype(np.float32)
+    v = rng.standard_normal((1, 512, 2, 64)).astype(np.float32)
+    for use_pallas in (True, False):
+        want = np.asarray(ref_ops.flash_decode(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(300),
+            use_pallas=use_pallas))
+        got = ops.flash_decode(torch.from_numpy(q), torch.from_numpy(k),
+                               torch.from_numpy(v), 300,
+                               use_pallas=use_pallas)
+        np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)
 
 
 class _CudaLabelled(torch.Tensor):

@@ -24,7 +24,7 @@ torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 jnp = pytest.importorskip("jax.numpy")
 
-from test_torch_harness import run_reference  # noqa: E402
+from test_torch_harness import one_torch_thread, run_reference  # noqa: E402,F401
 
 from repro.core import rates_jax  # noqa: E402
 

@@ -21,8 +21,8 @@ import pytest
 torch = pytest.importorskip("torch")
 jnp = pytest.importorskip("jax.numpy")
 
-from test_torch_harness import (  # noqa: E402
-    _ulps, assert_equal_runs, run_reference, tree,
+from test_torch_harness import (  # noqa: E402,F401
+    _ulps, assert_equal_runs, one_torch_thread, run_reference, tree,
 )
 
 from repro.core import noma as ref_noma  # noqa: E402

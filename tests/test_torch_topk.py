@@ -26,8 +26,8 @@ torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 jnp = pytest.importorskip("jax.numpy")
 
-from test_torch_harness import (  # noqa: E402
-    assert_equal_runs, flat, run_reference, tree,
+from test_torch_harness import (  # noqa: E402,F401
+    assert_equal_runs, flat, one_torch_thread, run_reference, tree,
 )
 
 from repro.core import compression as RC  # noqa: E402
