@@ -57,7 +57,9 @@ package, and exits non-zero on the first failure.  Phases:
      bit-equal) over the shapes of tests/test_kernels.py and LeNet's leaves,
      float32 and bfloat16, bits 1-32 (``[dorefa-kernel]``); each timed at
      LeNet's ``fc1/w`` leaf and at benchmarks/kernel_bench.py's 2^20
-     (``[time]``); ``encode_tree`` -> ``decode_tree`` and
+     (``[time]``, with quantize_codes' kernel/library ratio, registers,
+     shared and local bytes and occupancy); ``encode_tree`` ->
+     ``decode_tree`` and
      ``ops.quantize_dequantize`` over the M=300 host run's LeNet update
      (final minus initial parameters) at bits 1, 4, 8, 16 and the run's own
      adaptive widths, equal to the CPU's plain path to the bit
@@ -77,7 +79,9 @@ package, and exits non-zero on the first failure.  Phases:
      host-inclusive time, plain version, ``scaled_dot_product_attention``
      with ``enable_gqa=True`` as the library yardstick (the faster of the
      call with a boolean mask and the call without one),
-     and the bound: the bytes of k and v below valid_len); and its path,
+     and the bound: the bytes of k and v below valid_len; the
+     kernel/sdpa ratio of the run, the kernel's registers, shared and
+     local bytes and occupancy); and its path,
      ``kernels.ops.flash_decode(use_pallas=True)`` at decode_32k
      (``[main:flash]``: one launch per call, held to the oracle);
  11. the seeded draws (``[draws]``): the reference's positions and gains of
@@ -359,6 +363,17 @@ def _busy_ms(fn, iters=2):
     launches, busy, _ = _profile_schedule(
         lambda: [fn() for _ in range(iters)])
     return busy / iters, launches / iters
+
+
+def _attributes_text(attrs):
+    """A kernel's build and launch attributes (cuda_build.ATTRIBUTES) as
+    read from the card, with its occupancy in resident warps per SM."""
+    warps = attrs["threads"] // 32 * attrs["ctas_per_sm"]
+    return (f"{attrs['registers']} registers/thread, shared "
+            f"{attrs['static_smem']} B static + {attrs['dynamic_smem']} B "
+            f"dynamic, local (spill) {attrs['local_bytes']} B/thread, "
+            f"{attrs['threads']} threads x {attrs['ctas_per_sm']} CTAs/SM "
+            f"(occupancy {warps}/64 warps)")
 
 
 def time_aggregate(mod, k=3):
@@ -884,6 +899,10 @@ def time_dorefa(mod, n, bits=8):
         out[name] = dict(ms=dev_k, plain_ms=dev_p, library_ms=dev_l,
                          bound_ms=bound, host_ms=kern, plain_host_ms=plain,
                          bound_by="bytes" if t_bytes >= t_ops else "operations")
+    q_attrs = _attributes_text(mod.quantize_codes_attributes(torch.float32))
+    q_ratio = out["quantize_codes"]["ms"] / out["quantize_codes"]["library_ms"]
+    log(f"[time] quantize_codes n={n}: kernel/library (quantize_per_tensor) "
+        f"device-time ratio {q_ratio:.3f} in this run; kernel {q_attrs}")
     for name, value in counted.items():
         getattr(mod, name).launches = value   # timing launches don't count
     log(f"[time] dequantize_codes n={n}: torch.mul(codes, s * fl(1/a)) "
@@ -1533,6 +1552,10 @@ def time_flash(mod, dtype, shape=DECODE_32K):
         f"{dev['kernel'] / bound:.2f}x the bound, "
         f"{dev['lib'] / dev['kernel']:.2f}x faster than sdpa; max abs err "
         f"kernel vs plain {err!r}, sdpa vs plain {lib_err!r}")
+    log(f"[time] flash_decode {name}: kernel/sdpa device-time ratio "
+        f"{dev['kernel'] / dev['lib']:.3f} (again "
+        f"{dev['kernel2'] / dev['lib']:.3f}) in this run; kernel "
+        f"{_attributes_text(mod.kernel_attributes(dtype, d, g))}")
     del q, k, v, qh, kh, vh
     torch.cuda.empty_cache()
     return dict(ms=dev["kernel"], plain_ms=dev["plain"], library_ms=dev["lib"],

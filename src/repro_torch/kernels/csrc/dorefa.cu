@@ -35,11 +35,23 @@
 // or 2 B for bf16) and written once (4 B): 8 B per float32 element, 2.50 us
 // for 2^20 elements at 3.35 TB/s; the arithmetic (a divide, three
 // multiplies, a clamp and a rounding) is far below the float32 peak.  The
-// design is the plain one that streams each byte once: a 1-D grid-stride
-// loop, one element per thread, neighbouring threads on neighbouring
-// addresses.  The TPU kernels' (256, 128) tiles exist for VMEM and are
-// gone: quantize_codes writes the zero codes of the reference's tile
-// padding itself (elements n .. n_out - 1), so no padded copy of x exists.
+// TPU kernels' (256, 128) tiles exist for VMEM and are gone: quantize_codes
+// writes the zero codes of the reference's tile padding itself (elements
+// n .. n_out - 1), so no padded copy of x exists.
+//
+// quantize_codes moves whole 16-byte vectors: each thread takes 4 float32
+// or 8 bf16 elements per vector, two vectors in flight per iteration of a
+// grid-stride loop, and stores its codes as int4; the zero codes past n
+// are int4 stores too.  With one 4-byte element per thread it ran at 2.5x
+// its byte bound.  x may be a view at any element offset, so it need not
+// start on a 16-byte boundary: the elements before its first boundary (the
+// head) and after its last whole vector (the tail) take the scalar path
+// inside the kernel, and where that shift leaves a vector's codes off their
+// own 16-byte boundary they are stored one by one.  x is never copied and
+// no offset is refused.  The arithmetic per element is the same on every
+// path, so the codes do not depend on which path took an element.
+// dequantize_codes and quantize_dequantize still take one element per
+// thread in a 1-D grid-stride loop.
 //
 // C interface (loaded with ctypes): every entry point returns
 // cudaGetLastError() after its launch, which the wrapper checks.
@@ -83,17 +95,100 @@ __device__ __forceinline__ int to_code(float r) {
   return r != r ? 0 : __float2int_rn(r);
 }
 
+// DoReFa code of one element.
+__device__ __forceinline__ int code_of(float x, float s, float a) {
+  return to_code(scaled(x, s, a));
+}
+
+// The codes of one 16-byte vector of x: 4 float32 or 8 bf16 elements.
+__device__ __forceinline__ void vector_codes(const uint4& r, float s, float a,
+                                             int (&c)[4], float) {
+  c[0] = code_of(__uint_as_float(r.x), s, a);
+  c[1] = code_of(__uint_as_float(r.y), s, a);
+  c[2] = code_of(__uint_as_float(r.z), s, a);
+  c[3] = code_of(__uint_as_float(r.w), s, a);
+}
+
+__device__ __forceinline__ void vector_codes(const uint4& r, float s, float a,
+                                             int (&c)[8], __nv_bfloat16) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    c[2 * i] = code_of(f.x, s, a);
+    c[2 * i + 1] = code_of(f.y, s, a);
+  }
+}
+
+// Store kVec codes at dst: int4 stores when dst is 16-byte aligned.
+template <int kVec>
+__device__ __forceinline__ void store_codes(int* dst, const int (&c)[kVec],
+                                            bool aligned) {
+  if (aligned) {
+#pragma unroll
+    for (int i = 0; i < kVec; i += 4)
+      *reinterpret_cast<int4*>(dst + i) =
+          make_int4(c[i], c[i + 1], c[i + 2], c[i + 3]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < kVec; ++i) dst[i] = c[i];
+  }
+}
+
+// Elements before p's first 16-byte boundary (p element-aligned).
+template <typename T>
+__device__ __forceinline__ int64_t to_boundary(const T* p) {
+  const int mis = (int)(reinterpret_cast<uintptr_t>(p) % 16);
+  return mis ? (16 - mis) / (int)sizeof(T) : 0;
+}
+
 template <typename T>
 __global__ void quantize_codes_kernel(const T* __restrict__ x, int64_t n,
                                       int64_t n_out,
                                       const float* __restrict__ scale,
                                       float a, int* __restrict__ codes) {
+  constexpr int kVec = 16 / sizeof(T);
   const float s = floored(__ldg(scale));
+  const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n_out;
-       i += stride) {
-    codes[i] = i < n ? to_code(scaled(load_f32(x, i), s, a)) : 0;
+
+  // x[head, body_end) in whole 16-byte vectors, two in flight per thread
+  const int64_t lead = to_boundary(x);
+  const int64_t head = lead < n ? lead : n;
+  const int64_t n_vec = (n - head) / kVec;
+  const int64_t body_end = head + n_vec * kVec;
+  const uint4* xv = reinterpret_cast<const uint4*>(x + head);
+  int* cv = codes + head;
+  const bool aligned = to_boundary(cv) == 0;
+  for (int64_t i = tid; i < n_vec; i += 2 * stride) {
+    const bool two = i + stride < n_vec;
+    const uint4 r0 = xv[i];
+    uint4 r1 = make_uint4(0, 0, 0, 0);
+    if (two) r1 = xv[i + stride];
+    int c[kVec];
+    vector_codes(r0, s, a, c, T());
+    store_codes<kVec>(cv + i * kVec, c, aligned);
+    if (two) {
+      vector_codes(r1, s, a, c, T());
+      store_codes<kVec>(cv + (i + stride) * kVec, c, aligned);
+    }
   }
+  // the head [0, head) and the tail [body_end, n), one element each
+  const int64_t n_edge = head + (n - body_end);
+  for (int64_t i = tid; i < n_edge; i += stride) {
+    const int64_t e = i < head ? i : body_end + (i - head);
+    codes[e] = code_of(load_f32(x, e), s, a);
+  }
+  // zero codes of [n, n_out): int4 over [z0, z1), one by one around it
+  const int64_t z_start = n + to_boundary(codes + n);
+  const int64_t z0 = z_start < n_out ? z_start : n_out;
+  const int64_t z1 = z0 + (n_out - z0) / 4 * 4;
+  int4* zv = reinterpret_cast<int4*>(codes + z0);
+  for (int64_t i = tid; i < (z1 - z0) / 4; i += stride)
+    zv[i] = make_int4(0, 0, 0, 0);
+  const int64_t n_zedge = (z0 - n) + (n_out - z1);
+  for (int64_t i = tid; i < n_zedge; i += stride)
+    codes[i < z0 - n ? n + i : z1 + (i - (z0 - n))] = 0;
 }
 
 __global__ void dequantize_codes_kernel(const int* __restrict__ codes,
@@ -140,14 +235,40 @@ int dorefa_quantize_codes(const void* x, int bf16, int64_t n, int64_t n_out,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* s = static_cast<const float*>(scale);
   int* c = static_cast<int*>(codes);
+  // a thread per two vectors of x or one int4 of zero codes
+  const int64_t work = bf16 ? n / 16 + 1 : n / 8 + 1;
+  const int grid = grid_for(work > (n_out - n) / 4 ? work : (n_out - n) / 4);
   if (bf16) {
-    quantize_codes_kernel<__nv_bfloat16><<<grid_for(n_out), kThreads, 0, st>>>(
+    quantize_codes_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
         static_cast<const __nv_bfloat16*>(x), n, n_out, s, a, c);
   } else {
-    quantize_codes_kernel<float><<<grid_for(n_out), kThreads, 0, st>>>(
+    quantize_codes_kernel<float><<<grid, kThreads, 0, st>>>(
         static_cast<const float*>(x), n, n_out, s, a, c);
   }
   return (int)cudaGetLastError();
+}
+
+// out[0..5]: registers per thread, static shared bytes, dynamic shared
+// bytes, local (spill) bytes per thread, threads per CTA, CTAs per SM of
+// the quantize_codes kernel for float32 (bf16 = 0) or bfloat16 input.
+int dorefa_quantize_codes_attributes(int bf16, int* out) {
+  const void* fn =
+      bf16 ? reinterpret_cast<const void*>(quantize_codes_kernel<__nv_bfloat16>)
+           : reinterpret_cast<const void*>(quantize_codes_kernel<float>);
+  cudaFuncAttributes attr;
+  int err = (int)cudaFuncGetAttributes(&attr, fn);
+  if (err != 0) return err;
+  int blocks = 0;
+  err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn,
+                                                           kThreads, 0);
+  if (err != 0) return err;
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.sharedSizeBytes;
+  out[2] = 0;
+  out[3] = (int)attr.localSizeBytes;
+  out[4] = kThreads;
+  out[5] = blocks;
+  return 0;
 }
 
 int dorefa_dequantize_codes(const void* codes, int64_t n, const void* scale,

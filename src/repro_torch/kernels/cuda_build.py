@@ -21,6 +21,9 @@ from repro_torch.core import errors
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
+# what a kernel's ``*_attributes`` C entry point reports, in its order
+ATTRIBUTES = ("registers", "static_smem", "dynamic_smem", "local_bytes",
+              "threads", "ctas_per_sm")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -74,3 +77,15 @@ def build(name: str) -> Path:
 def load(name: str) -> ctypes.CDLL:
     """Build (if needed) and load the library of ``csrc/<name>.cu``."""
     return ctypes.CDLL(str(build(name)))
+
+
+def read_attributes(fn, *args) -> dict:
+    """A built kernel's registers per thread, shared and local (spill)
+    bytes, CTA size and CTAs per SM, from its library's ``*_attributes``
+    entry point (``cudaFuncGetAttributes`` and the occupancy calculator),
+    which takes ``args`` and fills six ints."""
+    out = (ctypes.c_int * len(ATTRIBUTES))()
+    status = fn(*args, out)
+    if status != 0:
+        raise RuntimeError(f"kernel attributes: CUDA error {status}")
+    return dict(zip(ATTRIBUTES, out))

@@ -35,7 +35,10 @@ quiet fall back.  ``<wrapper>.launches`` counts each wrapper's kernel
 launches (plain-version calls do not count).  The kernels use no TPU
 tiling: a 1-D grid over the ``n`` elements; :func:`quantize_codes` also
 writes the zero codes of a caller's padding (``n_out > n``), so no padded
-copy of ``x`` is made.
+copy of ``x`` is made.  :func:`quantize_codes` reads ``x`` in 16-byte
+vectors and stores its codes as ``int4``; an ``x`` at any element offset
+is taken as it is, its unaligned head and ragged tail element by element
+inside the kernel.  The other two kernels take one element per thread.
 """
 from __future__ import annotations
 
@@ -76,6 +79,10 @@ def _library() -> ctypes.CDLL:
         for fn in (lib.dorefa_quantize_codes, lib.dorefa_dequantize_codes,
                    lib.dorefa_quantize_dequantize):
             fn.restype = ctypes.c_int
+        lib.dorefa_quantize_codes_attributes.argtypes = [
+            ctypes.c_int, ctypes.c_void_p,
+        ]
+        lib.dorefa_quantize_codes_attributes.restype = ctypes.c_int
         lib.dorefa_error_string.argtypes = [ctypes.c_int]
         lib.dorefa_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -145,6 +152,14 @@ def quantize_dequantize_plain(x: torch.Tensor, scale: torch.Tensor,
 # --------------------------------------------------------------------------
 # The kernels
 # --------------------------------------------------------------------------
+
+def quantize_codes_attributes(dtype) -> dict:
+    """Registers, shared and local bytes and CTAs per SM of the
+    quantize_codes kernel for ``dtype`` input."""
+    return cuda_build.read_attributes(
+        _library().dorefa_quantize_codes_attributes,
+        int(dtype == torch.bfloat16))
+
 
 def _check_launch(lib, status: int, fn_name: str):
     if status != 0:

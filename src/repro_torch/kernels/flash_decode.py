@@ -14,10 +14,14 @@ kernel's own arithmetic in plain PyTorch: an online softmax over blocks of
 ``block_s`` positions (m, l and acc in float32), ``NEG_INF`` scores and
 zero weights at positions >= ``valid_len``, the denominator floored at
 1e-30 (so ``valid_len = 0`` gives zeros, where the oracle
-``ref.flash_decode_ref`` gives NaN).  The CUDA kernel visits the positions
-in another order and takes its exponentials in base 2, so it agrees with
+``ref.flash_decode_ref`` gives NaN).  The CUDA kernels visit the positions
+in another order and take their exponentials in base 2, so they agree with
 the plain version within the reference's tolerance (1e-5 in float32), not
-to the bit.
+to the bit; in bfloat16 within one rounding of the output.  The bfloat16
+kernel runs q.k and p.v on the tensor cores (``mma.sync``, float32
+accumulation) with q unscaled and p split into three bfloat16 parts that
+sum to it exactly, the float32 kernel on the CUDA cores (see
+``csrc/flash_decode.cu``).
 
 Dispatch is by the device of ``q``: a CPU tensor goes to the plain
 version, a CUDA tensor to the kernel, which launches or raises — never a
@@ -60,6 +64,10 @@ def _library() -> ctypes.CDLL:
             ctypes.c_void_p, ctypes.c_void_p,
         ]
         lib.flash_decode.restype = ctypes.c_int
+        lib.flash_decode_attributes.argtypes = [
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ]
+        lib.flash_decode_attributes.restype = ctypes.c_int
         lib.flash_decode_error_string.argtypes = [ctypes.c_int]
         lib.flash_decode_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -154,6 +162,14 @@ def _launch(q, k, v, valid_len, block_s: int):
         )
     flash_decode.launches += 1
     return out
+
+
+def kernel_attributes(dtype, d: int, g: int) -> dict:
+    """Registers, shared and local bytes and CTAs per SM of the kernel
+    that takes ``dtype`` at head width ``d`` and group ``g``."""
+    return cuda_build.read_attributes(
+        _library().flash_decode_attributes, int(dtype == torch.bfloat16),
+        d, g)
 
 
 def flash_decode(q, k, v, valid_len, *, block_s: int = BLOCK_S):

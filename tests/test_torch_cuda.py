@@ -23,7 +23,10 @@ visits the cache in another order than its plain version (the Pallas
 kernel's block order) and takes base-2 exponentials: it is held within
 tests/test_kernels.py's float32 tolerance, atol and rtol 1e-5, and in
 bfloat16 within one rounding of the output (atol 1e-6, rtol 2^-7), also
-against the oracle; at valid_len = 0 it gives zeros.
+against the oracle; at valid_len = 0 it gives zeros.  Beside the
+shapes, valid_len crosses the bfloat16 kernel's 8- and 16-position mma
+edges and a warp's run at every G, and the quantize kernel reads views of
+a buffer at every element offset off a 16-byte boundary.
 """
 import numpy as np
 import pytest
@@ -373,6 +376,36 @@ def test_dorefa_kernels_refuse_and_skip(cuda):
         dorefa.dequantize_codes(x, s, 4)
 
 
+@pytest.mark.parametrize("dtype,offset", [(torch.float32, o) for o in (1, 2, 3)]
+                         + [(torch.bfloat16, o) for o in range(1, 8)])
+def test_quantize_codes_reads_views_at_any_offset(cuda, dtype, offset):
+    """x = buf[o:o + n] off its 16-byte boundary, n = 1, 2, 3 (mod 8),
+    zero codes past n, NaN and Inf scales: the 16-byte kernel's head, tail
+    and per-element code stores equal the plain version bit for bit."""
+    gen = torch.Generator().manual_seed(offset)
+    buf = (torch.randn(70_000, generator=gen) * 0.3).to(dtype).to(cuda)
+    for n in (1, 2, 3, 9, 17, 1001, 4099, 65_537):
+        x = buf[offset:offset + n]
+        assert x.data_ptr() % 16 != 0
+        for n_out in (n, n + 1, n + 7, -(-n // 32_768) * 32_768 + 32_768):
+            for scale in (x.float().abs().max(),
+                          torch.tensor(float("nan"), device=cuda),
+                          torch.tensor(float("inf"), device=cuda)):
+                s = scale.reshape(()).float()
+                for bits in (3, 8, 32):
+                    got = dorefa.quantize_codes(x, s, bits, n_out)
+                    _same_bits(got, dorefa.quantize_codes_plain(
+                        x, s, bits, n_out))
+                    _same_bits(got, dorefa.quantize_codes_plain(
+                        x.cpu(), s.cpu(), bits, n_out))
+
+
+def test_quantize_codes_kernel_attributes(cuda):
+    for dtype in (torch.float32, torch.bfloat16):
+        attrs = dorefa.quantize_codes_attributes(dtype)
+        assert attrs["local_bytes"] == 0 and attrs["ctas_per_sm"] >= 1
+
+
 @pytest.mark.parametrize("bits", [1, 4, 8, 16])
 def test_codec_on_the_card_equals_the_cpu(cuda, bits):
     rng = np.random.default_rng(bits)
@@ -458,6 +491,38 @@ def test_flash_decode_kernel_matches_plain(cuda, shape, dtype):
         oracle = ref.flash_decode_ref(q, k, v, vl)
         torch.testing.assert_close(got.float(), oracle.float(), atol=atol,
                                    rtol=rtol)
+
+
+@pytest.mark.parametrize("g", range(1, 9))
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_kernel_edges_of_its_tiles(cuda, dtype, d, g):
+    """valid_len across the bfloat16 kernel's mma edges (8 and 16
+    positions) and its warps' runs (16 positions each, in turn), at every
+    G and both head widths, in both types; zeros at valid_len = 0."""
+    s = 512
+    gen = torch.Generator().manual_seed(100 * g + d)
+    q = torch.randn(2, 2, g, d, generator=gen).to(dtype).to(cuda)
+    k = torch.randn(2, s, 2, d, generator=gen).to(dtype).to(cuda)
+    v = torch.randn(2, s, 2, d, generator=gen).to(dtype).to(cuda)
+    atol, rtol = FLASH_TOL[dtype]
+    zeros = flash_decode.flash_decode(q, k, v, 0)
+    assert torch.equal(zeros, torch.zeros_like(zeros))
+    for vl in (1, 7, 8, 15, 16, 17, 63, 64, 65, s - 1, s):
+        got = flash_decode.flash_decode(
+            q, k, v, torch.tensor(vl, dtype=torch.int32, device=cuda))
+        want = flash_decode.flash_decode_plain(q, k, v, vl)
+        assert got.dtype == dtype and got.shape == q.shape
+        torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                                   rtol=rtol)
+
+
+def test_flash_decode_kernel_attributes(cuda):
+    """The bfloat16 kernel fits two CTAs on an SM without spilling."""
+    for d in (64, 128):
+        attrs = flash_decode.kernel_attributes(torch.bfloat16, d, 7)
+        assert attrs["local_bytes"] == 0 and attrs["ctas_per_sm"] >= 2
+        assert attrs["dynamic_smem"] <= 113 * 1024
 
 
 def test_flash_decode_kernel_refuses_what_it_does_not_take(cuda):

@@ -9,6 +9,9 @@ sizes 256 and 512.  In bfloat16 the outputs are also held within one
 rounding of each other (atol 1e-6, rtol 2^-7): both sides read the same
 bfloat16 inputs and compute in float32, and at these shapes the outputs
 are about 0.1, so 5e-2 alone would pass a version that returns zeros.
+A test-local emulation of the bfloat16 CUDA kernel's rounding points
+holds that kernel's design (q unscaled, scores scaled in float32, p split
+into three bfloat16 parts) to the same one-rounding contract.
 """
 import numpy as np
 import pytest
@@ -146,6 +149,73 @@ def test_cache_length_must_be_a_multiple_of_the_block():
     with pytest.raises(ValueError, match="do not match q"):
         fd.flash_decode_plain(q, k[:, :, :, :32], v[:, :, :, :32], 10,
                               block_s=128)
+
+
+def _bf16_kernel_emulation(q, k, v, valid_len, parts: int):
+    """The bfloat16 kernel's rounding points in plain torch: q stays
+    unscaled bfloat16, the float32 scores q.k are scaled by log2(e) /
+    sqrt(D) afterwards, the weights are exponentials in base 2 and reach
+    p.v as ``parts`` bfloat16 parts (hi = bf16(p), mid = bf16(p - hi), lo =
+    bf16(p - hi - mid); the kernel takes three), each product summed in
+    float32."""
+    d = q.shape[-1]
+    qscale = float(np.float32(np.log2(np.e) / np.sqrt(d)))
+    kf, vf = k[:, :valid_len].float(), v[:, :valid_len].float()
+    s = torch.einsum("bhgd,bshd->bhgs", q.float(), kf) * qscale
+    p = torch.exp2(s - s.amax(dim=-1, keepdim=True))
+    acc = torch.zeros(q.shape, dtype=torch.float32)
+    rest = p
+    for _ in range(parts):
+        part = rest.to(torch.bfloat16).float()
+        acc = acc + torch.einsum("bhgs,bshd->bhgd", part, vf)
+        rest = rest - part
+    return (acc / p.sum(dim=-1)[..., None]).to(torch.bfloat16)
+
+
+def _decode_like():
+    """B=4, Hkv=2, G=7, D=64, S=8,192, the whole cache valid."""
+    _, (q, k, v) = _both(_inputs(4, 2, 7, 64, 8192, seed=17), "bfloat16")
+    return q, k, v, 8192
+
+
+def _short_cache():
+    """tests/test_torch_cuda.py's tile-edge case D=128, G=8 at valid_len
+    8, where a few products cancel to outputs near zero."""
+    gen = torch.Generator().manual_seed(100 * 8 + 128)
+    q = torch.randn(2, 2, 8, 128, generator=gen).to(torch.bfloat16)
+    k = torch.randn(2, 512, 2, 128, generator=gen).to(torch.bfloat16)
+    v = torch.randn(2, 512, 2, 128, generator=gen).to(torch.bfloat16)
+    return q, k, v, 8
+
+
+@pytest.mark.parametrize("case,parts,within", [
+    (_decode_like, 3, True), (_decode_like, 1, False),
+    (_short_cache, 3, True), (_short_cache, 2, False),
+])
+def test_bf16_kernel_needs_p_in_three_bf16_parts(case, parts, within):
+    """The bfloat16 kernel's rounding points with p in three bfloat16
+    parts stay within one rounding of the output (atol 1e-6, rtol 2^-7) of
+    the plain version.  With p rounded once they leave it on a long cache;
+    with two parts (p to about 2^-17) they leave it where a short cache's
+    products cancel.  So the split is a requirement of the contract."""
+    q, k, v, valid_len = case()
+    want = fd.flash_decode_plain(q, k, v, valid_len).float()
+    got = _bf16_kernel_emulation(q, k, v, valid_len, parts).float()
+    atol, rtol = ONE_ROUNDING["bfloat16"]
+    outside = (got - want).abs() > atol + rtol * want.abs()
+    assert bool(outside.any()) != within
+
+
+def test_three_bf16_parts_carry_p_exactly():
+    """hi + mid + lo is the float32 weight p in (0, 1] exactly (each part
+    rounds the exact float32 remainder); hi + lo alone is off."""
+    p = torch.exp2(-torch.rand(100_000, generator=torch.Generator()
+                               .manual_seed(0), dtype=torch.float32) * 30)
+    hi = p.to(torch.bfloat16).float()
+    mid = (p - hi).to(torch.bfloat16).float()
+    lo = (p - hi - mid).to(torch.bfloat16).float()
+    assert torch.equal(hi.double() + mid.double() + lo.double(), p.double())
+    assert not torch.equal(hi + (p - hi).to(torch.bfloat16).float(), p)
 
 
 class _CudaLabelled(torch.Tensor):

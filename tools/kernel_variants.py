@@ -1,0 +1,200 @@
+"""Time source variants of the port's CUDA kernels in turns, on the card.
+
+Each variant is ``csrc/<kernel>.cu`` with a few constants replaced; it is
+built with the port's own nvcc flags into ``build/variants/``, checked
+against the plain version, and timed behind a sleep kernel (device time,
+as ``chip_smoke.py`` times kernels) in rounds that visit every variant in
+turn, so the card's drift falls on all of them alike.  The library call
+the kernel is held against is timed in the same rounds.
+
+    python3 tools/kernel_variants.py [--rounds 3]
+
+Variants: the bf16 flash-decode kernel at decode_32k (B=128, S=32,768,
+Hkv=2, G=7, D=64) with other ring depths and warps per CTA, against
+``scaled_dot_product_attention``; ``quantize_codes`` at 2^20 float32
+elements with one, two and four 16-byte vectors per thread, against
+``quantize_per_tensor``.  The first variant of each is the kernel as
+committed.
+"""
+from __future__ import annotations
+
+import argparse
+import concurrent.futures
+import contextlib
+import ctypes
+import os
+import subprocess
+import sys
+
+import torch
+import torch.nn.functional as F
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.join(REPO, "src"))
+
+from repro_torch.kernels import cuda_build, dorefa  # noqa: E402
+from repro_torch.kernels import flash_decode as fd  # noqa: E402
+
+FLASH_VARIANTS = {
+    "4 stages x 2 warps": [],
+    "3 stages x 2 warps": [("kBf16Stages = 4;", "kBf16Stages = 3;")],
+    "6 stages x 2 warps": [("kBf16Stages = 4;", "kBf16Stages = 6;")],
+    "3 stages x 4 warps": [("kBf16Stages = 4;", "kBf16Stages = 3;"),
+                           ("kWarps = 2;", "kWarps = 4;")],
+    "6 stages x 4 warps": [("kBf16Stages = 4;", "kBf16Stages = 6;"),
+                           ("kWarps = 2;", "kWarps = 4;")],
+    "3 stages x 8 warps": [("kBf16Stages = 4;", "kBf16Stages = 3;"),
+                           ("kWarps = 2;", "kWarps = 8;")],
+}
+WORK = "const int64_t work = bf16 ? n / 16 + 1 : n / 8 + 1;"
+CODES_VARIANTS = {
+    "2 vectors/thread": [],
+    "1 vector/thread": [
+        (WORK, "const int64_t work = bf16 ? n / 8 + 1 : n / 4 + 1;")],
+    "4 vectors/thread": [
+        (WORK, "const int64_t work = bf16 ? n / 32 + 1 : n / 16 + 1;")],
+}
+DECODE_32K = (128, 2, 7, 64, 32_768)
+
+
+def build(kernel, tag, subs):
+    """Compile ``csrc/<kernel>.cu`` with ``subs`` applied; the library."""
+    src = (cuda_build.CSRC / f"{kernel}.cu").read_text()
+    for old, new in subs:
+        if old not in src:
+            raise SystemExit(f"{kernel}: {old!r} not in the source")
+        src = src.replace(old, new)
+    out = cuda_build.BUILD_DIR / "variants"
+    out.mkdir(parents=True, exist_ok=True)
+    name = f"{kernel}_" + "".join(c if c.isalnum() else "_" for c in tag)
+    (out / f"{name}.cu").write_text(src)
+    proc = subprocess.run(
+        [cuda_build.find_nvcc(), *cuda_build.NVCC_FLAGS, "-o",
+         str(out / f"{name}.so"), str(out / f"{name}.cu")],
+        capture_output=True, text=True)
+    if proc.returncode:
+        raise SystemExit(f"{kernel} {tag}: {proc.stderr[-2000:]}")
+    return str(out / f"{name}.so")
+
+
+@contextlib.contextmanager
+def loaded(mod, path):
+    """``mod``'s wrappers launch the kernel of the library at ``path``."""
+    load = cuda_build.load
+    cuda_build.load = lambda name: ctypes.CDLL(path)
+    mod._lib = None
+    try:
+        mod._library()
+        yield
+    finally:
+        cuda_build.load = load
+        mod._lib = None
+
+
+def device_ms(fn, iters):
+    """Device ms per call of ``iters`` calls queued behind a sleep."""
+    fn()
+    while True:
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(200_000_000)
+        start.record()
+        for _ in range(iters):
+            fn()
+        stop.record()
+        backlogged = not start.query()
+        torch.cuda.synchronize()
+        if backlogged:
+            return start.elapsed_time(stop) / iters
+        if iters == 1:
+            raise SystemExit("could not queue one call behind the sleep")
+        iters //= 2
+
+
+def time_in_turns(cases, library, rounds):
+    """{name: [ms per round]} over ``cases`` {name: (mod, path, fn,
+    iters)} and the library call (fn, iters), visited in turn."""
+    times = {name: [] for name in [*cases, "library"]}
+    for _ in range(rounds):
+        for name, (mod, path, fn, iters) in cases.items():
+            with loaded(mod, path):
+                times[name].append(device_ms(fn, iters))
+        times["library"].append(device_ms(*library))
+    return times
+
+
+def flash_cases(libs):
+    b, h, g, d, s = DECODE_32K
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    q, k, v = (torch.randn(*shape, device="cuda", generator=gen).bfloat16()
+               for shape in ((b, h, g, d), (b, s, h, d), (b, s, h, d)))
+    vt = torch.tensor(s, dtype=torch.int32, device="cuda")
+    want = fd.flash_decode_plain(q, k, v, s).float()
+    for tag, path in libs.items():
+        with loaded(fd, path):
+            got = fd._launch(q, k, v, vt, fd.BLOCK_S).float()
+            if bool(((got - want).abs()
+                     > 1e-6 + 2.0 ** -7 * want.abs()).any()):
+                raise SystemExit(f"flash_decode {tag}: beyond one rounding")
+    qh = q.reshape(b, h * g, 1, d)
+    kh, vh = k.transpose(1, 2), v.transpose(1, 2)
+    cases = {tag: (fd, path, lambda: fd._launch(q, k, v, vt, fd.BLOCK_S), 20)
+             for tag, path in libs.items()}
+    library = (lambda: F.scaled_dot_product_attention(
+        qh, kh, vh, enable_gqa=True), 4)
+    return cases, library
+
+
+def codes_cases(libs, n=1 << 20, bits=8):
+    gen = torch.Generator().manual_seed(n)
+    x = (torch.randn(n, generator=gen) * 0.3).cuda()
+    s = x.abs().max()
+    n_out = -(-n // 32_768) * 32_768
+    want = dorefa.quantize_codes_plain(x, s, bits, n_out)
+    for tag, path in libs.items():
+        with loaded(dorefa, path):
+            if not torch.equal(
+                    dorefa._quantize_codes_launch(x, s, bits, n_out), want):
+                raise SystemExit(f"quantize_codes {tag}: codes differ")
+    scale = s.item() / dorefa.levels(bits)
+    cases = {tag: (dorefa, path,
+                   lambda: dorefa._quantize_codes_launch(x, s, bits, n_out),
+                   50) for tag, path in libs.items()}
+    library = (lambda: torch.quantize_per_tensor(x, scale, 0, torch.qint32),
+               50)
+    return cases, library
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--rounds", type=int, default=3)
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        print("kernel_variants: torch.cuda.is_available() is False",
+              file=sys.stderr)
+        return 2
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip())
+    jobs = [("flash_decode", tag, subs) for tag, subs in FLASH_VARIANTS.items()]
+    jobs += [("dorefa", tag, subs) for tag, subs in CODES_VARIANTS.items()]
+    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
+        paths = list(pool.map(lambda job: build(*job), jobs))
+    libs = {(kernel, tag): path for (kernel, tag, _), path in zip(jobs, paths)}
+    for kernel, unit, scale, make in (
+            ("flash_decode", "ms", 1.0, flash_cases),
+            ("dorefa", "us", 1e3, codes_cases)):
+        cases, library = make({tag: path for (k, tag), path in libs.items()
+                               if k == kernel})
+        for name, times in time_in_turns(cases, library, args.rounds).items():
+            print(f"[variants] {kernel} {name}: " + " ".join(
+                f"{t * scale:.4f}" for t in times) + f" {unit} device")
+        del cases, library
+        torch.cuda.empty_cache()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
