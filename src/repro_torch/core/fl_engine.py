@@ -14,7 +14,8 @@ The port of ``repro.core.fl_engine``'s per-round batched engine
      DoReFa codes (``quantization.quantize_codes_batched``).
   4. **aggregation** — with ``use_pallas`` (the reference's name for the
      fused kernel path) every parameter leaf goes through the hand-written
-     aggregation kernel (:func:`repro_torch.kernels.aggregate.weighted_aggregate`);
+     aggregation kernel, all leaves of the round in one grouped launch
+     (:func:`repro_torch.kernels.aggregate.weighted_aggregate_group`);
      otherwise through the einsum the reference computes in XLA.  Under
      the over-the-air uplink, steps 3-4 are replaced by the analog
      superposition (:func:`repro_torch.core.ota.superpose_tree`): the
@@ -43,7 +44,9 @@ from repro_torch.core import tree as tree_lib
 from repro_torch.data.client_bank import (
     BucketedClientBank, ClientBank, EvalBank, eval_sample_plan,
 )
-from repro_torch.kernels.aggregate import weighted_aggregate
+from repro_torch.kernels.aggregate import (
+    coefficients, weighted_aggregate, weighted_aggregate_group,
+)
 from repro_torch.kernels.fma import fma_dot
 from repro_torch.models.fl_models import get_fl_model
 
@@ -87,29 +90,48 @@ def sgd_epoch(params, x, y, lr, *, model):
 # Aggregation
 # --------------------------------------------------------------------------
 
-def _pallas_aggregate_leaf(leaf, bits_k, agg_w, *, compress, paper_exact):
-    """Fused dequant + weighted sum of one client-stacked leaf (kernel path).
+def _pallas_aggregate_leaves(leaves, bits_k, agg_w, *, compress,
+                             paper_exact):
+    """Fused dequant + weighted sum of client-stacked leaves (kernel path),
+    in two passes: every leaf is quantized, then one grouped kernel call
+    reduces them all.
 
     Quantizes the raw deltas to per-client float32-held codes and lets the
     aggregation kernel apply scale_k * w_k / a_k during the reduction.  A
     client with b >= 32 passes through at full precision: its kernel weight
     is zeroed and its raw delta joins through a separate weighted sum.
     With ``compress=False`` the identity codes (scale = a = 1) reduce to the
-    plain weighted sum.
+    plain weighted sum.  Returns one aggregate per leaf, shaped like
+    ``leaf[0]``.
     """
-    k = leaf.shape[0]
-    flat = leaf.reshape(k, -1).to(torch.float32)
-    ones = torch.ones(k, dtype=torch.float32, device=leaf.device)
+    k = leaves[0].shape[0]
+    flats = [leaf.reshape(k, -1).to(torch.float32) for leaf in leaves]
+    ones = torch.ones(k, dtype=torch.float32, device=leaves[0].device)
     if compress:
-        codes, scales, a = qlib.quantize_codes_batched(
-            flat, bits_k, scales=ones if paper_exact else None,
-        )
         full = (bits_k >= 32).to(torch.float32)
-        out = weighted_aggregate(codes, scales, agg_w * (1.0 - full), levels=a)
-        out = out + torch.einsum("k,kn->n", agg_w * full, flat)
+        w_q, w_full = agg_w * (1.0 - full), agg_w * full
+        codes, coeffs = [], []
+        for flat in flats:
+            c, scales, a = qlib.quantize_codes_batched(
+                flat, bits_k, scales=ones if paper_exact else None,
+            )
+            codes.append(c)
+            coeffs.append(coefficients(scales, w_q, a))
+        outs = [
+            out + torch.einsum("k,kn->n", w_full, flat)
+            for out, flat in zip(weighted_aggregate_group(codes, coeffs),
+                                 flats)
+        ]
     else:
-        out = weighted_aggregate(flat, ones, agg_w, levels=ones)
-    return out.reshape(leaf.shape[1:])
+        coeff = coefficients(ones, agg_w, ones)
+        outs = weighted_aggregate_group(flats, [coeff] * len(flats))
+    return [out.reshape(leaf.shape[1:]) for out, leaf in zip(outs, leaves)]
+
+
+def _pallas_aggregate_leaf(leaf, bits_k, agg_w, *, compress, paper_exact):
+    """:func:`_pallas_aggregate_leaves` of one leaf."""
+    return _pallas_aggregate_leaves(
+        [leaf], bits_k, agg_w, compress=compress, paper_exact=paper_exact)[0]
 
 
 def _einsum_aggregate_leaf(leaf, bits_k, agg_w, *, compress, paper_exact):
@@ -239,14 +261,20 @@ def _train_quantize_aggregate(
         bits = qlib.adaptive_bits(payload, budgets)
     else:
         bits = torch.full((k,), 32, dtype=torch.int32, device=x.device)
-    agg = _pallas_aggregate_leaf if use_pallas else _einsum_aggregate_leaf
     with torch.no_grad():
-        update = tree_lib.tree_map(
-            lambda leaf: agg(
-                leaf, bits, agg_w, compress=compress, paper_exact=paper_exact
-            ),
-            deltas,
-        )
+        if use_pallas:
+            leaves, treedef = tree_lib.tree_flatten(deltas)
+            update = tree_lib.tree_unflatten(treedef, _pallas_aggregate_leaves(
+                leaves, bits, agg_w, compress=compress, paper_exact=paper_exact,
+            ))
+        else:
+            update = tree_lib.tree_map(
+                lambda leaf: _einsum_aggregate_leaf(
+                    leaf, bits, agg_w, compress=compress,
+                    paper_exact=paper_exact,
+                ),
+                deltas,
+            )
         new_params = tree_lib.tree_map(lambda p, u: p + u, params, update)
     return new_params, bits, None
 

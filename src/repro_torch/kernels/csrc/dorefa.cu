@@ -39,19 +39,22 @@
 // writes the zero codes of the reference's tile padding itself (elements
 // n .. n_out - 1), so no padded copy of x exists.
 //
-// quantize_codes moves whole 16-byte vectors: each thread takes 4 float32
-// or 8 bf16 elements per vector, two vectors in flight per iteration of a
-// grid-stride loop, and stores its codes as int4; the zero codes past n
-// are int4 stores too.  With one 4-byte element per thread it ran at 2.5x
-// its byte bound.  x may be a view at any element offset, so it need not
-// start on a 16-byte boundary: the elements before its first boundary (the
-// head) and after its last whole vector (the tail) take the scalar path
-// inside the kernel, and where that shift leaves a vector's codes off their
-// own 16-byte boundary they are stored one by one.  x is never copied and
-// no offset is refused.  The arithmetic per element is the same on every
-// path, so the codes do not depend on which path took an element.
-// dequantize_codes and quantize_dequantize still take one element per
-// thread in a 1-D grid-stride loop.
+// quantize_codes and quantize_dequantize move whole 16-byte vectors: each
+// thread takes 4 float32 or 8 bf16 elements per vector, two vectors in
+// flight per iteration of a grid-stride loop (kVectorsPerThread sizes the
+// grid: two vectors per thread beat one and four in a sweep of both), and
+// stores its outputs as 16-byte vectors too: int4 codes, or the fused
+// values in x's own type; the zero codes past n are int4 stores as well.
+// With one 4-byte element per thread they ran at 2.4-2.5x their byte
+// bound.  x may be a view at any element offset, so it need not start on a
+// 16-byte boundary: the elements before its first boundary (the head) and
+// after its last whole vector (the tail) take the scalar path inside the
+// kernel, and where that shift leaves a vector's outputs off their own
+// 16-byte boundary they are stored one by one.  x is never copied and no
+// offset is refused.  The arithmetic per element is the same on every
+// path, so an output does not depend on which path took its element.
+// dequantize_codes still takes one element per thread in a 1-D
+// grid-stride loop.
 //
 // C interface (loaded with ctypes): every entry point returns
 // cudaGetLastError() after its launch, which the wrapper checks.
@@ -63,6 +66,8 @@
 namespace {
 
 constexpr int kThreads = 256;
+// 16-byte vectors of x per thread in the grid of the two vector kernels
+constexpr int kVectorsPerThread = 2;
 
 __device__ __forceinline__ float load_f32(const float* x, int64_t i) {
   return x[i];
@@ -117,6 +122,49 @@ __device__ __forceinline__ void vector_codes(const uint4& r, float s, float a,
     const float2 f = __bfloat1622float2(h[i]);
     c[2 * i] = code_of(f.x, s, a);
     c[2 * i + 1] = code_of(f.y, s, a);
+  }
+}
+
+// Quantize -> dequantize of one element, in float32.
+__device__ __forceinline__ float qdq_of(float x, float s, float a,
+                                        float step) {
+  return __fmul_rn(rintf(scaled(x, s, a)), step);
+}
+
+// The fused outputs of one 16-byte vector of x, in x's type.
+__device__ __forceinline__ uint4 vector_qdq(const uint4& r, float s, float a,
+                                            float step, float) {
+  return make_uint4(__float_as_uint(qdq_of(__uint_as_float(r.x), s, a, step)),
+                    __float_as_uint(qdq_of(__uint_as_float(r.y), s, a, step)),
+                    __float_as_uint(qdq_of(__uint_as_float(r.z), s, a, step)),
+                    __float_as_uint(qdq_of(__uint_as_float(r.w), s, a, step)));
+}
+
+__device__ __forceinline__ uint4 vector_qdq(const uint4& r, float s, float a,
+                                            float step, __nv_bfloat16) {
+  uint4 o;
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
+  __nv_bfloat162* g = reinterpret_cast<__nv_bfloat162*>(&o);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    g[i] = __floats2bfloat162_rn(qdq_of(f.x, s, a, step),
+                                 qdq_of(f.y, s, a, step));
+  }
+  return o;
+}
+
+// Store one 16-byte vector of T at dst: one 16-byte store when dst is
+// 16-byte aligned, else element by element.
+template <typename T>
+__device__ __forceinline__ void store_vector(T* dst, const uint4& v,
+                                             bool aligned) {
+  if (aligned) {
+    *reinterpret_cast<uint4*>(dst) = v;
+  } else {
+    const T* e = reinterpret_cast<const T*>(&v);
+#pragma unroll
+    for (int i = 0; i < 16 / (int)sizeof(T); ++i) dst[i] = e[i];
   }
 }
 
@@ -208,13 +256,42 @@ __global__ void quantize_dequantize_kernel(const T* __restrict__ x, int64_t n,
                                            const float* __restrict__ scale,
                                            float a, float inv_a,
                                            T* __restrict__ out) {
+  constexpr int kVec = 16 / sizeof(T);
   const float s = floored(__ldg(scale));
   const float step = __fmul_rn(s, inv_a);
+  const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    store(out, i, __fmul_rn(rintf(scaled(load_f32(x, i), s, a)), step));
+
+  // x[head, body_end) in whole 16-byte vectors, two in flight per thread
+  const int64_t lead = to_boundary(x);
+  const int64_t head = lead < n ? lead : n;
+  const int64_t n_vec = (n - head) / kVec;
+  const int64_t body_end = head + n_vec * kVec;
+  const uint4* xv = reinterpret_cast<const uint4*>(x + head);
+  T* ov = out + head;
+  const bool aligned = to_boundary(ov) == 0;
+  for (int64_t i = tid; i < n_vec; i += 2 * stride) {
+    const bool two = i + stride < n_vec;
+    const uint4 r0 = xv[i];
+    uint4 r1 = make_uint4(0, 0, 0, 0);
+    if (two) r1 = xv[i + stride];
+    store_vector(ov + i * kVec, vector_qdq(r0, s, a, step, T()), aligned);
+    if (two) {
+      store_vector(ov + (i + stride) * kVec, vector_qdq(r1, s, a, step, T()),
+                   aligned);
+    }
   }
+  // the head [0, head) and the tail [body_end, n), one element each
+  const int64_t n_edge = head + (n - body_end);
+  for (int64_t i = tid; i < n_edge; i += stride) {
+    const int64_t e = i < head ? i : body_end + (i - head);
+    store(out, e, qdq_of(load_f32(x, e), s, a, step));
+  }
+}
+
+// Threads the vector kernels want for n elements of x.
+int64_t vector_work(int64_t n, int bf16) {
+  return n / (kVectorsPerThread * (bf16 ? 8 : 4)) + 1;
 }
 
 int grid_for(int64_t work) {
@@ -224,37 +301,10 @@ int grid_for(int64_t work) {
   return blocks < 1 ? 1 : (int)blocks;
 }
 
-}  // namespace
-
-extern "C" {
-
-// x: n float32 (bf16 = 0) or bfloat16 (bf16 = 1) values; codes: n_out int32.
-int dorefa_quantize_codes(const void* x, int bf16, int64_t n, int64_t n_out,
-                          const void* scale, float a, void* codes,
-                          void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* s = static_cast<const float*>(scale);
-  int* c = static_cast<int*>(codes);
-  // a thread per two vectors of x or one int4 of zero codes
-  const int64_t work = bf16 ? n / 16 + 1 : n / 8 + 1;
-  const int grid = grid_for(work > (n_out - n) / 4 ? work : (n_out - n) / 4);
-  if (bf16) {
-    quantize_codes_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(x), n, n_out, s, a, c);
-  } else {
-    quantize_codes_kernel<float><<<grid, kThreads, 0, st>>>(
-        static_cast<const float*>(x), n, n_out, s, a, c);
-  }
-  return (int)cudaGetLastError();
-}
-
 // out[0..5]: registers per thread, static shared bytes, dynamic shared
 // bytes, local (spill) bytes per thread, threads per CTA, CTAs per SM of
-// the quantize_codes kernel for float32 (bf16 = 0) or bfloat16 input.
-int dorefa_quantize_codes_attributes(int bf16, int* out) {
-  const void* fn =
-      bf16 ? reinterpret_cast<const void*>(quantize_codes_kernel<__nv_bfloat16>)
-           : reinterpret_cast<const void*>(quantize_codes_kernel<float>);
+// the kernel fn.
+int read_attributes(const void* fn, int* out) {
   cudaFuncAttributes attr;
   int err = (int)cudaFuncGetAttributes(&attr, fn);
   if (err != 0) return err;
@@ -269,6 +319,48 @@ int dorefa_quantize_codes_attributes(int bf16, int* out) {
   out[4] = kThreads;
   out[5] = blocks;
   return 0;
+}
+
+}  // namespace
+
+extern "C" {
+
+// x: n float32 (bf16 = 0) or bfloat16 (bf16 = 1) values; codes: n_out int32.
+int dorefa_quantize_codes(const void* x, int bf16, int64_t n, int64_t n_out,
+                          const void* scale, float a, void* codes,
+                          void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* s = static_cast<const float*>(scale);
+  int* c = static_cast<int*>(codes);
+  // a thread per kVectorsPerThread vectors of x or one int4 of zero codes
+  const int64_t work = vector_work(n, bf16);
+  const int grid = grid_for(work > (n_out - n) / 4 ? work : (n_out - n) / 4);
+  if (bf16) {
+    quantize_codes_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(x), n, n_out, s, a, c);
+  } else {
+    quantize_codes_kernel<float><<<grid, kThreads, 0, st>>>(
+        static_cast<const float*>(x), n, n_out, s, a, c);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The attributes (read_attributes) of the quantize_codes kernel for
+// float32 (bf16 = 0) or bfloat16 input.
+int dorefa_quantize_codes_attributes(int bf16, int* out) {
+  return read_attributes(
+      bf16 ? reinterpret_cast<const void*>(quantize_codes_kernel<__nv_bfloat16>)
+           : reinterpret_cast<const void*>(quantize_codes_kernel<float>),
+      out);
+}
+
+// The same for the quantize_dequantize kernel.
+int dorefa_quantize_dequantize_attributes(int bf16, int* out) {
+  return read_attributes(
+      bf16 ? reinterpret_cast<const void*>(
+                 quantize_dequantize_kernel<__nv_bfloat16>)
+           : reinterpret_cast<const void*>(quantize_dequantize_kernel<float>),
+      out);
 }
 
 int dorefa_dequantize_codes(const void* codes, int64_t n, const void* scale,
@@ -286,13 +378,13 @@ int dorefa_quantize_dequantize(const void* x, int bf16, int64_t n,
                                void* out, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* s = static_cast<const float*>(scale);
+  const int grid = grid_for(vector_work(n, bf16));
   if (bf16) {
-    quantize_dequantize_kernel<__nv_bfloat16>
-        <<<grid_for(n), kThreads, 0, st>>>(
-            static_cast<const __nv_bfloat16*>(x), n, s, a, inv_a,
-            static_cast<__nv_bfloat16*>(out));
+    quantize_dequantize_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(x), n, s, a, inv_a,
+        static_cast<__nv_bfloat16*>(out));
   } else {
-    quantize_dequantize_kernel<float><<<grid_for(n), kThreads, 0, st>>>(
+    quantize_dequantize_kernel<float><<<grid, kThreads, 0, st>>>(
         static_cast<const float*>(x), n, s, a, inv_a,
         static_cast<float*>(out));
   }

@@ -35,10 +35,12 @@ quiet fall back.  ``<wrapper>.launches`` counts each wrapper's kernel
 launches (plain-version calls do not count).  The kernels use no TPU
 tiling: a 1-D grid over the ``n`` elements; :func:`quantize_codes` also
 writes the zero codes of a caller's padding (``n_out > n``), so no padded
-copy of ``x`` is made.  :func:`quantize_codes` reads ``x`` in 16-byte
-vectors and stores its codes as ``int4``; an ``x`` at any element offset
-is taken as it is, its unaligned head and ragged tail element by element
-inside the kernel.  The other two kernels take one element per thread.
+copy of ``x`` is made.  :func:`quantize_codes` and
+:func:`quantize_dequantize` read ``x`` in 16-byte vectors and store their
+outputs as 16-byte vectors (``int4`` codes, or values of x's type); an
+``x`` at any element offset is taken as it is, its unaligned head and
+ragged tail element by element inside the kernel.
+:func:`dequantize_codes` takes one element per thread.
 """
 from __future__ import annotations
 
@@ -79,10 +81,10 @@ def _library() -> ctypes.CDLL:
         for fn in (lib.dorefa_quantize_codes, lib.dorefa_dequantize_codes,
                    lib.dorefa_quantize_dequantize):
             fn.restype = ctypes.c_int
-        lib.dorefa_quantize_codes_attributes.argtypes = [
-            ctypes.c_int, ctypes.c_void_p,
-        ]
-        lib.dorefa_quantize_codes_attributes.restype = ctypes.c_int
+        for fn in (lib.dorefa_quantize_codes_attributes,
+                   lib.dorefa_quantize_dequantize_attributes):
+            fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
         lib.dorefa_error_string.argtypes = [ctypes.c_int]
         lib.dorefa_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -158,6 +160,13 @@ def quantize_codes_attributes(dtype) -> dict:
     quantize_codes kernel for ``dtype`` input."""
     return cuda_build.read_attributes(
         _library().dorefa_quantize_codes_attributes,
+        int(dtype == torch.bfloat16))
+
+
+def quantize_dequantize_attributes(dtype) -> dict:
+    """The same for the quantize_dequantize kernel."""
+    return cuda_build.read_attributes(
+        _library().dorefa_quantize_dequantize_attributes,
         int(dtype == torch.bfloat16))
 
 

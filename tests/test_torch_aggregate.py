@@ -6,9 +6,15 @@ Pallas interpret mode, in-process, over the shape and edge sweep of
 tests/test_kernels.py, at that file's tolerance (rtol 1e-5, atol 1e-6: the
 two sum the same float32 products in possibly different orders).  The
 engine-level ``_pallas_aggregate_leaf`` is held against the reference's,
-b >= 32 passthrough rows included.  The CUDA kernel itself runs only on the
-card (``chip_smoke.py``).
+b >= 32 passthrough rows included.  ``weighted_aggregate_group`` (one
+grouped launch for many matrices) equals ``weighted_aggregate`` matrix by
+matrix to the bit, and the dense FL round that reduces all its leaves
+through it equals the one that reduced them leaf by leaf.  The CUDA kernel
+itself runs only on the card (``chip_smoke.py``,
+``tests/test_torch_cuda.py``).
 """
+import math
+
 import numpy as np
 import pytest
 
@@ -20,10 +26,15 @@ from repro.core import fl_engine as ref_engine  # noqa: E402
 from repro.kernels.aggregate import weighted_aggregate_pallas  # noqa: E402
 from repro.kernels.dorefa import BLOCK_ROWS, LANE  # noqa: E402
 
-from repro_torch.core import fl_engine  # noqa: E402
+from repro_torch.config import FLConfig  # noqa: E402
+from repro_torch.core import channel, fl, fl_engine  # noqa: E402
+from repro_torch.core import quantization as qlib  # noqa: E402
+from repro_torch.data import dirichlet_partition, make_mnist_like  # noqa: E402
 from repro_torch.kernels import aggregate, cuda_build  # noqa: E402
 
 RTOL, ATOL = 1e-5, 1e-6     # tests/test_kernels.py:59
+# LeNet-300-100's leaves (fc1/w, fc1/b, fc2/w, fc2/b, fc3/w, fc3/b)
+LENET_SHAPES = [(784, 300), (300,), (300, 100), (100,), (100, 10), (10,)]
 
 
 def _inputs(k, shape, dtype, seed):
@@ -206,3 +217,176 @@ def test_build_names_sources_in_the_repo():
     assert src.is_file()
     assert "arch=compute_90a,code=sm_90a" in cuda_build.NVCC_FLAGS
     assert cuda_build.library_path("aggregate").parent == cuda_build.BUILD_DIR
+
+
+# --------------------------------------------------------------------------
+# The grouped launch
+# --------------------------------------------------------------------------
+
+def _tree_inputs(k, shapes, seed, dtype="float32"):
+    """Per-leaf (K, *shape) codes, scales, weights and per-client levels,
+    as the dense round makes them (widths up to 32 for float32-held codes,
+    4 bits for int32)."""
+    rng = np.random.default_rng(seed)
+    w = torch.from_numpy(rng.dirichlet(np.ones(k)).astype(np.float32)) \
+        if k else torch.zeros(0)
+    bits = rng.integers(1, 33, k) if dtype == "float32" else np.full(k, 4)
+    levels = torch.from_numpy((2.0 ** bits - 1).astype(np.float32))
+    leaves = []
+    for shape in shapes:
+        x = rng.standard_normal((k, *shape)).astype(np.float32)
+        scales = np.abs(x.reshape(k, math.prod(shape))).max(
+            axis=1, initial=0.0) + 0.5
+        codes = np.round(levels.numpy().reshape(-1, *[1] * len(shape))
+                         * np.clip(x / 3.0, -1, 1))
+        codes = torch.from_numpy(codes.astype(dtype))
+        leaves.append((codes, torch.from_numpy(scales.astype(np.float32))))
+    return leaves, w, levels
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int32"])
+@pytest.mark.parametrize("k", [0, 1, 3, 6])
+def test_group_equals_per_leaf_aggregate(k, dtype):
+    """LeNet's six leaves plus two empty ones: one grouped call equals six
+    ``weighted_aggregate`` calls to the bit, each result shaped like its
+    leaf; K = 0 gives zeros; the plain version makes no launch."""
+    shapes = LENET_SHAPES[:3] + [(0,), (7, 0)] + LENET_SHAPES[3:]
+    leaves, w, levels = _tree_inputs(k, shapes, seed=k, dtype=dtype)
+    before = aggregate.weighted_aggregate.launches
+    got = aggregate.weighted_aggregate_group(
+        [codes for codes, _ in leaves],
+        [aggregate.coefficients(scales, w, levels) for _, scales in leaves])
+    assert len(got) == len(shapes)
+    for out, (codes, scales), shape in zip(got, leaves, shapes):
+        want = aggregate.weighted_aggregate(codes, scales, w, levels=levels)
+        assert out.dtype == torch.float32 and tuple(out.shape) == shape
+        assert torch.equal(out.view(torch.int32), want.view(torch.int32))
+        if k == 0:
+            assert not bool(out.any())
+    assert aggregate.weighted_aggregate.launches == before
+
+
+def test_group_of_more_matrices_than_one_table_holds():
+    """2.5 tables' worth of matrices of every size mod 4: each result
+    equals its own ``weighted_aggregate_plain`` to the bit."""
+    n_mat = 2 * aggregate.MAX_SEGMENTS + aggregate.MAX_SEGMENTS // 2
+    rng = np.random.default_rng(11)
+    codes = [torch.from_numpy(np.round(rng.standard_normal((3, 97 + i)) * 40)
+                              .astype(np.float32)) for i in range(n_mat)]
+    coeffs = [torch.from_numpy(rng.uniform(-1, 1, 3).astype(np.float32))
+              for _ in range(n_mat)]
+    got = aggregate.weighted_aggregate_group(codes, coeffs)
+    for out, c, cf in zip(got, codes, coeffs):
+        assert torch.equal(out, aggregate.weighted_aggregate_plain(c, cf))
+    assert aggregate.weighted_aggregate_group([], []) == []
+
+
+def test_group_refuses_mixed_dtypes_and_mismatched_coefficients():
+    f32 = torch.zeros((3, 8))
+    i32 = torch.zeros((3, 8), dtype=torch.int32)
+    coeff = torch.ones(3)
+    with pytest.raises(TypeError, match="must all be float32 or all int32"):
+        aggregate.weighted_aggregate_group([f32, i32], [coeff, coeff])
+    with pytest.raises(TypeError, match="must all be float32 or all int32"):
+        aggregate.weighted_aggregate_group([f32.double()], [coeff])
+    with pytest.raises(ValueError, match="does not match"):
+        aggregate.weighted_aggregate_group([f32, f32], [coeff, torch.ones(2)])
+    with pytest.raises(ValueError, match="does not match"):
+        aggregate.weighted_aggregate_group([f32], [torch.ones(3, 1)])
+    with pytest.raises(ValueError, match="2 code matrices but 1"):
+        aggregate.weighted_aggregate_group([f32, f32], [coeff])
+
+
+def test_group_on_a_cuda_tensor_raises_without_kernel(monkeypatch, tmp_path):
+    """The grouped call, like the one-matrix call, launches or raises."""
+    monkeypatch.setattr(cuda_build, "find_nvcc", lambda: None)
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(aggregate, "_lib", None)
+
+    def _no_fallback(*args, **kwargs):
+        raise AssertionError("plain version called for a CUDA tensor")
+
+    monkeypatch.setattr(aggregate, "weighted_aggregate_plain", _no_fallback)
+    codes = [torch.ones((3, n)).as_subclass(_CudaLabelled) for n in (8, 5)]
+    before = aggregate.weighted_aggregate.launches
+    with pytest.raises(RuntimeError, match="building CUDA kernel 'aggregate'"):
+        aggregate.weighted_aggregate_group(codes, [torch.ones(3)] * 2)
+    assert aggregate.weighted_aggregate.launches == before
+
+
+def _per_leaf_aggregate(leaves, bits_k, agg_w, *, compress, paper_exact):
+    """The dense round's aggregation as it was before the grouped launch:
+    quantize and reduce one leaf at a time, one ``weighted_aggregate``
+    call per leaf."""
+    outs = []
+    for leaf in leaves:
+        k = leaf.shape[0]
+        flat = leaf.reshape(k, -1).to(torch.float32)
+        ones = torch.ones(k, dtype=torch.float32)
+        if compress:
+            codes, scales, a = qlib.quantize_codes_batched(
+                flat, bits_k, scales=ones if paper_exact else None)
+            full = (bits_k >= 32).to(torch.float32)
+            out = aggregate.weighted_aggregate(
+                codes, scales, agg_w * (1.0 - full), levels=a)
+            out = out + torch.einsum("k,kn->n", agg_w * full, flat)
+        else:
+            out = aggregate.weighted_aggregate(flat, ones, agg_w, levels=ones)
+        outs.append(out.reshape(leaf.shape[1:]))
+    return outs
+
+
+@pytest.mark.parametrize("paper_exact", [False, True])
+@pytest.mark.parametrize("compress", [True, False])
+def test_leaves_in_one_group_equal_the_per_leaf_aggregate(compress,
+                                                          paper_exact):
+    """LeNet-shaped deltas with b >= 32 passthrough rows: the two-pass
+    aggregation equals the per-leaf one, and ``_pallas_aggregate_leaf``,
+    leaf by leaf, to the bit."""
+    rng = np.random.default_rng(7)
+    leaves = [torch.from_numpy((rng.standard_normal((4, *shape)) * 0.01)
+                               .astype(np.float32)) for shape in LENET_SHAPES]
+    bits = torch.tensor([32, 2, 40, 7], dtype=torch.int32)
+    w = torch.from_numpy(rng.dirichlet(np.ones(4)).astype(np.float32))
+    kw = dict(compress=compress, paper_exact=paper_exact)
+    got = fl_engine._pallas_aggregate_leaves(leaves, bits, w, **kw)
+    want = _per_leaf_aggregate(leaves, bits, w, **kw)
+    for g, r, leaf in zip(got, want, leaves):
+        assert g.shape == leaf.shape[1:]
+        assert torch.equal(g.view(torch.int32), r.view(torch.int32))
+        one = fl_engine._pallas_aggregate_leaf(leaf, bits, w, **kw)
+        assert torch.equal(g.view(torch.int32), one.view(torch.int32))
+
+
+@pytest.mark.parametrize("paper_exact", [False, True])
+@pytest.mark.parametrize("compression", ["adaptive", "none"])
+def test_dense_round_equals_the_per_leaf_round(monkeypatch, compression,
+                                               paper_exact):
+    """A whole run with ``use_pallas=True``: logs (schedules, bits, rates,
+    ratios, times, accuracies) and final parameters equal, to the bit,
+    those of the same run with the aggregation leaf by leaf.  A 1 s slot
+    gives the compressed run widths from 9 to 32, so b = 32 clients pass
+    through beside quantized ones."""
+    ds = make_mnist_like(num_samples=400, seed=0)
+    cell = channel.CellConfig(num_devices=6, slot_seconds=1.0)
+    shards = dirichlet_partition(ds.y_train, 6, seed=0)
+    cfg = FLConfig(num_devices=6, group_size=3, num_rounds=2,
+                   scheduler="round-robin", power_mode="max",
+                   fl_engine="batched", use_pallas=True,
+                   compression=compression, paper_exact_range=paper_exact)
+    grouped = fl.run_federated_learning(ds, shards, cell, cfg, device="cpu")
+    monkeypatch.setattr(fl_engine, "_pallas_aggregate_leaves",
+                        _per_leaf_aggregate)
+    per_leaf = fl.run_federated_learning(ds, shards, cell, cfg, device="cpu")
+    assert len(grouped.logs) == len(per_leaf.logs) == 2
+    if compression == "adaptive":
+        bits = np.concatenate([log.bits for log in grouped.logs])
+        assert bits.min() < 32 and bits.max() == 32
+    for a, b in zip(grouped.logs, per_leaf.logs):
+        assert a.devices == b.devices and a.test_accuracy == b.test_accuracy
+        assert a.wall_time_s == b.wall_time_s
+        for field in ("bits", "rates", "compression_ratios"):
+            np.testing.assert_array_equal(getattr(a, field), getattr(b, field))
+    for name, layer in per_leaf.final_params.items():
+        for leaf, v in layer.items():
+            assert torch.equal(grouped.final_params[name][leaf], v)

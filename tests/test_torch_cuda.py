@@ -25,15 +25,22 @@ tests/test_kernels.py's float32 tolerance, atol and rtol 1e-5, and in
 bfloat16 within one rounding of the output (atol 1e-6, rtol 2^-7), also
 against the oracle; at valid_len = 0 it gives zeros.  Beside the
 shapes, valid_len crosses the bfloat16 kernel's 8- and 16-position mma
-edges and a warp's run at every G, and the quantize kernel reads views of
-a buffer at every element offset off a 16-byte boundary.
+edges and a warp's run at every G, and the quantize and fused
+quantize-dequantize kernels read views of a buffer at every element offset
+off a 16-byte boundary.  The grouped aggregation kernel (one launch for
+many matrices) equals the plain version matrix by matrix, bit for bit, and
+the dense FL round that reduces every leaf in that one launch gives the
+same update and bits on the card as on the CPU.
 """
+import math
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
 from repro_torch.core import compression, fl_engine, ota, prng  # noqa: E402
+from repro_torch.core import quantization as qlib  # noqa: E402
 from repro_torch.core import scheduling  # noqa: E402
 from repro_torch.core import tree as tree_lib  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
@@ -100,6 +107,93 @@ def test_unaligned_rows_take_the_scalar_path(cuda):
     got = aggregate._launch(codes.contiguous(), coeff)
     want = aggregate.weighted_aggregate_plain(codes, coeff)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+LENET_SHAPES = [(784, 300), (300,), (300, 100), (100,), (100, 10), (10,)]
+
+
+def _group_case(k, sizes, dtype, seed, offset=0):
+    """(K, n) codes for each size, each a view ``offset`` elements into a
+    buffer of its own, and (K,) coefficients, on the card."""
+    gen = torch.Generator().manual_seed(seed)
+    codes, coeffs = [], []
+    for n in sizes:
+        hi = 2 ** 20 if dtype == torch.float32 else 15
+        buf = torch.randint(-hi, hi + 1, (k * n + offset,), generator=gen)
+        codes.append(buf.to(dtype).to("cuda")[offset:].reshape(k, n))
+        coeffs.append((torch.rand(k, generator=gen) - 0.3).to("cuda"))
+    return codes, coeffs
+
+
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
+@pytest.mark.parametrize("k", [1, 3, 8])
+def test_grouped_aggregate_kernel_matches_plain(cuda, k, dtype, offset):
+    """LeNet's six leaves (n % 4 == 0 and != 0), two empty matrices, and
+    views off the 16-byte boundary (offset != 0: the scalar path), in one
+    launch, each result bit-equal to the plain version."""
+    sizes = [math.prod(s) for s in LENET_SHAPES] + [1, 17, 4099]
+    codes, coeffs = _group_case(k, sizes, dtype, seed=k + offset, offset=offset)
+    codes.insert(2, torch.zeros((k, 0), dtype=dtype, device=cuda))
+    coeffs.insert(2, coeffs[0])
+    codes.append(torch.zeros((0, 5), dtype=dtype, device=cuda))
+    coeffs.append(torch.zeros(0, device=cuda))
+    before = aggregate.weighted_aggregate.launches
+    got = aggregate.weighted_aggregate_group(codes, coeffs)
+    assert aggregate.weighted_aggregate.launches == before + 1
+    torch.cuda.synchronize()
+    for out, c, cf in zip(got, codes, coeffs):
+        assert out.device.type == "cuda" and out.shape == c.shape[1:]
+        want = (aggregate.weighted_aggregate_plain(c, cf) if c.numel()
+                else torch.zeros(c.shape[1:], device=cuda))
+        _same_bits(out, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
+def test_grouped_aggregate_kernel_splits_a_long_list(cuda, dtype):
+    """More matrices than one table holds go out in as many launches as
+    tables; a list of empty matrices launches nothing."""
+    n_mat = 2 * aggregate.MAX_SEGMENTS + 3
+    codes, coeffs = _group_case(3, [5 + 3 * i for i in range(n_mat)], dtype,
+                                seed=n_mat)
+    before = aggregate.weighted_aggregate.launches
+    got = aggregate.weighted_aggregate_group(codes, coeffs)
+    assert aggregate.weighted_aggregate.launches == before + 3
+    for out, c, cf in zip(got, codes, coeffs):
+        _same_bits(out, aggregate.weighted_aggregate_plain(c, cf))
+    empty = aggregate.weighted_aggregate_group(
+        [torch.zeros((3, 0), device=cuda)] * 2, [torch.ones(3, device=cuda)] * 2)
+    assert [tuple(e.shape) for e in empty] == [(0,), (0,)]
+    assert aggregate.weighted_aggregate.launches == before + 3
+
+
+@pytest.mark.parametrize("paper_exact", [False, True])
+@pytest.mark.parametrize("compress", [True, False])
+def test_dense_round_on_the_card_equals_the_cpu(cuda, compress, paper_exact):
+    """The dense round's aggregation of LeNet-shaped deltas: one grouped
+    launch, the same update bits on the card as on the CPU.  One client
+    passes through at b = 32: its einsum then has one non-zero product,
+    which is exact in any summation order."""
+    rng = np.random.default_rng(9)
+    leaves = [torch.from_numpy((rng.standard_normal((4, *shape)) * 0.01)
+                               .astype(np.float32)) for shape in LENET_SHAPES]
+    bits = torch.tensor([32, 2, 9, 7], dtype=torch.int32)
+    w = torch.from_numpy(rng.dirichlet(np.ones(4)).astype(np.float32))
+    kw = dict(compress=compress, paper_exact=paper_exact)
+    before = aggregate.weighted_aggregate.launches
+    got = fl_engine._pallas_aggregate_leaves(
+        [v.to(cuda) for v in leaves], bits.to(cuda), w.to(cuda), **kw)
+    assert aggregate.weighted_aggregate.launches == before + 1
+    want = fl_engine._pallas_aggregate_leaves(leaves, bits, w, **kw)
+    for g, r in zip(got, want):
+        _same_bits(g, r)
+
+
+def test_grouped_aggregate_kernel_attributes(cuda):
+    for dtype in (torch.float32, torch.int32):
+        attrs = aggregate.attributes(dtype)
+        assert attrs["local_bytes"] == 0 and attrs["static_smem"] == 0
+        assert 0 < attrs["registers"] <= 64 and attrs["ctas_per_sm"] >= 4
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -404,6 +498,45 @@ def test_quantize_codes_kernel_attributes(cuda):
     for dtype in (torch.float32, torch.bfloat16):
         attrs = dorefa.quantize_codes_attributes(dtype)
         assert attrs["local_bytes"] == 0 and attrs["ctas_per_sm"] >= 1
+
+
+@pytest.mark.parametrize("bits", [1, 8, 31, 32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantize_dequantize_reads_views_at_any_offset(cuda, dtype, bits):
+    """x = buf[o:o + n] at every element offset o = 0..7 and every n mod 8,
+    NaN and +-Inf among the elements, under a finite, zero, NaN and Inf
+    scale: the 16-byte kernel's head, vectors, tail and per-element stores
+    equal the plain version on the card and on the CPU, bit for bit."""
+    gen = torch.Generator().manual_seed(bits)
+    buf = torch.randn(70_000, generator=gen) * 0.3
+    buf[[3, 10, 17, 40_001]] = torch.tensor(
+        [float("nan"), float("inf"), -float("inf"), float("nan")])
+    buf = buf.to(dtype).to(cuda)
+    before = dorefa.quantize_dequantize.launches
+    calls = 0
+    for o in range(8):
+        for n in [1 + r for r in range(8)] + [24 + r for r in range(8)] \
+                + [65_536 + r for r in range(8)]:
+            x = buf[o:o + n]
+            for scale in (x.float().nan_to_num(0, 0, 0).abs().max(),
+                          torch.zeros((), device=cuda),
+                          torch.tensor(float("nan"), device=cuda),
+                          torch.tensor(float("inf"), device=cuda)):
+                s = scale.reshape(()).float()
+                got = dorefa.quantize_dequantize(x, s, bits)
+                calls += 1
+                assert got.dtype == dtype and got.shape == (n,)
+                _same_bits(got, dorefa.quantize_dequantize_plain(x, s, bits))
+                _same_bits(got, dorefa.quantize_dequantize_plain(
+                    x.cpu(), s.cpu(), bits))
+    assert dorefa.quantize_dequantize.launches == before + calls
+
+
+def test_quantize_dequantize_kernel_attributes(cuda):
+    for dtype in (torch.float32, torch.bfloat16):
+        attrs = dorefa.quantize_dequantize_attributes(dtype)
+        assert attrs["local_bytes"] == 0 and attrs["static_smem"] == 0
+        assert 0 < attrs["registers"] <= 64 and attrs["ctas_per_sm"] >= 4
 
 
 @pytest.mark.parametrize("bits", [1, 4, 8, 16])

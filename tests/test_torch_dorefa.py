@@ -95,6 +95,35 @@ def test_plain_versions_match_pallas_kernels(tiles, dtype, bits):
         np.asarray(want_qdq.astype(jnp.float32)))
 
 
+@pytest.mark.parametrize("bits", [1, 8, 31, 32])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_quantize_dequantize_of_views_at_every_offset(dtype, bits):
+    """x = buf[o:o + n] at every element offset o = 0..7 and n of every
+    residue mod 8 (where the card's 16-byte kernel splits x into a scalar
+    head, whole vectors and a scalar tail), with NaN, +-Inf and a zero
+    scale among the cases: each view's output equals the Pallas kernel's on
+    the same values, to the bit."""
+    buf = _normals((4096,), seed=bits)
+    buf[[5, 700, 1403]] = [np.nan, np.inf, -np.inf]
+    bt, _ = _pair(buf, dtype)
+    views = [(o, n) for o in range(8) for n in (8 * o + r for r in range(8))
+             ] + [(o, 3000 + o) for o in range(8)]
+    for scale in (np.float32(np.abs(buf[np.isfinite(buf)]).max()),
+                  np.float32(0.0)):
+        st = torch.tensor(scale)
+        got = [dorefa.quantize_dequantize(bt[o:o + n], st, bits)
+               for o, n in views]
+        assert all(g.dtype == bt.dtype and g.numel() == n
+                   for g, (_, n) in zip(got, views))
+        flat = np.concatenate([buf[o:o + n] for o, n in views])
+        pad = (-flat.size) % ops.TILE
+        _, xj = _pair(np.pad(flat, (0, pad)).reshape(-1, ops.LANE), dtype)
+        want = np.asarray(ref_dorefa.quantize_dequantize_pallas(
+            xj, jnp.asarray(scale), bits).astype(jnp.float32)).reshape(-1)
+        np.testing.assert_array_equal(
+            torch.cat(got).to(torch.float32).numpy(), want[:flat.size])
+
+
 def test_b3_dequantize_multiplies_by_the_folded_reciprocal():
     """At b = 3 the source text's c * (s / a) and the compiled c * (s *
     fl(1/a)) differ on most elements; the Pallas kernel gives the second,

@@ -11,10 +11,13 @@ the kernel is held against is timed in the same rounds.
 
 Variants: the bf16 flash-decode kernel at decode_32k (B=128, S=32,768,
 Hkv=2, G=7, D=64) with other ring depths and warps per CTA, against
-``scaled_dot_product_attention``; ``quantize_codes`` at 2^20 float32
-elements with one, two and four 16-byte vectors per thread, against
-``quantize_per_tensor``.  The first variant of each is the kernel as
-committed.
+``scaled_dot_product_attention``; ``quantize_codes`` and
+``quantize_dequantize`` at 2^20 float32 elements with one, two and four
+16-byte vectors per thread, against ``quantize_per_tensor`` and
+``fake_quantize_per_tensor_affine``; the grouped aggregation kernel over
+one FL round's six LeNet leaves at K=3 with 128, 256 and 512 threads per
+CTA, against six ``einsum`` calls.  The first variant of each is the
+kernel as committed.
 """
 from __future__ import annotations
 
@@ -32,7 +35,7 @@ import torch.nn.functional as F
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(REPO, "src"))
 
-from repro_torch.kernels import cuda_build, dorefa  # noqa: E402
+from repro_torch.kernels import aggregate, cuda_build, dorefa  # noqa: E402
 from repro_torch.kernels import flash_decode as fd  # noqa: E402
 
 FLASH_VARIANTS = {
@@ -46,14 +49,19 @@ FLASH_VARIANTS = {
     "3 stages x 8 warps": [("kBf16Stages = 4;", "kBf16Stages = 3;"),
                            ("kWarps = 2;", "kWarps = 8;")],
 }
-WORK = "const int64_t work = bf16 ? n / 16 + 1 : n / 8 + 1;"
-CODES_VARIANTS = {
+VECTORS = "kVectorsPerThread = 2;"
+DOREFA_VARIANTS = {
     "2 vectors/thread": [],
-    "1 vector/thread": [
-        (WORK, "const int64_t work = bf16 ? n / 8 + 1 : n / 4 + 1;")],
-    "4 vectors/thread": [
-        (WORK, "const int64_t work = bf16 ? n / 32 + 1 : n / 16 + 1;")],
+    "1 vector/thread": [(VECTORS, "kVectorsPerThread = 1;")],
+    "4 vectors/thread": [(VECTORS, "kVectorsPerThread = 4;")],
 }
+THREADS = "kThreads = 256;"
+AGGREGATE_VARIANTS = {
+    "256 threads/CTA": [],
+    "128 threads/CTA": [(THREADS, "kThreads = 128;")],
+    "512 threads/CTA": [(THREADS, "kThreads = 512;")],
+}
+LENET_LEAVES = (235_200, 300, 30_000, 100, 1_000, 10)
 DECODE_32K = (128, 2, 7, 64, 32_768)
 
 
@@ -146,23 +154,57 @@ def flash_cases(libs):
     return cases, library
 
 
-def codes_cases(libs, n=1 << 20, bits=8):
+def dorefa_cases(name, libs, n=1 << 20, bits=8):
+    """``quantize_codes`` or ``quantize_dequantize`` at n float32 elements,
+    each variant checked bit for bit against the plain version."""
     gen = torch.Generator().manual_seed(n)
     x = (torch.randn(n, generator=gen) * 0.3).cuda()
     s = x.abs().max()
     n_out = -(-n // 32_768) * 32_768
-    want = dorefa.quantize_codes_plain(x, s, bits, n_out)
+    scale = s.item() / dorefa.levels(bits)
+    if name == "quantize_codes":
+        def kern():
+            return dorefa._quantize_codes_launch(x, s, bits, n_out)
+        want = dorefa.quantize_codes_plain(x, s, bits, n_out)
+        library = (lambda: torch.quantize_per_tensor(x, scale, 0,
+                                                     torch.qint32), 50)
+    else:
+        def kern():
+            return dorefa._quantize_dequantize_launch(x, s, bits)
+        want = dorefa.quantize_dequantize_plain(x, s, bits)
+        a = int(dorefa.levels(bits))
+        library = (lambda: torch.fake_quantize_per_tensor_affine(
+            x, scale, 0, -a, a), 50)
     for tag, path in libs.items():
         with loaded(dorefa, path):
-            if not torch.equal(
-                    dorefa._quantize_codes_launch(x, s, bits, n_out), want):
-                raise SystemExit(f"quantize_codes {tag}: codes differ")
-    scale = s.item() / dorefa.levels(bits)
-    cases = {tag: (dorefa, path,
-                   lambda: dorefa._quantize_codes_launch(x, s, bits, n_out),
-                   50) for tag, path in libs.items()}
-    library = (lambda: torch.quantize_per_tensor(x, scale, 0, torch.qint32),
-               50)
+            if not torch.equal(kern().view(torch.int32),
+                               want.view(torch.int32)):
+                raise SystemExit(f"{name} {tag}: outputs differ")
+    cases = {tag: (dorefa, path, kern, 50) for tag, path in libs.items()}
+    return cases, library
+
+
+def aggregate_cases(libs, k=3):
+    """One round's grouped aggregation over LeNet's six leaves, each
+    variant checked bit for bit against the plain version."""
+    gen = torch.Generator().manual_seed(k)
+    codes = [torch.round(torch.randn(k, n, generator=gen) * 40).cuda()
+             for n in LENET_LEAVES]
+    coeffs = [torch.rand(k, generator=gen).cuda() for _ in LENET_LEAVES]
+    want = [aggregate.weighted_aggregate_plain(c, cf)
+            for c, cf in zip(codes, coeffs)]
+
+    def kern():
+        return aggregate._launch_group(codes, coeffs)
+
+    for tag, path in libs.items():
+        with loaded(aggregate, path):
+            if not all(torch.equal(g.view(torch.int32), w.view(torch.int32))
+                       for g, w in zip(kern(), want)):
+                raise SystemExit(f"aggregate {tag}: outputs differ")
+    cases = {tag: (aggregate, path, kern, 200) for tag, path in libs.items()}
+    library = (lambda: [torch.einsum("k,kn->n", cf, c)
+                        for c, cf in zip(codes, coeffs)], 200)
     return cases, library
 
 
@@ -179,17 +221,24 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip())
     jobs = [("flash_decode", tag, subs) for tag, subs in FLASH_VARIANTS.items()]
-    jobs += [("dorefa", tag, subs) for tag, subs in CODES_VARIANTS.items()]
+    jobs += [("dorefa", tag, subs) for tag, subs in DOREFA_VARIANTS.items()]
+    jobs += [("aggregate", tag, subs)
+             for tag, subs in AGGREGATE_VARIANTS.items()]
     with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
         paths = list(pool.map(lambda job: build(*job), jobs))
     libs = {(kernel, tag): path for (kernel, tag, _), path in zip(jobs, paths)}
-    for kernel, unit, scale, make in (
-            ("flash_decode", "ms", 1.0, flash_cases),
-            ("dorefa", "us", 1e3, codes_cases)):
+    for kernel, label, unit, scale, make in (
+            ("flash_decode", "flash_decode", "ms", 1.0, flash_cases),
+            ("dorefa", "quantize_codes", "us", 1e3,
+             lambda libs: dorefa_cases("quantize_codes", libs)),
+            ("dorefa", "quantize_dequantize", "us", 1e3,
+             lambda libs: dorefa_cases("quantize_dequantize", libs)),
+            ("aggregate", "weighted_aggregate round", "us", 1e3,
+             aggregate_cases)):
         cases, library = make({tag: path for (k, tag), path in libs.items()
                                if k == kernel})
         for name, times in time_in_turns(cases, library, args.rounds).items():
-            print(f"[variants] {kernel} {name}: " + " ".join(
+            print(f"[variants] {label} {name}: " + " ".join(
                 f"{t * scale:.4f}" for t in times) + f" {unit} device")
         del cases, library
         torch.cuda.empty_cache()
