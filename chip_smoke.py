@@ -43,16 +43,22 @@ package, and exits non-zero on the first failure.  Phases:
      the card agree (schedules, bits, rates, ratios and times exactly;
      accuracy within 0.02; parameter drift within the bounds of
      tests/test_fl_engine.py:_assert_equal_runs);
-  8. the over-the-air uplink: the OTA kernel against its plain version over
-     a sweep, in both row layouts (contiguous rows, read one element per
-     thread when N % 4 != 0; rows spaced for 16-byte loads, as the path
-     lays them out), and on one OTA round's own inputs (bit for bit), its
-     timing in both layouts,
-     the receiver-noise stream (its bits on the card equal the CPU's; the
-     Threefry kernel's per-round normal draw, one launch, equal to its
-     plain version ``prng.draw_plain`` to the bit and timed beside it),
-     the paper-width run with ``uplink="ota"`` (ota-align powers, noise
-     1e-9: one OTA launch per non-empty round) and with ``uplink="tdma"``
+  8. the over-the-air uplink: the OTA kernel's two entries against their
+     plain versions over a sweep, in both row layouts (contiguous rows,
+     read one element per thread when N % 4 != 0; rows spaced for 16-byte
+     loads, as the path lays them out): the strip entry (the noise read
+     from a strip, as the Pallas kernel takes it) and the keyed entry (the
+     path's: the noise formed from the round key in registers, also held
+     to the strip kernel fed ``scale * prng.normal(key)``), and the keyed
+     entry on one OTA round's own inputs (bit for bit); their timing (the
+     keyed kernel beside the three launches it replaces, the strip kernel
+     beside ``addmv``, both bounds, the keyed kernel's registers and
+     occupancy), the receiver-noise stream (its bits on the card equal the
+     CPU's; the Threefry kernel's normal draw of a round's size, one
+     launch, equal to its plain version ``prng.draw_plain`` to the bit and
+     timed beside it), the paper-width run with ``uplink="ota"``
+     (ota-align powers, noise 1e-9: one keyed OTA launch per non-empty
+     round and no noise draw) and with ``uplink="tdma"``
      (one aggregation launch per round), and the
      M=30 OTA run on the CPU and on the card held to the same contract as 7;
   9. the packed DoReFa codec: the three quantizer kernels against their
@@ -62,8 +68,8 @@ package, and exits non-zero on the first failure.  Phases:
      every element offset off a 16-byte boundary (``[dorefa-kernel]``);
      each timed at LeNet's ``fc1/w`` leaf and at
      benchmarks/kernel_bench.py's 2^20 (``[time]``, with the kernel/library
-     ratio of quantize_codes and of quantize_dequantize, and their
-     registers, shared and local bytes and occupancy); ``encode_tree`` ->
+     ratio of each and their registers, shared and local bytes and
+     occupancy); ``encode_tree`` ->
      ``decode_tree`` and
      ``ops.quantize_dequantize`` over the M=300 host run's LeNet update
      (final minus initial parameters) at bits 1, 4, 8, 16 and the run's own
@@ -94,8 +100,8 @@ package, and exits non-zero on the first failure.  Phases:
      card through the Threefry kernel, equal the CPU's to the bit, and so
      do 2^20 of the kernel's uniforms, normals and truncated normals
      against its plain version on the card and the CPU.  Every main-path
-     run draws LeNet's initial weights with the kernel (three launches)
-     and the OTA run one noise draw per round.
+     run draws LeNet's initial weights with the kernel (three launches);
+     the OTA run draws no noise strip.
 
 The last lines are the card's name and power limit as nvidia-smi reports
 them, one JSON object with every kernel's numbers, and the one-line result
@@ -161,6 +167,8 @@ PEAK_FLOPS = {torch.float32: PEAK_F32_FLOPS, torch.bfloat16: 989e12}
 # the hash 118 integer operations, the uniform 6, erf_inv about 66 (a
 # fused multiply-add counted as two)
 THREEFRY_OPS = 190
+THREEFRY_HASH_OPS = 118
+INT32_OPS_PER_SM_CLOCK = 64     # Hopper: half the float32 lanes
 LENET_WEIGHT_LEAVES = 3     # truncated-normal draws of LeNet's init
 
 
@@ -224,12 +232,14 @@ def kernels_of_main_path():
         wrapper=flash_decode.flash_decode,
         module=flash_decode,
     ), dict(
-        # not a Pallas kernel: the reference draws its noise, fading and
-        # initial weights with jax.random under XLA
+        # not a Pallas kernel: the reference draws its fading and initial
+        # weights with jax.random under XLA; on the main path it draws
+        # LeNet's initial weights (the OTA round's noise is formed inside
+        # the keyed OTA kernel from the same header, csrc/threefry.cuh)
         name="threefry_draw",
         route="cuda",
         source="src/repro_torch/kernels/csrc/threefry.cu",
-        replaces="src/repro/core/ota.py:154",
+        replaces="src/repro/models/params.py:63",
         wrapper=threefry.threefry_draw,
         module=threefry,
     )]
@@ -669,20 +679,57 @@ def _ota_errors(mod, x, coeff, noise, what):
     return err
 
 
+def _ota_keyed_errors(mod, x, coeff, key, scale, what):
+    """The keyed kernel (through the wrapper: noise formed from ``key`` in
+    registers) vs its plain version on the card and vs the strip kernel fed
+    ``scale * prng.normal(key, n)``; fails unless all three agree to the
+    bit; returns the max abs difference."""
+    from repro_torch.core import prng
+
+    k, n = x.shape
+    before = mod.ota_aggregate.launches
+    got = mod.ota_aggregate_keyed(x, coeff, key, scale)
+    torch.cuda.synchronize()
+    check(mod.ota_aggregate.launches == before + (n > 0),
+          f"keyed OTA launches at {what}")
+    check(got.shape == (n,) and got.device.type == "cuda",
+          f"keyed OTA shape {tuple(got.shape)} at {what}")
+    strip = mod.ota_aggregate(x, coeff, scale * prng.normal(key, n,
+                                                            device="cuda"))
+    try:
+        return max(_bits_equal(got, mod.ota_aggregate_keyed_plain(
+            x, coeff, key, scale)), _bits_equal(got, strip))
+    except SmokeFailure as exc:
+        raise SmokeFailure(f"keyed OTA kernel at {what}: {exc}")
+
+
 def compare_ota(mod):
-    """Kernel vs plain version on the card over the sweep; returns the
-    largest absolute difference."""
+    """Kernel vs plain version on the card over the sweep, the strip entry
+    and the keyed one (the latter also against the strip kernel fed the
+    drawn noise, at a scale and at scale 0); returns the largest absolute
+    difference."""
+    from repro_torch.core import ota
+
     gen = torch.Generator().manual_seed(2)
     worst = 0.0
+    n_keyed = 0
     for spaced in (False, True):
         for k in OTA_SWEEP_K:
             for n in OTA_SWEEP_N:
-                worst = max(worst, _ota_errors(
-                    mod, *_ota_case(mod, k, n, gen, spaced),
-                    f"K={k} n={n} {'spaced' if spaced else 'contiguous'}"))
-    log(f"[ota-kernel] {2 * len(OTA_SWEEP_K) * len(OTA_SWEEP_N)} cases (K in "
-        f"{OTA_SWEEP_K}, n in {OTA_SWEEP_N}, contiguous and spaced rows, a "
-        f"masked row) ok, max abs err {worst!r}")
+                what = f"K={k} n={n} {'spaced' if spaced else 'contiguous'}"
+                x, coeff, noise = _ota_case(mod, k, n, gen, spaced)
+                worst = max(worst, _ota_errors(mod, x, coeff, noise, what))
+                key = ota.horizon_keys(n, k + 1)[k]
+                for scale in (3e-3, 0.0):
+                    s = torch.tensor(scale, dtype=torch.float32, device="cuda")
+                    worst = max(worst, _ota_keyed_errors(
+                        mod, x, coeff, key, s, f"{what} scale {scale}"))
+                    n_keyed += 1
+    log(f"[ota-kernel] {2 * len(OTA_SWEEP_K) * len(OTA_SWEEP_N)} strip cases "
+        f"and {n_keyed} keyed cases (K in {OTA_SWEEP_K}, n in {OTA_SWEEP_N}, "
+        f"contiguous and spaced rows, a masked row; keyed at scale 3e-3 and "
+        f"0, also against the strip kernel fed scale * normal(key)) ok, max "
+        f"abs err {worst!r}")
     return worst
 
 
@@ -692,66 +739,125 @@ def _vector_rows(x):
     return x.stride(0) % 4 == 0 and x.data_ptr() % 16 == 0
 
 
+def _max_sm_clock_hz():
+    """The card's maximum SM clock, as nvidia-smi reports it."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout
+    return float(out.strip().splitlines()[0]) * 1e6
+
+
 def time_ota(mod, k=3, n=LENET_PARAMS):
     """One OTA round's reduction at the path's shape (K=3 clients, the
-    whole LeNet payload, in the path's spaced row layout): kernel, plain
-    version and ``torch.addmv`` (the yardstick library call, never on the
-    path) on the same inputs, warm in L2 as the path leaves them;
-    host-inclusive (interleaved plain/kernel/kernel/plain) and device
-    time, as :func:`time_aggregate` measures.  Beside it, the kernel's
-    device time on the same values in contiguous rows (n % 4 == 2 at
-    LeNet's P, so one element per thread)."""
+    whole LeNet payload, in the path's spaced row layout), warm in L2 as
+    the path leaves it.  The keyed kernel (the path's: noise formed from
+    the round key in registers) beside what it replaces, the three-launch
+    sequence of the strip path (the Threefry draw, ``scale * z``, the
+    strip kernel), beside its plain version and its bound in both forms
+    (bytes; operations by THREEFRY_OPS, and the hash's integer operations
+    alone at Hopper's INT32 rate); the strip kernel beside ``torch.addmv``
+    on the same strip (the strip kernel's library yardstick, never on the
+    path) and in contiguous rows (one element per thread, since n % 4 == 2
+    at LeNet's P).  Device time behind a sleep kernel and host-inclusive
+    time (interleaved plain/kernel/kernel/plain), as :func:`time_aggregate`
+    measures.  Returns the keyed kernel's timing dict."""
+    from repro_torch.core import ota, prng
+    from repro_torch.kernels import threefry
+
     x, coeff, noise = _ota_case(mod, k, n, torch.Generator().manual_seed(3),
                                 spaced=True)
     check(_vector_rows(x), "the spaced rows do not take the 16-byte loads")
     dense = x.contiguous()
+    key = ota.horizon_keys(0, 4)[3]
+    scale = torch.tensor(3e-3, dtype=torch.float32, device="cuda")
     counted = mod.ota_aggregate.launches
+    drawn = threefry.threefry_draw.launches
     _ota_errors(mod, x, coeff, noise, f"timed K={k} n={n}")
+    _ota_keyed_errors(mod, x, coeff, key, scale, f"timed K={k} n={n}")
 
-    def kern_fn():
+    def keyed_fn():
+        return mod._launch_keyed(x, coeff, key, scale)
+
+    def keyed_plain_fn():
+        return mod.ota_aggregate_keyed_plain(x, coeff, key, scale)
+
+    def sequence_fn():
+        return mod._launch(x, coeff, scale * prng.normal(key, n,
+                                                         device="cuda"))
+
+    def strip_fn():
         return mod._launch(x, coeff, noise)
 
     def dense_fn():
         return mod._launch(dense, coeff, noise)
 
-    def plain_fn():
+    def strip_plain_fn():
         return mod.ota_aggregate_plain(x, coeff, noise)
 
     def lib_fn():
         return torch.addmv(noise, x.t(), coeff)
 
-    lib_err = (lib_fn() - kern_fn()).abs().max().item()
-    plain = _time_ms(plain_fn)
-    kern = _time_ms(kern_fn)
-    kern = 0.5 * (kern + _time_ms(kern_fn))
-    plain = 0.5 * (plain + _time_ms(plain_fn))
-    lib = _time_ms(lib_fn)
+    lib_err = (lib_fn() - strip_fn()).abs().max().item()
+    check(torch.equal(keyed_fn(), sequence_fn()),
+          "the keyed kernel and the three-launch sequence differ")
+    host = {}
+    for name, fn in (("plain", keyed_plain_fn), ("keyed", keyed_fn),
+                     ("keyed", keyed_fn), ("plain", keyed_plain_fn),
+                     ("sequence", sequence_fn), ("strip", strip_fn),
+                     ("lib", lib_fn)):
+        host[name] = host.get(name, []) + [_time_ms(fn)]
+    host = {name: sum(v) / len(v) for name, v in host.items()}
     dev = {name: _device_ms(fn, iters=50) for name, fn in
-           (("plain", plain_fn), ("kernel", kern_fn), ("lib", lib_fn),
-            ("dense", dense_fn), ("kernel2", kern_fn))}
-    check(torch.equal(dense_fn(), kern_fn()),
+           (("plain", keyed_plain_fn), ("keyed", keyed_fn),
+            ("sequence", sequence_fn), ("strip", strip_fn), ("lib", lib_fn),
+            ("dense", dense_fn), ("strip_plain", strip_plain_fn),
+            ("keyed2", keyed_fn), ("sequence2", sequence_fn))}
+    check(torch.equal(dense_fn(), strip_fn()),
           "the two row layouts give different sums")
     mod.ota_aggregate.launches = counted    # timing launches don't count
-    nbytes = (k + 2) * n * 4 + k * 4        # updates + noise + coeff in, out
-    flops = 2 * k * n
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
-    bound = max(t_bytes, t_ops)
-    log(f"[time] ota_aggregate K={k} n={n}: device kernel, 16-byte loads "
-        f"(spaced rows, the path's layout) {dev['kernel'] * 1e3:.3f} us, "
-        f"again {dev['kernel2'] * 1e3:.3f} us; one element per thread "
-        f"(contiguous rows) {dev['dense'] * 1e3:.3f} us")
-    log(f"[time] ota_aggregate K={k} n={n}: device kernel "
-        f"{dev['kernel'] * 1e3:.3f} us  plain {dev['plain'] * 1e3:.3f} us  "
-        f"addmv {dev['lib'] * 1e3:.3f} us; host-inclusive kernel "
-        f"{kern * 1e3:.3f} us  plain {plain * 1e3:.3f} us  addmv "
-        f"{lib * 1e3:.3f} us; bound {bound * 1e3:.4f} us "
-        f"({'bytes' if t_bytes >= t_ops else 'operations'}); "
-        f"{dev['kernel'] / bound:.2f}x the bound; addmv max abs diff "
-        f"{lib_err!r}")
-    return dict(ms=dev["kernel"], plain_ms=dev["plain"], library_ms=dev["lib"],
-                bound_ms=bound, host_ms=kern, plain_host_ms=plain,
-                bound_by="bytes" if t_bytes >= t_ops else "operations")
+    threefry.threefry_draw.launches = drawn
+    attrs = mod.keyed_attributes()
+    # keyed: updates + coeff + scale in, out; the hash and erf_inv per element
+    k_bytes = (k + 1) * n * 4 + k * 4 + 4
+    k_ops = (THREEFRY_OPS + 2 * k) * n
+    kb, ko = k_bytes / PEAK_BYTES_PER_S * 1e3, k_ops / PEAK_F32_FLOPS * 1e3
+    bound = max(kb, ko)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock = _max_sm_clock_hz()
+    int_rate = sms * INT32_OPS_PER_SM_CLOCK * clock     # per second
+    t_int = THREEFRY_HASH_OPS * n / int_rate * 1e3
+    # strip: updates + noise + coeff in, out
+    s_bytes = (k + 2) * n * 4 + k * 4
+    s_bound = max(s_bytes / PEAK_BYTES_PER_S, 2 * k * n / PEAK_F32_FLOPS) * 1e3
+    log(f"[time] ota_aggregate K={k} n={n} keyed (the path's kernel): device "
+        f"{dev['keyed'] * 1e3:.3f} us (again {dev['keyed2'] * 1e3:.3f}); the "
+        f"three-launch sequence it replaces (Threefry draw, scale * z, strip "
+        f"kernel) {dev['sequence'] * 1e3:.3f} us (again "
+        f"{dev['sequence2'] * 1e3:.3f}); plain {dev['plain'] * 1e3:.3f} us; "
+        f"host-inclusive keyed {host['keyed'] * 1e3:.3f} us  sequence "
+        f"{host['sequence'] * 1e3:.3f} us  plain {host['plain'] * 1e3:.3f} us")
+    log(f"[time] ota_aggregate keyed bound: bytes {k_bytes} B -> "
+        f"{kb * 1e3:.4f} us; operations ({THREEFRY_OPS} + 2K) x n = {k_ops} "
+        f"at the float32 peak -> {ko * 1e3:.4f} us; bound {bound * 1e3:.4f} "
+        f"us ({'bytes' if kb >= ko else 'operations'}), "
+        f"{dev['keyed'] / bound:.2f}x; the hash alone, {THREEFRY_HASH_OPS} "
+        f"integer operations per element at {INT32_OPS_PER_SM_CLOCK} per SM "
+        f"per clock x {sms} SMs x {clock / 1e9:.3f} GHz -> {t_int * 1e3:.4f} "
+        f"us ({dev['keyed'] / t_int:.2f}x); kernel {_attributes_text(attrs)}")
+    log(f"[time] ota_aggregate K={k} n={n} strip entry: device 16-byte loads "
+        f"(spaced rows) {dev['strip'] * 1e3:.3f} us; one element per thread "
+        f"(contiguous rows) {dev['dense'] * 1e3:.3f} us; plain "
+        f"{dev['strip_plain'] * 1e3:.3f} us; addmv on the strip "
+        f"{dev['lib'] * 1e3:.3f} us (kernel/addmv "
+        f"{dev['strip'] / dev['lib']:.3f}); host-inclusive strip "
+        f"{host['strip'] * 1e3:.3f} us  addmv {host['lib'] * 1e3:.3f} us; "
+        f"bound {s_bound * 1e3:.4f} us (bytes), "
+        f"{dev['strip'] / s_bound:.2f}x; addmv max abs diff {lib_err!r}")
+    return dict(ms=dev["keyed"], plain_ms=dev["plain"], library_ms=None,
+                bound_ms=bound, host_ms=host["keyed"],
+                plain_host_ms=host["plain"],
+                bound_by="bytes" if kb >= ko else "operations")
 
 
 def check_noise(mod, n=LENET_PARAMS):
@@ -897,6 +1003,29 @@ def compare_dorefa(mod):
                         mod, buf[off:off + n], s, bits, n + 3,
                         f"view at offset {off} n={n} {dtype} b={bits}"))
                     n_views += 1
+    gen = torch.Generator().manual_seed(78)
+    cbuf = torch.randint(-(2 ** 31), 2 ** 31, (LENET_LEAVES[0] + 64,),
+                         generator=gen, dtype=torch.int64).to(torch.int32)
+    cbuf[[1, 2, 5]] = torch.tensor([-(2 ** 31), 2 ** 31 - 1, 0],
+                                   dtype=torch.int32)
+    cbuf = cbuf.to("cuda")
+    for off in range(1, 4):
+        for n in (LENET_LEAVES[0] + off, 4096 + off, 5 + off):
+            c = cbuf[off:off + n]
+            for scale in (0.37, 0.0, float("nan")):
+                s = torch.tensor(scale, dtype=torch.float32, device="cuda")
+                for bits in (1, 8, 32):
+                    got = mod.dequantize_codes(c, s, bits)
+                    try:
+                        worst = max(worst, _bits_equal(
+                            got, mod.dequantize_codes_plain(c, s, bits)),
+                            _bits_equal(got, mod.dequantize_codes_plain(
+                                c.cpu(), s.cpu(), bits)))
+                    except SmokeFailure as exc:
+                        raise SmokeFailure(
+                            f"dequantize_codes on a view at offset {off} "
+                            f"n={n} scale {scale} b={bits}: {exc}")
+                    n_views += 1
     n_odd = 0
     special = torch.tensor([float("nan"), float("inf"), -float("inf"), 0.5,
                             -0.5, 0.0, -0.0, 1e30, -float("nan")])
@@ -916,7 +1045,9 @@ def compare_dorefa(mod):
     log(f"[dorefa-kernel] {n_cases} cases x 3 kernels (shapes "
         f"{[s[0] if len(s) == 1 else s for s in DOREFA_SHAPES]}, float32 and "
         f"bfloat16, bits {DOREFA_BITS}), {n_views} on views at every element "
-        f"offset off 16 bytes, and {n_odd} with NaN / Inf elements "
+        f"offset off 16 bytes (dequantize_codes also on int32 views with "
+        f"INT_MIN / INT_MAX codes and a zero and NaN scale), and {n_odd} "
+        f"with NaN / Inf elements "
         f"(scales {DOREFA_ODD_SCALES}, bits 3, 31, 32): codes equal, outputs "
         f"bit-equal to the plain versions on the card and on the CPU (NaN at "
         f"the same places), pad codes 0; max abs err {worst!r}")
@@ -990,13 +1121,15 @@ def time_dorefa(mod, n, bits=8):
                          bound_by="bytes" if t_bytes >= t_ops else "operations")
     for name, lib_name, attributes in (
             ("quantize_codes", "quantize_per_tensor",
-             mod.quantize_codes_attributes),
+             lambda: mod.quantize_codes_attributes(torch.float32)),
+            ("dequantize_codes", "torch.mul",
+             mod.dequantize_codes_attributes),
             ("quantize_dequantize", "fake_quantize_per_tensor_affine",
-             mod.quantize_dequantize_attributes)):
+             lambda: mod.quantize_dequantize_attributes(torch.float32))):
         ratio = out[name]["ms"] / out[name]["library_ms"]
         log(f"[time] {name} n={n}: kernel/library ({lib_name}) device-time "
             f"ratio {ratio:.3f} in this run; kernel "
-            f"{_attributes_text(attributes(torch.float32))}")
+            f"{_attributes_text(attributes())}")
     for name, value in counted.items():
         getattr(mod, name).launches = value   # timing launches don't count
     log(f"[time] dequantize_codes n={n}: torch.mul(codes, s * fl(1/a)) "
@@ -1324,8 +1457,9 @@ def run_main_path(kernels, mode, m=300, t=5, samples=12_000):
           f"times, expected {want_sic} greedy steps")
     for name in ("quantize_codes", "dequantize_codes", "quantize_dequantize"):
         check(launches[name] == 0, f"{name} launched on the FL path")
-    # LeNet's initial weights, then one noise draw per OTA round
-    want_draws = LENET_WEIGHT_LEAVES + want_ota
+    # LeNet's initial weights; the OTA round forms its noise inside the
+    # keyed OTA kernel, so it draws none
+    want_draws = LENET_WEIGHT_LEAVES
     check(launches["threefry_draw"] == want_draws,
           f"threefry_draw launched {launches['threefry_draw']} times, "
           f"expected {want_draws}")
@@ -1357,41 +1491,46 @@ def _check_identical_runs(got, want, label):
 
 def run_ota_main_path(kernels):
     """``run_main_path(kernels, "ota")``, keeping a copy of the first OTA
-    round's kernel inputs (updates, coefficients, scaled noise), on which
-    the kernel is then held to its plain version, in the same row layout.
-    The copy is taken around the wrapper, which still launches and counts;
-    every round's payload must reach the kernel in rows it reads with
-    16-byte loads.  Returns (result,
-    launches per kernel, the kernel's max abs error on the path's round)."""
+    round's keyed-kernel inputs (updates, coefficients, round key, noise
+    scale), on which the keyed kernel is then held to its plain version and
+    to the strip kernel fed ``scale * prng.normal(key, P)``, in the same
+    row layout.  The copy is taken around the wrapper, which still launches
+    and counts; every round's payload must reach the kernel in rows it
+    reads with 16-byte loads.  Returns (result, launches per kernel, the
+    kernel's max abs error on the path's round)."""
     from repro_torch.core import ota
     from repro_torch.kernels import ota_aggregate
 
     seen, layouts = [], []
-    launch = ota.ota_aggregate
+    launch = ota.ota_aggregate_keyed
 
-    def keep_first(flat, coeff, noise):
+    def keep_first(flat, coeff, key, scale):
         layouts.append(_vector_rows(flat))
         if not seen:
-            seen.append((flat.clone(), coeff.clone(), noise.clone()))
-        return launch(flat, coeff, noise)
+            seen.append((flat.clone(), coeff.clone(), np.array(key),
+                         scale.clone()))
+        return launch(flat, coeff, key, scale)
 
-    ota.ota_aggregate = keep_first
+    ota.ota_aggregate_keyed = keep_first
     try:
         res, launches = run_main_path(kernels, "ota")
     finally:
-        ota.ota_aggregate = launch
+        ota.ota_aggregate_keyed = launch
     check(bool(seen), "the OTA main path never reached the OTA kernel")
     check(all(layouts), f"OTA payload rows not spaced for 16-byte loads: "
           f"{layouts}")
-    x, coeff, noise = seen[0]
+    x, coeff, key, scale = seen[0]
     x = _spaced(ota_aggregate, x)
     counted = ota_aggregate.ota_aggregate.launches
-    err = _ota_errors(ota_aggregate, x, coeff, noise,
-                      f"the main path's round (K={x.shape[0]}, P={x.shape[1]})")
+    err = _ota_keyed_errors(
+        ota_aggregate, x, coeff, key, scale,
+        f"the main path's round (K={x.shape[0]}, P={x.shape[1]})")
     ota_aggregate.ota_aggregate.launches = counted   # the check doesn't count
-    log(f"[ota-kernel] main path's own round K={x.shape[0]} P={x.shape[1]}: "
-        f"max abs err {err!r}; {len(layouts)} rounds, every payload in "
-        f"16-byte-load rows")
+    log(f"[ota-kernel] main path's own round K={x.shape[0]} P={x.shape[1]} "
+        f"(key {key.tolist()}, scale {scale.item()!r}): keyed kernel "
+        f"bit-equal to its plain version and to the strip kernel fed the "
+        f"drawn noise, max abs err {err!r}; {len(layouts)} rounds, every "
+        f"payload in 16-byte-load rows, no noise strip drawn")
     return res, launches, err
 
 

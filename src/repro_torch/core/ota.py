@@ -21,10 +21,12 @@ the weighted FedAvg aggregate.
 The receiver noise is the reference's own stream: per-round keys
 ``fold_in(PRNGKey(seed + 29), t)`` (:func:`horizon_keys`) and
 ``jax.random.normal`` recomputed by :mod:`repro_torch.core.prng` on the
-run's device.  The weighted reduction runs through the hand-written kernel
-(:func:`repro_torch.kernels.ota_aggregate.ota_aggregate`) under
-``use_pallas`` (the reference's name for its fused kernel path), otherwise
-through an einsum, as the reference's XLA path does.
+run's device.  Under ``use_pallas`` (the reference's name for its fused
+kernel path) the weighted reduction runs through the hand-written kernel
+(:func:`repro_torch.kernels.ota_aggregate.ota_aggregate_keyed`), which on
+the card forms that noise itself from the round key, so no noise strip is
+drawn; otherwise the noise is drawn and added to an einsum, as the
+reference's XLA path does.  Both give the reference's noise to the bit.
 """
 from __future__ import annotations
 
@@ -33,7 +35,7 @@ import torch
 
 from repro_torch.core import errors, prng
 from repro_torch.core import tree as tree_lib
-from repro_torch.kernels.ota_aggregate import ota_aggregate, row_buffer
+from repro_torch.kernels.ota_aggregate import ota_aggregate_keyed, row_buffer
 
 UPLINK_MODES = ("noma", "tdma", "ota")
 # the reference's uplink modes: "noma"/"tdma" are the paper's digital §IV
@@ -88,7 +90,8 @@ def superpose_flat(flat, gains_k, agg_w, key, *, pmax: float,
     agg_w: (K,) FedAvg weights (0 marks padding rows); key: (2,) uint32
     receiver-noise key (host).  The reference's op order, in float32:
     participation mask, energies, eta, coefficients, noise scale, then the
-    kernel (``use_pallas``) or the einsum.  A round with no participant
+    keyed kernel (``use_pallas``: noise formed from ``key`` inside it) or
+    the einsum plus the drawn noise.  A round with no participant
     returns exactly zero plus zero-scaled noise.
     """
     k, p = flat.shape
@@ -126,10 +129,10 @@ def superpose_flat(flat, gains_k, agg_w, key, *, pmax: float,
         _f32(flat, noise_std) / (torch.sqrt(eta) * wsafe),
         zero,
     )
-    noise = scale * prng.normal(key, p, device=flat.device)
-
     if use_pallas:
-        return ota_aggregate(flat, coeff, noise)
+        # the noise is formed inside the kernel from the round key: no strip
+        return ota_aggregate_keyed(flat, coeff, key, scale)
+    noise = scale * prng.normal(key, p, device=flat.device)
     return torch.einsum("k,kn->n", coeff, flat) + noise
 
 

@@ -39,22 +39,21 @@
 // writes the zero codes of the reference's tile padding itself (elements
 // n .. n_out - 1), so no padded copy of x exists.
 //
-// quantize_codes and quantize_dequantize move whole 16-byte vectors: each
-// thread takes 4 float32 or 8 bf16 elements per vector, two vectors in
-// flight per iteration of a grid-stride loop (kVectorsPerThread sizes the
-// grid: two vectors per thread beat one and four in a sweep of both), and
-// stores its outputs as 16-byte vectors too: int4 codes, or the fused
-// values in x's own type; the zero codes past n are int4 stores as well.
-// With one 4-byte element per thread they ran at 2.4-2.5x their byte
-// bound.  x may be a view at any element offset, so it need not start on a
-// 16-byte boundary: the elements before its first boundary (the head) and
-// after its last whole vector (the tail) take the scalar path inside the
-// kernel, and where that shift leaves a vector's outputs off their own
-// 16-byte boundary they are stored one by one.  x is never copied and no
-// offset is refused.  The arithmetic per element is the same on every
-// path, so an output does not depend on which path took its element.
-// dequantize_codes still takes one element per thread in a 1-D
-// grid-stride loop.
+// All three move whole 16-byte vectors: each thread takes 4 float32, 8
+// bf16 or 4 int32 code elements per vector, two vectors in flight per
+// iteration of a grid-stride loop (kVectorsPerThread sizes the grid: two
+// vectors per thread beat one and four in a sweep of each kernel), and
+// stores its outputs as 16-byte vectors too: int4 codes, the fused values
+// in x's own type, or float4 dequantized values; the zero codes past n
+// are int4 stores as well.  With one 4-byte element per thread they ran
+// at 2.3-2.5x their byte bound.  The input may be a view at any element
+// offset, so it need not start on a 16-byte boundary: the elements before
+// its first boundary (the head) and after its last whole vector (the
+// tail) take the scalar path inside the kernel, and where that shift
+// leaves a vector's outputs off their own 16-byte boundary they are stored
+// one by one.  The input is never copied and no offset is refused.  The
+// arithmetic per element is the same on every path, so an output does not
+// depend on which path took its element.
 //
 // C interface (loaded with ctypes): every entry point returns
 // cudaGetLastError() after its launch, which the wrapper checks.
@@ -154,6 +153,14 @@ __device__ __forceinline__ uint4 vector_qdq(const uint4& r, float s, float a,
   return o;
 }
 
+// Dequantized values of one int4 vector of codes, as float bits.
+__device__ __forceinline__ uint4 vector_dequant(const int4& c, float step) {
+  return make_uint4(__float_as_uint(__fmul_rn(__int2float_rn(c.x), step)),
+                    __float_as_uint(__fmul_rn(__int2float_rn(c.y), step)),
+                    __float_as_uint(__fmul_rn(__int2float_rn(c.z), step)),
+                    __float_as_uint(__fmul_rn(__int2float_rn(c.w), step)));
+}
+
 // Store one 16-byte vector of T at dst: one 16-byte store when dst is
 // 16-byte aligned, else element by element.
 template <typename T>
@@ -244,10 +251,32 @@ __global__ void dequantize_codes_kernel(const int* __restrict__ codes,
                                         const float* __restrict__ scale,
                                         float inv_a, float* __restrict__ out) {
   const float step = __fmul_rn(__ldg(scale), inv_a);
+  const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    out[i] = __fmul_rn(__int2float_rn(codes[i]), step);
+
+  // codes[head, body_end) in whole int4 vectors, two in flight per thread
+  const int64_t lead = to_boundary(codes);
+  const int64_t head = lead < n ? lead : n;
+  const int64_t n_vec = (n - head) / 4;
+  const int64_t body_end = head + n_vec * 4;
+  const int4* cv = reinterpret_cast<const int4*>(codes + head);
+  float* ov = out + head;
+  const bool aligned = to_boundary(ov) == 0;
+  for (int64_t i = tid; i < n_vec; i += 2 * stride) {
+    const bool two = i + stride < n_vec;
+    const int4 r0 = cv[i];
+    int4 r1 = make_int4(0, 0, 0, 0);
+    if (two) r1 = cv[i + stride];
+    store_vector(ov + i * 4, vector_dequant(r0, step), aligned);
+    if (two) {
+      store_vector(ov + (i + stride) * 4, vector_dequant(r1, step), aligned);
+    }
+  }
+  // the head [0, head) and the tail [body_end, n), one element each
+  const int64_t n_edge = head + (n - body_end);
+  for (int64_t i = tid; i < n_edge; i += stride) {
+    const int64_t e = i < head ? i : body_end + (i - head);
+    out[e] = __fmul_rn(__int2float_rn(codes[e]), step);
   }
 }
 
@@ -354,6 +383,12 @@ int dorefa_quantize_codes_attributes(int bf16, int* out) {
       out);
 }
 
+// The same for the dequantize_codes kernel (int32 codes only).
+int dorefa_dequantize_codes_attributes(int* out) {
+  return read_attributes(
+      reinterpret_cast<const void*>(dequantize_codes_kernel), out);
+}
+
 // The same for the quantize_dequantize kernel.
 int dorefa_quantize_dequantize_attributes(int bf16, int* out) {
   return read_attributes(
@@ -363,9 +398,11 @@ int dorefa_quantize_dequantize_attributes(int bf16, int* out) {
       out);
 }
 
+// codes: n int32; out: n float32.
 int dorefa_dequantize_codes(const void* codes, int64_t n, const void* scale,
                             float inv_a, void* out, void* stream) {
-  dequantize_codes_kernel<<<grid_for(n), kThreads, 0,
+  // int4 codes are 16 bytes of 4-byte elements, as float32 x's vectors
+  dequantize_codes_kernel<<<grid_for(vector_work(n, 0)), kThreads, 0,
                             static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(codes), n, static_cast<const float*>(scale),
       inv_a, static_cast<float*>(out));

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface.  At first use it is
 compiled with ``nvcc`` for Hopper (``sm_90a``) into a shared library under
 the checkout's ``build/`` directory and loaded with ``ctypes``.  The library
-name carries a digest of the source, so an edited kernel is rebuilt and a
-stale one is never loaded.  Nothing here runs at import time: the CPU
+name carries a digest of the source and of the shared ``csrc/*.cuh``
+headers, so an edited kernel or header is rebuilt and a stale library is
+never loaded.  Nothing here runs at import time: the CPU
 tests import every module on a host with no ``nvcc``.
 """
 from __future__ import annotations
@@ -42,9 +43,19 @@ def find_nvcc() -> "str | None":
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}_{digest}.so"
+    """Where ``csrc/<name>.cu``'s library goes: its name carries a digest
+    of the source and of every ``csrc/*.cuh`` header, so an edited header
+    rebuilds each library that may include it."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:12]}.so"
+
+
+def nvcc_command(nvcc: str, src, out) -> list:
+    """The nvcc command that builds ``src`` into the library ``out``, with
+    ``csrc/`` on the include path (the shared ``*.cuh`` headers)."""
+    return [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(out), str(src)]
 
 
 def build(name: str) -> Path:
@@ -60,7 +71,7 @@ def build(name: str) -> Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+    cmd = nvcc_command(nvcc, CSRC / f"{name}.cu", tmp)
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:

@@ -35,12 +35,11 @@ quiet fall back.  ``<wrapper>.launches`` counts each wrapper's kernel
 launches (plain-version calls do not count).  The kernels use no TPU
 tiling: a 1-D grid over the ``n`` elements; :func:`quantize_codes` also
 writes the zero codes of a caller's padding (``n_out > n``), so no padded
-copy of ``x`` is made.  :func:`quantize_codes` and
-:func:`quantize_dequantize` read ``x`` in 16-byte vectors and store their
-outputs as 16-byte vectors (``int4`` codes, or values of x's type); an
-``x`` at any element offset is taken as it is, its unaligned head and
-ragged tail element by element inside the kernel.
-:func:`dequantize_codes` takes one element per thread.
+copy of ``x`` is made.  All three read their input in 16-byte vectors and
+store their outputs as 16-byte vectors (``int4`` codes, values of x's
+type, or ``float4`` dequantized values); an input at any element offset is
+taken as it is, its unaligned head and ragged tail element by element
+inside the kernel.
 """
 from __future__ import annotations
 
@@ -85,6 +84,8 @@ def _library() -> ctypes.CDLL:
                    lib.dorefa_quantize_dequantize_attributes):
             fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
             fn.restype = ctypes.c_int
+        lib.dorefa_dequantize_codes_attributes.argtypes = [ctypes.c_void_p]
+        lib.dorefa_dequantize_codes_attributes.restype = ctypes.c_int
         lib.dorefa_error_string.argtypes = [ctypes.c_int]
         lib.dorefa_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -161,6 +162,12 @@ def quantize_codes_attributes(dtype) -> dict:
     return cuda_build.read_attributes(
         _library().dorefa_quantize_codes_attributes,
         int(dtype == torch.bfloat16))
+
+
+def dequantize_codes_attributes() -> dict:
+    """The same for the dequantize_codes kernel (int32 codes)."""
+    return cuda_build.read_attributes(
+        _library().dorefa_dequantize_codes_attributes)
 
 
 def quantize_dequantize_attributes(dtype) -> dict:

@@ -6,12 +6,15 @@ and float64 tensor ops, bit for bit on any device (its :func:`draw_plain
 <repro_torch.core.prng.draw_plain>` is this kernel's plain version), but
 one normal draw takes about 1,300 of those ops.  On the card the same
 function is ``csrc/threefry.cu`` (CUDA C++, built by :mod:`cuda_build`,
-loaded with ``ctypes``): one launch, the same bits.  ``prng.draw`` (and so
-``prng.uniform``, ``normal`` and ``truncated_normal``) sends a CUDA device
-here and a CPU device to the plain version; this wrapper launches or
-raises, never falls back.  ``threefry_draw.launches`` counts its launches.
-It replaces no Pallas kernel: the reference draws with ``jax.random`` under
-XLA.
+loaded with ``ctypes``): one launch, the same bits.  The draw's device
+code lives in ``csrc/threefry.cuh``, which the keyed OTA reduction
+(:func:`repro_torch.kernels.ota_aggregate.ota_aggregate_keyed`) includes
+too, so it forms the same normals in its own registers.  ``prng.draw``
+(and so ``prng.uniform``, ``normal`` and ``truncated_normal``) sends a
+CUDA device here and a CPU device to the plain version; this wrapper
+launches or raises, never falls back.  ``threefry_draw.launches`` counts
+its launches.  It replaces no Pallas kernel: the reference draws with
+``jax.random`` under XLA.
 """
 from __future__ import annotations
 
@@ -46,6 +49,14 @@ def _library() -> ctypes.CDLL:
     return _lib
 
 
+def uniform_bounds(minval: float, maxval: float):
+    """(lo, span) as the kernels take a uniform's bounds: ``minval`` in
+    float32 and ``maxval - minval`` rounded to float32, as jax.random
+    forms them."""
+    lo, hi = np.float32(minval), np.float32(maxval)
+    return float(lo), float(hi - lo)
+
+
 def threefry_draw(key, n: int, minval: float, maxval: float, *,
                   normal: bool = False, clip=None, device) -> torch.Tensor:
     """(n,) float32 on the CUDA ``device``: ``jax.random.uniform(key, (n,),
@@ -59,13 +70,13 @@ def threefry_draw(key, n: int, minval: float, maxval: float, *,
     out = torch.empty(n, dtype=torch.float32, device=device)
     if n == 0:
         return out
-    lo, hi = np.float32(minval), np.float32(maxval)
+    lo, span = uniform_bounds(minval, maxval)
     clip_lo, clip_hi = (-np.inf, np.inf) if clip is None else clip
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         status = lib.threefry_draw_f32(
             int(key[0]) & MASK32, int(key[1]) & MASK32, n, int(bool(normal)),
-            float(lo), float(hi - lo), float(clip_lo), float(clip_hi),
+            lo, span, float(clip_lo), float(clip_hi),
             out.data_ptr(), stream,
         )
     if status != 0:

@@ -14,10 +14,12 @@ bit for bit (both take one fused multiply-add per client).  The device
 greedy's schedules equal the numpy backend's exactly, and the random
 streams (the OTA noise, the seeded channels and initial weights) have the
 same bits on the card as on the CPU; the Threefry kernel that draws them
-there equals its plain version (core/prng.py) to the bit.  The three
-DoReFa kernels
-equal their plain versions to the bit (codes equal, outputs bit-equal), on
-the card and on the CPU, and so do the packed codec and the top-k round's
+there equals its plain version (core/prng.py) to the bit, and so does the
+keyed OTA kernel, which forms the round's noise from its key in registers
+(the same device code, csrc/threefry.cuh), against its plain version and
+the strip kernel fed the drawn noise.  The three DoReFa kernels equal
+their plain versions to the bit (codes equal, outputs bit-equal), on the
+card and on the CPU, and so do the packed codec and the top-k round's
 aggregate computed on the card and on the CPU.  The flash-decode kernel
 visits the cache in another order than its plain version (the Pallas
 kernel's block order) and takes base-2 exponentials: it is held within
@@ -25,12 +27,12 @@ tests/test_kernels.py's float32 tolerance, atol and rtol 1e-5, and in
 bfloat16 within one rounding of the output (atol 1e-6, rtol 2^-7), also
 against the oracle; at valid_len = 0 it gives zeros.  Beside the
 shapes, valid_len crosses the bfloat16 kernel's 8- and 16-position mma
-edges and a warp's run at every G, and the quantize and fused
-quantize-dequantize kernels read views of a buffer at every element offset
-off a 16-byte boundary.  The grouped aggregation kernel (one launch for
-many matrices) equals the plain version matrix by matrix, bit for bit, and
-the dense FL round that reduces every leaf in that one launch gives the
-same update and bits on the card as on the CPU.
+edges and a warp's run at every G, and the three DoReFa kernels read
+views of a buffer at every element offset off a 16-byte boundary.  The
+grouped aggregation kernel (one launch for many matrices) equals the
+plain version matrix by matrix, bit for bit, and the dense FL round that
+reduces every leaf in that one launch gives the same update and bits on
+the card as on the CPU.
 """
 import math
 
@@ -313,6 +315,98 @@ def test_ota_kernel_edges_and_unaligned_rows(cuda):
         rtol=0, atol=0)
 
 
+LENET_P = 266_610
+
+
+@pytest.mark.parametrize("spaced", [True, False], ids=["spaced", "contiguous"])
+@pytest.mark.parametrize("k", range(7))
+@pytest.mark.parametrize("n", [1, 2, 3, 257, 1000, 32_771, LENET_P, 2_200_000])
+def test_keyed_ota_kernel_matches_plain_and_the_strip(cuda, k, n, spaced):
+    """The keyed kernel (noise formed from the round key in registers)
+    equals its plain version and the strip kernel fed ``scale *
+    prng.normal(key, n)`` on the card, bit for bit, at a scale and at
+    scale 0, in the path's spaced rows and in contiguous ones; one launch
+    per call, K = 0 included."""
+    gen = torch.Generator().manual_seed(k * 131 + n)
+    x = torch.randn(k, n, generator=gen) * 0.01
+    coeff = torch.rand(k, generator=gen)
+    if k > 1:
+        coeff[1] = 0.0
+    coeff = (coeff / coeff.sum() if k else coeff).to(cuda)
+    rows = ota_aggregate.row_buffer(k, n, device=cuda) if spaced else \
+        torch.empty(k, n, device=cuda)
+    rows.copy_(x)
+    key = ota.horizon_keys(n, k + 1)[k]
+    for scale in (3e-3, 0.0):
+        s = torch.tensor(scale, dtype=torch.float32, device=cuda)
+        before = ota_aggregate.ota_aggregate.launches
+        got = ota_aggregate.ota_aggregate_keyed(rows, coeff, key, s)
+        assert ota_aggregate.ota_aggregate.launches == before + 1
+        assert got.device.type == "cuda" and got.shape == (n,)
+        _same_bits(got, ota_aggregate.ota_aggregate_keyed_plain(
+            rows, coeff, key, s))
+        strip = s * prng.normal(key, n, device=cuda)
+        _same_bits(got, ota_aggregate._launch(rows, coeff, strip) if k else
+                   strip)
+
+
+def test_keyed_ota_kernel_edges_and_refusals(cuda):
+    """An empty payload returns zeros without a launch; a trailing shape
+    keeps its shape; the scale must be one float32 on the card."""
+    key = ota.horizon_keys(0, 1)[0]
+    s = torch.tensor(1e-3, device=cuda)
+    before = ota_aggregate.ota_aggregate.launches
+    out = ota_aggregate.ota_aggregate_keyed(
+        torch.zeros((3, 0), device=cuda), torch.ones(3, device=cuda), key, s)
+    assert out.shape == (0,) and ota_aggregate.ota_aggregate.launches == before
+    x = torch.randn(2, 6, 9, device=cuda)
+    coeff = torch.tensor([0.4, 0.6], device=cuda)
+    out = ota_aggregate.ota_aggregate_keyed(x, coeff, key, s)
+    assert out.shape == (6, 9)
+    _same_bits(out, ota_aggregate.ota_aggregate_keyed_plain(
+        x.reshape(2, 54), coeff, key, s).reshape(6, 9))
+    with pytest.raises(ValueError, match="scale must be float32"):
+        ota_aggregate.ota_aggregate_keyed(x, coeff, key, s.cpu())
+
+
+def test_keyed_ota_kernel_attributes(cuda):
+    attrs = ota_aggregate.keyed_attributes()
+    assert attrs["local_bytes"] == 0 and attrs["static_smem"] == 0
+    assert 0 < attrs["registers"] <= 128 and attrs["ctas_per_sm"] >= 2
+
+
+def test_ota_round_on_the_card_draws_no_strip(cuda, monkeypatch):
+    """superpose_tree(use_pallas=True) on the card makes one OTA launch and
+    no Threefry launch, and gives the bits of the same round with the
+    noise drawn as a strip first (the round path before the keyed
+    kernel)."""
+    from repro_torch.kernels import threefry
+
+    rng = np.random.default_rng(4)
+    deltas = {f"leaf{i}": {"d": torch.from_numpy(
+        rng.standard_normal((3, *shape)).astype(np.float32) * 0.01).to(cuda)}
+        for i, shape in enumerate([(784, 300), (300,), (10,)])}
+    args = (deltas, torch.tensor([1e-6, 2e-6, 5e-7], device=cuda),
+            torch.tensor([0.2, 0.5, 0.3], device=cuda),
+            ota.horizon_keys(0, 2)[1])
+    kw = dict(pmax=PMAX, noise_std=1e-3, threshold=0.0, use_pallas=True)
+    draws = threefry.threefry_draw.launches
+    launches = ota_aggregate.ota_aggregate.launches
+    got = ota.superpose_tree(*args, **kw)
+    assert threefry.threefry_draw.launches == draws
+    assert ota_aggregate.ota_aggregate.launches == launches + 1
+
+    def strip_path(flat, coeff, key, scale):
+        noise = scale * prng.normal(key, flat.shape[1], device=flat.device)
+        return ota_aggregate.ota_aggregate(flat, coeff, noise)
+
+    monkeypatch.setattr(ota, "ota_aggregate_keyed", strip_path)
+    want = ota.superpose_tree(*args, **kw)
+    assert threefry.threefry_draw.launches == draws + 1
+    for name in deltas:
+        _same_bits(got[name]["d"], want[name]["d"])
+
+
 @pytest.mark.parametrize("p", [1, 54, 266_610])
 def test_noise_bits_on_the_card_equal_the_cpu(cuda, p):
     key = ota.horizon_keys(0, 4)[3]
@@ -492,6 +586,42 @@ def test_quantize_codes_reads_views_at_any_offset(cuda, dtype, offset):
                         x, s, bits, n_out))
                     _same_bits(got, dorefa.quantize_codes_plain(
                         x.cpu(), s.cpu(), bits, n_out))
+
+
+@pytest.mark.parametrize("bits", [1, 8, 31, 32])
+def test_dequantize_codes_reads_views_at_any_offset(cuda, bits):
+    """codes = buf[o:o + n] at every element offset o = 0..7 and every
+    n mod 8, INT_MIN and INT_MAX among the codes, under a finite, zero and
+    NaN scale: the int4 kernel's head, vectors, tail and per-element stores
+    equal the plain version on the card and on the CPU, bit for bit."""
+    gen = torch.Generator().manual_seed(bits)
+    hi = 2 ** min(bits, 31) - 1
+    buf = torch.randint(-hi, hi + 1, (70_000,), generator=gen,
+                        dtype=torch.int64).to(torch.int32)
+    buf[[3, 10, 17, 40_001]] = torch.tensor(
+        [-(2 ** 31), 2 ** 31 - 1, 0, -(2 ** 31)], dtype=torch.int32)
+    buf = buf.to(cuda)
+    before = dorefa.dequantize_codes.launches
+    calls = 0
+    for o in range(8):
+        for n in [1 + r for r in range(8)] + [24 + r for r in range(8)] \
+                + [65_536 + r for r in range(8)]:
+            c = buf[o:o + n]
+            for scale in (0.37, 0.0, float("nan")):
+                s = torch.tensor(scale, dtype=torch.float32, device=cuda)
+                got = dorefa.dequantize_codes(c, s, bits)
+                calls += 1
+                assert got.dtype == torch.float32 and got.shape == (n,)
+                _same_bits(got, dorefa.dequantize_codes_plain(c, s, bits))
+                _same_bits(got, dorefa.dequantize_codes_plain(
+                    c.cpu(), s.cpu(), bits))
+    assert dorefa.dequantize_codes.launches == before + calls
+
+
+def test_dequantize_codes_kernel_attributes(cuda):
+    attrs = dorefa.dequantize_codes_attributes()
+    assert attrs["local_bytes"] == 0 and attrs["static_smem"] == 0
+    assert 0 < attrs["registers"] <= 64 and attrs["ctas_per_sm"] >= 4
 
 
 def test_quantize_codes_kernel_attributes(cuda):

@@ -124,6 +124,38 @@ def test_quantize_dequantize_of_views_at_every_offset(dtype, bits):
             torch.cat(got).to(torch.float32).numpy(), want[:flat.size])
 
 
+@pytest.mark.parametrize("bits", [1, 8, 31, 32])
+def test_dequantize_codes_of_views_at_every_offset(bits):
+    """codes = buf[o:o + n] at every element offset o = 0..7 and n of every
+    residue mod 8 (where the card's 16-byte kernel splits the codes into a
+    scalar head, whole int4 vectors and a scalar tail), with INT_MIN,
+    INT_MAX, 0 and +-1 among the codes, under the data's scale, a zero
+    scale and a NaN scale: each view's output equals the Pallas kernel's
+    on the same codes, to the bit."""
+    rng = np.random.default_rng(bits)
+    hi = 2 ** min(bits, 31) - 1
+    buf = rng.integers(-hi, hi, 4096, endpoint=True).astype(np.int32)
+    buf[[2, 9, 700, 1401, 1402, 3001]] = [
+        np.iinfo(np.int32).min, np.iinfo(np.int32).max, 0, 1, -1,
+        np.iinfo(np.int32).min]
+    bt = torch.from_numpy(buf)
+    views = [(o, n) for o in range(8) for n in (8 * o + r for r in range(8))
+             ] + [(o, 3000 + o) for o in range(8)]
+    flat = np.concatenate([buf[o:o + n] for o, n in views])
+    pad = (-flat.size) % ops.TILE
+    cj = jnp.asarray(np.pad(flat, (0, pad)).reshape(-1, ops.LANE))
+    for scale in (np.float32(0.37), np.float32(0.0), np.float32(np.nan)):
+        st = torch.tensor(scale)
+        got = [dorefa.dequantize_codes(bt[o:o + n], st, bits)
+               for o, n in views]
+        assert all(g.dtype == torch.float32 and g.numel() == n
+                   for g, (_, n) in zip(got, views))
+        want = np.asarray(ref_dorefa.dequantize_codes_pallas(
+            cj, jnp.asarray(scale), bits)).reshape(-1)
+        np.testing.assert_array_equal(torch.cat(got).numpy(),
+                                      want[:flat.size])
+
+
 def test_b3_dequantize_multiplies_by_the_folded_reciprocal():
     """At b = 3 the source text's c * (s / a) and the compiled c * (s *
     fl(1/a)) differ on most elements; the Pallas kernel gives the second,
@@ -378,7 +410,8 @@ def test_build_names_the_source_in_the_repo():
     assert src.is_file()
     text = src.read_text()
     for entry in ("dorefa_quantize_codes", "dorefa_dequantize_codes",
-                  "dorefa_quantize_dequantize"):
+                  "dorefa_quantize_dequantize",
+                  "dorefa_dequantize_codes_attributes"):
         assert f"int {entry}(" in text
     assert "arch=compute_90a,code=sm_90a" in cuda_build.NVCC_FLAGS
     assert cuda_build.library_path("dorefa").parent == cuda_build.BUILD_DIR

@@ -187,6 +187,48 @@ def test_cuda_devices_take_the_kernel(monkeypatch, tmp_path):
         threefry.threefry_draw(key, 5, 0.0, 1.0, device="cpu")
 
 
+def test_the_draw_has_one_copy_in_its_header():
+    """The draw's device code lives in ``csrc/threefry.cuh`` alone: the
+    draw kernel and the keyed OTA reduction include it, and no kernel
+    source defines a Threefry or ``erf_inv`` function of its own."""
+    header = (cuda_build.CSRC / "threefry.cuh").read_text()
+    for fn in ("threefry_bits(", "log_f32(", "log1p_f32(", "erf_inv_f32(",
+               "uniform_f32(", "normal_f32("):
+        assert f" {fn}" in header
+    for src in ("threefry.cu", "ota_aggregate.cu"):
+        assert '#include "threefry.cuh"' in (cuda_build.CSRC / src).read_text()
+    for src in cuda_build.CSRC.glob("*.cu"):
+        text = src.read_text()
+        for fn in ("uint32_t threefry_bits(", "float erf_inv_f32(",
+                   "float log1p_f32(", "float normal_f32("):
+            assert fn not in text, f"{src.name} defines {fn}"
+
+
+@pytest.mark.parametrize("edit", ["header", "source", "other"])
+def test_library_names_follow_the_shared_header(monkeypatch, tmp_path, edit):
+    """With ``CSRC`` pointed at a copy of the sources, editing only a
+    ``.cuh`` header renames (so rebuilds) every library; editing one ``.cu``
+    renames its own library only; another file renames none.  nvcc gets
+    the sources' directory on its include path."""
+    for name in ("threefry.cu", "ota_aggregate.cu", "threefry.cuh"):
+        (tmp_path / name).write_text((cuda_build.CSRC / name).read_text())
+    (tmp_path / "notes.txt").write_text("x")
+    monkeypatch.setattr(cuda_build, "CSRC", tmp_path)
+    before = {n: cuda_build.library_path(n)
+              for n in ("threefry", "ota_aggregate")}
+    target = {"header": "threefry.cuh", "source": "threefry.cu",
+              "other": "notes.txt"}[edit]
+    with open(tmp_path / target, "a") as f:
+        f.write("\n// edited\n")
+    after = {n: cuda_build.library_path(n) for n in before}
+    changed = {n for n in before if after[n] != before[n]}
+    assert changed == {"header": {"threefry", "ota_aggregate"},
+                       "source": {"threefry"}, "other": set()}[edit]
+    cmd = cuda_build.nvcc_command("nvcc", tmp_path / "threefry.cu",
+                                  tmp_path / "lib.so")
+    assert cmd[cmd.index("-I") + 1] == str(tmp_path)
+
+
 # --------------------------------------------------------------------------
 # channels and initial weights
 # --------------------------------------------------------------------------

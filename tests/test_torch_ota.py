@@ -20,7 +20,13 @@ In-process, on the same numpy-seeded inputs:
     the reference's to the bit, and eta differs by the ulps of its energy
     sums over P, which run in another order;
   * ``ota_align_powers`` and ``PowerAllocator("ota-align")`` in float64:
-    exactly equal.
+    exactly equal;
+  * the keyed reduction (``ota_aggregate_keyed``, the noise formed from the
+    round key inside the kernel on the card): its plain version equals the
+    strip composition ``ota_aggregate(flat, coeff, scale * normal(key))``
+    to the bit over the sweep above, spaced rows and a zero scale, and the
+    Pallas kernel fed the reference's own ``scale * jax.random.normal``;
+    ``superpose_flat(use_pallas=True)`` gives the bits the strip path gave.
 
 Whole runs go through the shimmed subprocess of test_torch_harness, both
 configurations in one call, under tests/test_fl_engine.py:_assert_equal_runs
@@ -107,6 +113,113 @@ def test_row_buffer_spaces_rows_and_keeps_the_sum(n):
                                        torch.from_numpy(coeff),
                                        torch.from_numpy(noise))
     torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+# --------------------------------------------------------------------------
+# The keyed reduction: the receiver noise formed from the round key
+# --------------------------------------------------------------------------
+
+_KEYED_CASES = [
+    (4, (1000,), ()), (1, (257,), ()), (3, (TILE_ELEMS + 3,), ()),
+    (0, (500,), ()), (3, (0,), ()), (2, (6, 9), ()),
+    (3, (2 * TILE_ELEMS + 777,), ()), (4, (1000,), (1, 3)),
+]
+_KEYED_IDS = ["k4-n1000", "k1-n257", "k3-tile+3", "k0", "n0", "trailing",
+              "two-tiles", "zero-coeff-rows"]
+
+
+@pytest.mark.parametrize("scale", [3e-3, 0.0], ids=["scaled", "zero-scale"])
+@pytest.mark.parametrize("k,shape,zero_rows", _KEYED_CASES, ids=_KEYED_IDS)
+def test_keyed_plain_equals_the_strip_composition(k, shape, zero_rows, scale):
+    """The keyed wrapper on a CPU tensor (its plain version, no launch)
+    gives the strip wrapper's bits on ``scale * prng.normal(key, n)``:
+    K = 0 gives the scaled noise itself, n = 0 zeros."""
+    deltas, coeff, _ = _kernel_inputs(k, shape, seed=k * 7 + sum(shape),
+                                      zero_rows=zero_rows)
+    n = int(np.prod(shape))
+    key = ota.horizon_keys(k + n, 3)[2]
+    s = torch.tensor(scale, dtype=torch.float32)
+    dt, ct = torch.from_numpy(deltas), torch.from_numpy(coeff)
+    before = ota_aggregate.ota_aggregate.launches
+    got = ota_aggregate.ota_aggregate_keyed(dt, ct, key, s)
+    want = ota_aggregate.ota_aggregate(dt, ct, s * prng.normal(key, n,
+                                                               device="cpu"))
+    assert ota_aggregate.ota_aggregate.launches == before
+    assert got.dtype == torch.float32 and tuple(got.shape) == shape
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    if n:
+        np.testing.assert_array_equal(
+            ota_aggregate.ota_aggregate_keyed_plain(
+                dt.reshape(k, n), ct, key, s).numpy(),
+            want.numpy().reshape(-1))
+
+
+@pytest.mark.parametrize("n", [1, 257, 266_610])
+def test_keyed_plain_reads_spaced_rows(n):
+    """The OTA payload's layout (``row_buffer``) gives the keyed plain
+    version the bits of contiguous rows."""
+    deltas, coeff, _ = _kernel_inputs(3, (n,), seed=n, zero_rows=(1,))
+    rows = ota_aggregate.row_buffer(3, n, device="cpu")
+    rows.copy_(torch.from_numpy(deltas))
+    key = ota.horizon_keys(n, 2)[1]
+    s = torch.tensor(1e-3, dtype=torch.float32)
+    got = ota_aggregate.ota_aggregate_keyed(rows, torch.from_numpy(coeff),
+                                            key, s)
+    want = ota_aggregate.ota_aggregate(
+        torch.from_numpy(deltas), torch.from_numpy(coeff),
+        s * prng.normal(key, n, device="cpu"))
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+
+
+@pytest.mark.parametrize("k,n", [(3, 266_610), (0, 1000), (4, 1001)])
+@pytest.mark.parametrize("round_key", [0, 3])
+def test_keyed_plain_matches_pallas_with_reference_noise(round_key, k, n):
+    """The keyed plain version against the Pallas kernel (interpret mode)
+    fed the reference's own noise strip ``scale * jax.random.normal(key,
+    (n,))``, for two round keys: bit-equal."""
+    deltas, coeff, _ = _kernel_inputs(k, (n,), seed=round_key + n)
+    key = ota.horizon_keys(1, 4)[round_key]
+    scale = np.float32(2.5e-3)
+    noise = jnp.float32(scale) * jax.random.normal(jnp.asarray(key), (n,),
+                                                   jnp.float32)
+    want = np.asarray(ota_aggregate_pallas(
+        jnp.asarray(deltas), jnp.asarray(coeff), noise))
+    got = ota_aggregate.ota_aggregate_keyed(
+        torch.from_numpy(deltas), torch.from_numpy(coeff), key,
+        torch.tensor(scale))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _strip_superpose(flat, coeff, key, scale):
+    """The round's reduction as the strip path computed it: the noise drawn
+    and scaled, then the strip kernel's wrapper."""
+    noise = scale * prng.normal(key, flat.shape[1], device=flat.device)
+    return ota_aggregate.ota_aggregate(flat, coeff, noise)
+
+
+@pytest.mark.parametrize("case", [
+    dict(w=[0.1, 0.4, 0.3, 0.2], threshold=0.0, noise_std=1e-8),
+    dict(w=[0.1, 0.4, 0.3, 0.2], threshold=0.4, noise_std=1e-3),
+    dict(w=[0.3, 0.3, 0.0, 0.4], threshold=0.0, noise_std=1e-3),
+    dict(w=[0.0] * 4, threshold=0.0, noise_std=1e-3),
+], ids=["noisy", "threshold", "zero-weight-row", "empty-round"])
+def test_superpose_through_the_keyed_kernel_keeps_its_bits(monkeypatch, case):
+    """``superpose_tree(use_pallas=True)`` on the spaced payload gives the
+    bits of the same round with the noise drawn as a strip first (the round
+    path before the keyed kernel)."""
+    deltas = {name: {"d": torch.from_numpy(v)}
+              for name, v in _delta_stack(seed=5).items()}
+    args = (deltas, torch.tensor(_GAINS, dtype=torch.float32),
+            torch.tensor(case["w"], dtype=torch.float32),
+            ota.horizon_keys(5, 3)[2])
+    kw = dict(pmax=PMAX, noise_std=case["noise_std"],
+              threshold=case["threshold"], use_pallas=True)
+    got = ota.superpose_tree(*args, **kw)
+    monkeypatch.setattr(ota, "ota_aggregate_keyed", _strip_superpose)
+    want = ota.superpose_tree(*args, **kw)
+    for name in deltas:
+        np.testing.assert_array_equal(got[name]["d"].numpy(),
+                                      want[name]["d"].numpy())
 
 
 # --------------------------------------------------------------------------

@@ -11,13 +11,17 @@ the kernel is held against is timed in the same rounds.
 
 Variants: the bf16 flash-decode kernel at decode_32k (B=128, S=32,768,
 Hkv=2, G=7, D=64) with other ring depths and warps per CTA, against
-``scaled_dot_product_attention``; ``quantize_codes`` and
-``quantize_dequantize`` at 2^20 float32 elements with one, two and four
-16-byte vectors per thread, against ``quantize_per_tensor`` and
+``scaled_dot_product_attention``; ``quantize_codes``,
+``dequantize_codes`` and ``quantize_dequantize`` at 2^20 float32 elements
+with one, two and four 16-byte vectors per thread, against
+``quantize_per_tensor``, ``torch.mul`` and
 ``fake_quantize_per_tensor_affine``; the grouped aggregation kernel over
 one FL round's six LeNet leaves at K=3 with 128, 256 and 512 threads per
-CTA, against six ``einsum`` calls.  The first variant of each is the
-kernel as committed.
+CTA, against six ``einsum`` calls; the keyed OTA kernel over one OTA
+round (K=3, LeNet's 266,610 parameters in the path's spaced rows) with one
+and two quads per thread at 128 and 256 threads per CTA, against the
+three launches it replaces (the Threefry draw, ``scale * z`` and the
+strip kernel).  The first variant of each is the kernel as committed.
 """
 from __future__ import annotations
 
@@ -35,7 +39,9 @@ import torch.nn.functional as F
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(REPO, "src"))
 
+from repro_torch.core import ota, prng  # noqa: E402
 from repro_torch.kernels import aggregate, cuda_build, dorefa  # noqa: E402
+from repro_torch.kernels import ota_aggregate  # noqa: E402
 from repro_torch.kernels import flash_decode as fd  # noqa: E402
 
 FLASH_VARIANTS = {
@@ -61,7 +67,16 @@ AGGREGATE_VARIANTS = {
     "128 threads/CTA": [(THREADS, "kThreads = 128;")],
     "512 threads/CTA": [(THREADS, "kThreads = 512;")],
 }
+QUADS = "kQuadsPerThread = 1;"
+OTA_VARIANTS = {
+    "1 quad x 256 threads": [],
+    "2 quads x 256 threads": [(QUADS, "kQuadsPerThread = 2;")],
+    "1 quad x 128 threads": [(THREADS, "kThreads = 128;")],
+    "2 quads x 128 threads": [(QUADS, "kQuadsPerThread = 2;"),
+                              (THREADS, "kThreads = 128;")],
+}
 LENET_LEAVES = (235_200, 300, 30_000, 100, 1_000, 10)
+LENET_PARAMS = sum(LENET_LEAVES)    # 266,610
 DECODE_32K = (128, 2, 7, 64, 32_768)
 
 
@@ -77,8 +92,8 @@ def build(kernel, tag, subs):
     name = f"{kernel}_" + "".join(c if c.isalnum() else "_" for c in tag)
     (out / f"{name}.cu").write_text(src)
     proc = subprocess.run(
-        [cuda_build.find_nvcc(), *cuda_build.NVCC_FLAGS, "-o",
-         str(out / f"{name}.so"), str(out / f"{name}.cu")],
+        cuda_build.nvcc_command(cuda_build.find_nvcc(), out / f"{name}.cu",
+                                out / f"{name}.so"),
         capture_output=True, text=True)
     if proc.returncode:
         raise SystemExit(f"{kernel} {tag}: {proc.stderr[-2000:]}")
@@ -155,8 +170,9 @@ def flash_cases(libs):
 
 
 def dorefa_cases(name, libs, n=1 << 20, bits=8):
-    """``quantize_codes`` or ``quantize_dequantize`` at n float32 elements,
-    each variant checked bit for bit against the plain version."""
+    """``quantize_codes``, ``dequantize_codes`` or ``quantize_dequantize``
+    at n float32 elements, each variant checked bit for bit against the
+    plain version."""
     gen = torch.Generator().manual_seed(n)
     x = (torch.randn(n, generator=gen) * 0.3).cuda()
     s = x.abs().max()
@@ -168,6 +184,14 @@ def dorefa_cases(name, libs, n=1 << 20, bits=8):
         want = dorefa.quantize_codes_plain(x, s, bits, n_out)
         library = (lambda: torch.quantize_per_tensor(x, scale, 0,
                                                      torch.qint32), 50)
+    elif name == "dequantize_codes":
+        codes = dorefa.quantize_codes_plain(x, s, bits)
+        step = s * dorefa.inv_levels(bits)
+
+        def kern():
+            return dorefa._dequantize_codes_launch(codes, s, bits)
+        want = dorefa.dequantize_codes_plain(codes, s, bits)
+        library = (lambda: torch.mul(codes, step), 50)
     else:
         def kern():
             return dorefa._quantize_dequantize_launch(x, s, bits)
@@ -208,6 +232,35 @@ def aggregate_cases(libs, k=3):
     return cases, library
 
 
+def ota_cases(libs, k=3, n=LENET_PARAMS):
+    """One OTA round's keyed reduction (the path's kernel), each variant
+    checked bit for bit against the plain version; the yardstick is the
+    strip path's three launches on the same inputs."""
+    gen = torch.Generator().manual_seed(k)
+    x = ota_aggregate.row_buffer(k, n, device="cuda")
+    x.copy_(torch.randn(k, n, generator=gen) * 0.01)
+    coeff = torch.rand(k, generator=gen).cuda()
+    key = ota.horizon_keys(0, 4)[3]
+    scale = torch.tensor(3e-3, device="cuda")
+    want = ota_aggregate.ota_aggregate_keyed_plain(x, coeff, key, scale)
+
+    def kern():
+        return ota_aggregate._launch_keyed(x, coeff, key, scale)
+
+    def sequence():
+        return ota_aggregate._launch(
+            x, coeff, scale * prng.normal(key, n, device="cuda"))
+
+    for tag, path in libs.items():
+        with loaded(ota_aggregate, path):
+            if not torch.equal(kern().view(torch.int32),
+                               want.view(torch.int32)):
+                raise SystemExit(f"ota_aggregate {tag}: outputs differ")
+    cases = {tag: (ota_aggregate, path, kern, 50)
+             for tag, path in libs.items()}
+    return cases, (sequence, 50)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--rounds", type=int, default=3)
@@ -224,6 +277,8 @@ def main() -> int:
     jobs += [("dorefa", tag, subs) for tag, subs in DOREFA_VARIANTS.items()]
     jobs += [("aggregate", tag, subs)
              for tag, subs in AGGREGATE_VARIANTS.items()]
+    jobs += [("ota_aggregate", tag, subs)
+             for tag, subs in OTA_VARIANTS.items()]
     with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
         paths = list(pool.map(lambda job: build(*job), jobs))
     libs = {(kernel, tag): path for (kernel, tag, _), path in zip(jobs, paths)}
@@ -231,10 +286,14 @@ def main() -> int:
             ("flash_decode", "flash_decode", "ms", 1.0, flash_cases),
             ("dorefa", "quantize_codes", "us", 1e3,
              lambda libs: dorefa_cases("quantize_codes", libs)),
+            ("dorefa", "dequantize_codes", "us", 1e3,
+             lambda libs: dorefa_cases("dequantize_codes", libs)),
             ("dorefa", "quantize_dequantize", "us", 1e3,
              lambda libs: dorefa_cases("quantize_dequantize", libs)),
             ("aggregate", "weighted_aggregate round", "us", 1e3,
-             aggregate_cases)):
+             aggregate_cases),
+            ("ota_aggregate", "ota_aggregate keyed round", "us", 1e3,
+             ota_cases)):
         cases, library = make({tag: path for (k, tag), path in libs.items()
                                if k == kernel})
         for name, times in time_in_turns(cases, library, args.rounds).items():
