@@ -95,7 +95,18 @@ package, and exits non-zero on the first failure.  Phases:
      local bytes and occupancy); and its path,
      ``kernels.ops.flash_decode(use_pallas=True)`` at decode_32k
      (``[main:flash]``: one launch per call, held to the oracle);
- 11. the seeded draws (``[draws]``): the reference's positions and gains of
+ 11. the legacy round body, the reference's default engine and its oracle:
+     ``FLConfig``'s defaults (legacy, ``use_pallas=False``, numpy lazy
+     GWMIN, MAPEL, adaptive DoReFa, NOMA) at the main path's width
+     (``[main:legacy]``: no kernel launch but LeNet's three initial draws,
+     the per-round host time printed, logs equal to ``[main:host]``'s with
+     accuracy within 0.02 and the parameter drift against it printed); the
+     legacy round under OTA (ota-align, noise 1e-9, ``use_pallas=True``:
+     ``[main:legacy-ota]``, one keyed OTA launch per non-empty round, logs
+     equal to ``[main:ota]``'s); the batched engine with the random
+     schedule (``[main:random]``); and the M=30 default run on the CPU and
+     on the card held to the contract of 7 (``[cpu-vs-card:legacy]``);
+ 12. the seeded draws (``[draws]``): the reference's positions and gains of
      the paper cell (M=300, T=35) and LeNet's initial weights, drawn on the
      card through the Threefry kernel, equal the CPU's to the bit, and so
      do 2^20 of the kernel's uniforms, normals and truncated normals
@@ -143,6 +154,10 @@ OTA_SWEEP_N = (0, 1, 257, 1000, 32_771, 266_610, 2_200_000)
 LENET_PARAMS = sum(LENET_LEAVES)    # 266,610
 OTA_NOISE = 1e-9                # benchmarks/ota_bench.py's NOISE_STD
 ACC_ATOL, PARAM_MEAN_ATOL, PARAM_MAX_ATOL = 0.02, 1e-6, 2e-2
+# tests/test_torch_fl.py's bound between float order and a DoReFa code flip
+# (F1, ROADMAP.md queue 3): until a code flips, two float orders differ by
+# far less per element, and one code step is far more
+F1_FLOAT_ORDER = 1e-6
 DOREFA_SHAPES = ((17,), (128,), (4096,), (32768,), (100_001,), (3, 77, 11)) \
     + tuple((n,) for n in LENET_LEAVES)
 DOREFA_BITS = (1, 2, 4, 8, 16, 24, 31, 32)
@@ -1377,6 +1392,21 @@ def _config(m, t, backend="numpy", uplink="noma", **overrides):
     ), **extra})
 
 
+def _legacy_config(m, t, uplink="noma"):
+    """``FLConfig``'s defaults (the legacy engine, ``use_pallas=False``,
+    numpy lazy GWMIN, MAPEL, adaptive DoReFa, NOMA) at M devices and T
+    rounds; ``uplink="ota"`` the reference's OTA settings with the keyed
+    OTA kernel (``use_pallas=True``)."""
+    from repro_torch.config import FLConfig
+
+    extra = {}
+    if uplink == "ota":
+        extra = dict(uplink="ota", compression="none",
+                     power_mode="ota-align", ota_noise=OTA_NOISE,
+                     use_pallas=True)
+    return FLConfig(num_devices=m, num_rounds=t, **extra)
+
+
 def run_main_path(kernels, mode, m=300, t=5, samples=12_000):
     """Paper-width run on the card; returns (result, launches per kernel).
 
@@ -1386,23 +1416,34 @@ def run_main_path(kernels, mode, m=300, t=5, samples=12_000):
     ("lazy-gwmin")`` on the card with the SIC kernel as scorer, handed to
     the run as ``schedule=``); ``"ota"`` and ``"tdma"`` take that uplink
     with the host schedule, ``"topk"`` the top-k stage (``topk=0.1``) and
-    ``"bucketed"`` the bucketed client bank.  The launch counts are zeroed
-    just before and read just after the schedule and the run."""
+    ``"bucketed"`` the bucketed client bank, ``"random"`` the random
+    schedule; ``"legacy"`` runs ``FLConfig``'s defaults (the legacy round
+    body, no kernel but the initial draws) and ``"legacy-ota"`` the legacy
+    round under OTA with the keyed OTA kernel, both with the host schedule.
+    The launch counts are zeroed just before and read just after the
+    schedule and the run."""
     from repro_torch.core import channel, fl, scheduling
 
     ds, cell, shards = _world(m, samples)
-    uplink = mode if mode in ("ota", "tdma") else "noma"
+    uplink = "ota" if mode in ("ota", "legacy-ota") else (
+        "tdma" if mode == "tdma" else "noma")
+    legacy = mode in ("legacy", "legacy-ota")
     overrides = {"topk": dict(topk=TOPK),
-                 "bucketed": dict(client_bank="bucketed")}.get(mode, {})
-    cfg = _config(m, t, "jax" if mode in ("jax", "pallas") else "numpy",
-                  uplink, **overrides)
+                 "bucketed": dict(client_bank="bucketed"),
+                 "random": dict(scheduler="random")}.get(mode, {})
+    if legacy:
+        cfg = _legacy_config(m, t, uplink)
+    else:
+        cfg = _config(m, t, "jax" if mode in ("jax", "pallas") else "numpy",
+                      uplink, **overrides)
     bundle = channel.sample_channels(cfg.seed, cell, cfg.num_rounds)
     sizes = np.array([len(s) for s in shards], dtype=np.float64)
     reset_launches(kernels)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     schedule = None
-    if mode in ("host", "ota", "tdma", "topk", "bucketed"):
+    if mode in ("host", "ota", "tdma", "topk", "bucketed", "random",
+                "legacy", "legacy-ota"):
         schedule = fl.make_schedule(bundle.gains, sizes / sizes.sum(), cell,
                                     cfg)
     elif mode == "pallas":
@@ -1413,8 +1454,9 @@ def run_main_path(kernels, mode, m=300, t=5, samples=12_000):
             sizes / sizes.sum(), pcfg)
     t_sched = time.perf_counter() - t0
     if schedule is not None:
-        log(f"[main:{mode}] M={m} K={cfg.group_size} T={t} samples={samples}:"
-            f" schedule (lazy-gwmin + {cfg.power_mode}) {t_sched:.3f} s")
+        log(f"[main:{mode}] M={m} K={cfg.group_size} T={t} samples={samples}"
+            f" engine={cfg.fl_engine} use_pallas={cfg.use_pallas}: schedule "
+            f"({cfg.scheduler} + {cfg.power_mode}) {t_sched:.3f} s")
 
     stamps = []    # host clock at the start, then after each round
 
@@ -1441,28 +1483,23 @@ def run_main_path(kernels, mode, m=300, t=5, samples=12_000):
 
     nonempty = sum(1 for lg in res.logs if lg.devices)
     acc = res.accuracies()
+    want = {name: 0 for name in launches}   # the codec and flash decode
     # one grouped launch for the six leaves, or one on the concatenated
-    # payload under top-k, per non-empty round
-    want_agg = 0 if mode == "ota" else nonempty
-    check(launches["weighted_aggregate"] == want_agg,
-          f"weighted_aggregate launched {launches['weighted_aggregate']} "
-          f"times, expected {want_agg} ({nonempty} non-empty rounds)")
-    want_ota = nonempty if uplink == "ota" else 0
-    check(launches["ota_aggregate"] == want_ota,
-          f"ota_aggregate launched {launches['ota_aggregate']} times, "
-          f"expected {want_ota} ({nonempty} non-empty rounds)")
-    want_sic = min(t, m // cfg.group_size) if mode == "pallas" else 0
-    check(launches["sic_weighted_rates"] == want_sic,
-          f"sic_weighted_rates launched {launches['sic_weighted_rates']} "
-          f"times, expected {want_sic} greedy steps")
-    for name in ("quantize_codes", "dequantize_codes", "quantize_dequantize"):
-        check(launches[name] == 0, f"{name} launched on the FL path")
+    # payload under top-k, per non-empty round of the batched engine; the
+    # legacy round sums on the host
+    want["weighted_aggregate"] = (
+        0 if uplink == "ota" or cfg.fl_engine == "legacy" else nonempty)
+    want["ota_aggregate"] = (
+        nonempty if uplink == "ota" and cfg.use_pallas else 0)
+    want["sic_weighted_rates"] = (
+        min(t, m // cfg.group_size) if mode == "pallas" else 0)
     # LeNet's initial weights; the OTA round forms its noise inside the
     # keyed OTA kernel, so it draws none
-    want_draws = LENET_WEIGHT_LEAVES
-    check(launches["threefry_draw"] == want_draws,
-          f"threefry_draw launched {launches['threefry_draw']} times, "
-          f"expected {want_draws}")
+    want["threefry_draw"] = LENET_WEIGHT_LEAVES
+    for name, n in want.items():
+        check(launches[name] == n,
+              f"{name} launched {launches[name]} times on [main:{mode}], "
+              f"expected {n} ({nonempty} non-empty rounds)")
     check(bool(np.all(np.isfinite(acc))), f"non-finite accuracy {acc}")
     check(acc[-1] > acc[0], f"accuracy did not improve: {acc.tolist()}")
     for layer in res.final_params.values():
@@ -1470,6 +1507,56 @@ def run_main_path(kernels, mode, m=300, t=5, samples=12_000):
             check(leaf.device.type == "cuda" and bool(torch.isfinite(leaf).all()),
                   "final parameters not finite on the card")
     return res, launches
+
+
+def _check_equal_logs(got, want, label):
+    """One engine's run against another's on the same draws: schedules,
+    bits, rates, ratios and times exact, accuracy within ACC_ATOL; returns
+    the worst mean and max parameter drift over the leaves, which it
+    prints."""
+    check([lg.devices for lg in got.logs] == [lg.devices for lg in want.logs],
+          f"{label} schedules differ")
+    for a, b in zip(got.logs, want.logs):
+        for field in ("bits", "rates", "compression_ratios"):
+            check(np.array_equal(getattr(a, field), getattr(b, field)),
+                  f"{label} round {a.round} {field} differ")
+    check(np.array_equal(got.times(), want.times()), f"{label} times differ")
+    acc_gap = float(np.max(np.abs(got.accuracies() - want.accuracies())))
+    check(acc_gap <= ACC_ATOL, f"{label} accuracy gap {acc_gap}")
+    worst_mean = worst_max = 0.0
+    for name, layer in want.final_params.items():
+        for leaf, v in layer.items():
+            d = (got.final_params[name][leaf].double().cpu()
+                 - v.double().cpu()).abs()
+            worst_mean = max(worst_mean, d.mean().item())
+            worst_max = max(worst_max, d.max().item())
+    log(f"{label} schedules/bits/rates/ratios/times equal, acc gap "
+        f"{acc_gap!r}, param drift mean {worst_mean!r} max {worst_max!r}")
+    return worst_mean, worst_max
+
+
+def _check_code_flips(cpu_rounds, card_rounds, k, label):
+    """F1's shape (ROADMAP.md queue 3, tests/test_torch_fl.py): round by
+    round the card's weights stay within float order of the CPU's until a
+    round in which a few elements jump, DoReFa codes flipped on a rounding
+    boundary, at most one per scheduled client.  A wrong bit width, scale
+    or schedule would move whole leaves in the first round it touched."""
+    check(len(cpu_rounds) == len(card_rounds) > 0, f"{label} round count")
+    for t, (a, b) in enumerate(zip(cpu_rounds, card_rounds)):
+        jumped = {name: int(((a[name] - b[name]).abs() > F1_FLOAT_ORDER)
+                            .sum()) for name in a}
+        if sum(jumped.values()):
+            break
+    else:
+        return
+    check(t > 0, f"{label}: round 0 already leaves float order {jumped}")
+    check(sum(jumped.values()) <= k,
+          f"{label}: round {t}: {sum(jumped.values())} elements beyond float "
+          f"order {jumped}")
+    log(f"{label}: the final weights leave the drift contract as in F1 "
+        f"(float order amplified by quantization, ROADMAP.md queue 3): float "
+        f"order until round {t}, where {sum(jumped.values())} element(s) "
+        f"jump (at most K={k} code flips) {jumped}")
 
 
 def _check_identical_runs(got, want, label):
@@ -1591,59 +1678,66 @@ def run_topk_main_path(kernels):
 
 
 def compare_cpu_and_card(kernels, m=30, t=5, samples=12_000, uplink="noma",
-                         topk=1.0):
+                         topk=1.0, legacy=False):
     """The M=30 run on the CPU (plain versions) and on the card (kernels):
     with ``scheduler_backend="jax"`` (greedy on the CPU and on the card)
     under NOMA, under OTA with ota-align powers, receiver noise 1e-9
-    and truncation threshold 0.1, and with the top-k stage (``topk`` < 1,
-    host schedule)."""
+    and truncation threshold 0.1, with the top-k stage (``topk`` < 1,
+    host schedule), and ``legacy``: ``FLConfig``'s defaults, the legacy
+    round body.  Held to the full contract, parameter drift included."""
     from repro_torch.core import fl
 
     ds, cell, shards = _world(m, samples)
-    if uplink == "ota":
+    rounds = {"cpu": [], "cuda": []}
+    if legacy:
+        cfg = _legacy_config(m, t)
+    elif uplink == "ota":
         cfg = _config(m, t, "numpy", "ota", ota_threshold=0.1)
     elif topk < 1.0:
         cfg = _config(m, t, "numpy", topk=topk)
     else:
         cfg = _config(m, t, "jax")
-    cpu = fl.run_federated_learning(ds, shards, cell, cfg, device="cpu")
-    reset_launches(kernels)
-    gpu = fl.run_federated_learning(ds, shards, cell, cfg, device="cuda")
-    launches = read_launches(kernels)
-    check([lg.devices for lg in cpu.logs] == [lg.devices for lg in gpu.logs],
-          "schedules differ between CPU and card")
-    for a, b in zip(cpu.logs, gpu.logs):
-        for field in ("bits", "rates", "compression_ratios"):
-            check(np.array_equal(getattr(a, field), getattr(b, field)),
-                  f"round {a.round} {field} differ between CPU and card")
-    check(np.array_equal(cpu.times(), gpu.times()), "times differ")
-    acc_gap = float(np.max(np.abs(cpu.accuracies() - gpu.accuracies())))
-    check(acc_gap <= ACC_ATOL, f"accuracy gap {acc_gap}")
-    worst_mean = worst_max = 0.0
-    for name, layer in cpu.final_params.items():
-        for leaf, v in layer.items():
-            d = (v.double() - gpu.final_params[name][leaf].cpu().double()).abs()
-            worst_mean = max(worst_mean, d.mean().item())
-            worst_max = max(worst_max, d.max().item())
-    check(worst_mean < PARAM_MEAN_ATOL and worst_max < PARAM_MAX_ATOL,
-          f"param drift mean {worst_mean} max {worst_max}")
-    if uplink == "ota":
+    legacy_round = fl._legacy_round
+
+    def keep(*args, **kwargs):      # each round's weights, on the host
+        out = legacy_round(*args, **kwargs)
+        dev = "cpu" if args[0]["fc1"]["w"].device.type == "cpu" else "cuda"
+        rounds[dev].append({f"{a}/{c}": v.double().cpu()
+                            for a, d in out[0].items() for c, v in d.items()})
+        return out
+
+    if legacy:
+        fl._legacy_round = keep
+    try:
+        cpu = fl.run_federated_learning(ds, shards, cell, cfg, device="cpu")
+        reset_launches(kernels)
+        gpu = fl.run_federated_learning(ds, shards, cell, cfg, device="cuda")
+        launches = read_launches(kernels)
+    finally:
+        fl._legacy_round = legacy_round
+    if legacy:
+        label = f"[cpu-vs-card:legacy] M={m} FLConfig defaults (legacy)"
+    elif uplink == "ota":
         label = f"[cpu-vs-card:ota] M={m} ota-align noise 1e-9 threshold 0.1"
     elif topk < 1.0:
         label = f"[cpu-vs-card:topk] M={m} topk={topk}"
     else:
         label = f"[parity] M={m} scheduler_backend='jax'"
+    worst_mean, worst_max = _check_equal_logs(gpu, cpu, label + " CPU vs card:")
+    within = worst_mean < PARAM_MEAN_ATOL and worst_max < PARAM_MAX_ATOL
+    if legacy and not within:
+        _check_code_flips(rounds["cpu"], rounds["cuda"], cfg.group_size,
+                          label)
+    else:
+        check(within, f"{label} param drift mean {worst_mean} max {worst_max}")
     nonempty = sum(1 for lg in gpu.logs if lg.devices)
     check(launches["ota_aggregate"] == (nonempty if uplink == "ota" else 0),
           f"card run launched ota_aggregate {launches['ota_aggregate']} times")
-    want_agg = 0 if uplink == "ota" else nonempty
+    want_agg = 0 if uplink == "ota" or legacy else nonempty
     check(launches["weighted_aggregate"] == want_agg,
           f"card run launched weighted_aggregate "
           f"{launches['weighted_aggregate']} times, expected {want_agg}")
-    log(f"{label} CPU vs card: "
-        f"schedules/bits/rates/ratios/times equal, acc gap {acc_gap!r}, "
-        f"param drift mean {worst_mean!r} max {worst_max!r}, card launches "
-        f"{launches}")
+    log(f"{label}: card launches {launches}")
 
 
 # --------------------------------------------------------------------------
@@ -1958,6 +2052,17 @@ def main() -> int:
           "the top-k and host runs scheduled differently")
     _check_identical_runs(bucketed_run, host, "[main:bucketed]")
     compare_cpu_and_card(kernels, topk=TOPK)
+
+    legacy_run, _ = run_main_path(kernels, "legacy")
+    _check_equal_logs(legacy_run, host, "[main:legacy] against [main:host]:")
+    legacy_ota_run, _ = run_main_path(kernels, "legacy-ota")
+    _check_equal_logs(legacy_ota_run, ota_run,
+                      "[main:legacy-ota] against [main:ota]:")
+    random_run, _ = run_main_path(kernels, "random")
+    check([lg.devices for lg in random_run.logs]
+          != [lg.devices for lg in host.logs],
+          "the random schedule equals the lazy-gwmin one")
+    compare_cpu_and_card(kernels, legacy=True)
 
     flash_mod = kernels[6]["module"]
     flash_err = compare_flash(flash_mod)

@@ -1,12 +1,12 @@
 """FL settings (paper §IV, Table I): the port's ``FLConfig``.
 
 The same field names and defaults as ``repro.config.FLConfig``, validated
-at construction with the reference's rules for the main path.  Settings the
-reference accepts but this slice of the port does not run yet raise
-``NotImplementedError`` naming the ``ROADMAP.md`` queue 1 item that brings
-them, so a run is never quietly a different simulation.  Note that the
-reference's default ``fl_engine="legacy"`` is one of them: pass
-``fl_engine="batched"``.
+at construction with the reference's rules, so ``FLConfig()`` is the
+reference's default run (the legacy round body).  Settings the reference
+accepts but the port does not run yet (online policies, ``horizon="scan"``
+and the non-LeNet models) raise ``NotImplementedError`` naming the
+``ROADMAP.md`` queue 1 item that brings them, so a run is never quietly a
+different simulation.
 """
 from __future__ import annotations
 
@@ -35,16 +35,24 @@ class FLConfig:
     learning_rate: float = 0.01      # eta
     batch_size: int = 10             # B
     local_epochs: int = 1
-    scheduler: str = "lazy-gwmin"    # lazy-gwmin | round-robin (ported)
+    scheduler: str = "lazy-gwmin"    # lazy-gwmin | literal-gwmin | random |
+                                     # round-robin | proportional-fair
+                                     # (ported); update-aware | age-fair |
+                                     # matching-pursuit (online, item 5)
     scheduler_backend: str = "numpy"  # numpy (host) | jax (device, fused) |
                                       # jax-stepwise (device, sync per step)
     power_mode: str = "mapel"        # mapel | max | ota-align (ported)
     compression: str = "adaptive"    # adaptive | none
     paper_exact_range: bool = False  # DoReFa fixed [-1,1] range (Eq. 7)
-    fl_engine: str = "legacy"        # batched (ported) | legacy
-    use_pallas: bool = False         # batched engine: aggregate through the
-                                     # hand-written kernel (the reference's
-                                     # name for its fused Pallas path)
+    fl_engine: str = "legacy"        # legacy (per-device round body, the
+                                     # oracle) | batched (client bank, one
+                                     # aggregation launch per round); both
+                                     # ported
+    use_pallas: bool = False         # aggregate through the hand-written
+                                     # kernel (the reference's name for its
+                                     # fused Pallas path): the batched
+                                     # engine's rounds, and the OTA rounds
+                                     # of both engines
     horizon: str = "per-round"       # per-round (ported) | scan
     eval_sample: float = 1.0         # fraction of the test set evaluated per
                                      # round; 1.0 = full test set
@@ -93,8 +101,27 @@ class FLConfig:
             raise ValueError(
                 f"eval_sample must be in (0, 1], got {self.eval_sample}"
             )
+        if (
+            self.eval_sample < 1.0
+            and self.fl_engine == "legacy"
+            and self.horizon == "per-round"
+        ):
+            raise ValueError(
+                "eval_sample < 1 requires fl_engine='batched' or "
+                "horizon='scan' (the legacy loop always evaluates the full "
+                "test set)"
+            )
         if not 0.0 < self.topk <= 1.0:
             raise ValueError(f"topk must be in (0, 1], got {self.topk}")
+        if (
+            self.topk < 1.0
+            and self.fl_engine == "legacy"
+            and self.horizon == "per-round"
+        ):
+            raise ValueError(
+                "topk < 1 requires fl_engine='batched' or horizon='scan' "
+                "(the legacy oracle loop is dense DoReFa only)"
+            )
         if self.topk < 1.0 and self.compression != "adaptive":
             raise ValueError(
                 "topk < 1 requires compression='adaptive': the sparse "
@@ -105,6 +132,14 @@ class FLConfig:
             raise ValueError(
                 f"unknown client_bank {self.client_bank!r}; "
                 f"known: ('padded', 'bucketed')"
+            )
+        if self.client_bank == "bucketed" and not (
+            self.fl_engine == "batched" and self.horizon == "per-round"
+        ):
+            raise ValueError(
+                "client_bank='bucketed' requires fl_engine='batched' with "
+                "horizon='per-round': the scan horizon indexes one dense "
+                "(M, NB, ...) bank inside the traced program"
             )
         ota_lib.check_uplink(
             self.uplink, compression=self.compression, topk=self.topk,
@@ -122,12 +157,8 @@ class FLConfig:
 
     def _check_ported(self):
         """Valid settings that a later slice of the port brings."""
-        if self.fl_engine == "legacy":
-            raise _not_ported("fl_engine='legacy'", 1)
         if self.scheduler in scheduling.REFERENCE_ONLINE_POLICIES:
             raise _not_ported(f"online scheduler {self.scheduler!r}", 5)
-        if self.scheduler not in scheduling.available_policies():
-            raise _not_ported(f"scheduler {self.scheduler!r}", 1)
         if self.horizon == "scan":
             raise _not_ported("horizon='scan'", 4)
         if self.model != "lenet":

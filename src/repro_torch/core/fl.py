@@ -3,7 +3,8 @@
 FedAvg over the simulated NOMA cell, per round t:
     1. PS broadcasts theta^t (downlink timing model, no compression).
     2. The precomputed schedule assigns K devices to round t (the MWIS
-       schedule over the whole horizon, planned before training).
+       schedule over the whole horizon, or a §IV baseline, planned before
+       training).
     3. Each scheduled device runs local SGD on its own non-iid shard.
     4. The SIC uplink rate of each device over the shared slot sets its bit
        budget c_k = R_k * B * t; its delta is DoReFa-quantized to
@@ -17,18 +18,31 @@ FedAvg over the simulated NOMA cell, per round t:
   aggregation): the raw deltas are superposed on air and the noisy sum is
   the aggregate (:mod:`repro_torch.core.ota`); one shared slot, as NOMA.
 
-The port of ``repro.core.fl``'s per-round loop with the batched engine:
-the host control plane (channels, schedule, MAPEL powers, rates, budgets,
-timing) is float64 numpy, steps 3-5 run on the device in
-:class:`repro_torch.core.fl_engine.BatchedRoundEngine`.  With
-``scheduler_backend="jax"`` or ``"jax-stepwise"`` the schedule's greedy
-search runs on the run's device too (float64, the same schedule).  Without
-``channels=`` and ``init_params=`` the run draws what the reference draws
-from ``PRNGKey(seed)``: positions under ``fold_in(key, 1)``, fading under
-``fold_in(key, 2)`` and the initial weights under the per-leaf keys of
-``init_params`` (:mod:`repro_torch.core.prng`, bit for bit), so seed s is
-the reference's seed s.  ``channels=`` and ``init_params=`` replace those
-draws with given ones.
+The port of ``repro.core.fl``'s per-round loop.  The host control plane
+(channels, schedule, MAPEL powers, rates, budgets, timing) is float64
+numpy; steps 3-5 run on the run's device in one of the reference's two
+round-body engines, selected by ``FLConfig.fl_engine``:
+
+  * ``"legacy"`` (the default) — :func:`_legacy_round`: one
+    :func:`local_update` per scheduled device (its shard copied to the
+    device, then ``fl_engine.sgd_epoch`` with a client axis of 1), the
+    eager DoReFa codec per device, and the FedAvg sum as separate float32
+    products and sums in client order, as the reference's host
+    ``tree_map`` takes them; under OTA the deltas are stacked and
+    superposed (:func:`repro_torch.core.ota.superpose_tree`).  It is the
+    reference's oracle, and the batched engine is held against it.
+  * ``"batched"`` — :class:`repro_torch.core.fl_engine.BatchedRoundEngine`:
+    every shard resident in a client bank, the K clients trained at once
+    and the round's aggregation in one kernel launch (``use_pallas``).
+
+With ``scheduler_backend="jax"`` or ``"jax-stepwise"`` the schedule's
+greedy search runs on the run's device too (float64, the same schedule).
+Without ``channels=`` and ``init_params=`` the run draws what the reference
+draws from ``PRNGKey(seed)``: positions under ``fold_in(key, 1)``, fading
+under ``fold_in(key, 2)`` and the initial weights under the per-leaf keys
+of ``init_params`` (:mod:`repro_torch.core.prng`, bit for bit), so seed s
+is the reference's seed s.  ``channels=`` and ``init_params=`` replace
+those draws with given ones.
 """
 from __future__ import annotations
 
@@ -36,12 +50,15 @@ import dataclasses
 from typing import Callable, Optional
 
 import numpy as np
+import torch
 
 from repro_torch.config import FLConfig
 from repro_torch.convert import params_from_jax
 from repro_torch.core import channel as chan
-from repro_torch.core import fl_engine, noma, scheduling
+from repro_torch.core import compression, fl_engine, noma, scheduling
 from repro_torch.core import ota as ota_lib
+from repro_torch.core import quantization as qlib
+from repro_torch.core import tree as tree_lib
 from repro_torch.device import resolve_device
 from repro_torch.models.fl_models import get_fl_model
 
@@ -68,6 +85,112 @@ class FLResult:
 
     def times(self):
         return np.array([l.wall_time_s for l in self.logs])
+
+
+# --------------------------------------------------------------------------
+# Local training and the legacy round body (the oracle)
+# --------------------------------------------------------------------------
+
+def local_update(params, xs, ys, cfg: FLConfig, model):
+    """Run local epochs on one device's shard; returns the delta (new - old).
+
+    The shard (numpy rows ``xs`` and labels ``ys``) is padded to
+    ``ceil(n / batch_size)`` batches with label -1, copied to the
+    parameters' device and trained by ``fl_engine.sgd_epoch`` with a client
+    axis of 1.
+    """
+    n = len(xs)
+    bs = cfg.batch_size
+    n_batches = max(1, (n + bs - 1) // bs)
+    pad = n_batches * bs - n
+    xp = np.concatenate([xs, np.zeros((pad, *xs.shape[1:]), xs.dtype)])
+    yp = np.concatenate([ys, np.full((pad, *ys.shape[1:]), -1, ys.dtype)])
+    dev = tree_lib.tree_flatten(params)[0][0].device
+    xb = torch.from_numpy(xp.reshape(1, n_batches, bs, *xs.shape[1:])).to(dev)
+    yb = torch.from_numpy(yp.reshape(1, n_batches, bs, *ys.shape[1:])).to(dev)
+    start = tree_lib.tree_map(lambda w: w.unsqueeze(0), params)
+    new = start
+    for _ in range(cfg.local_epochs):
+        new = fl_engine.sgd_epoch(new, xb, yb, cfg.learning_rate, model=model)
+    return tree_lib.tree_map(lambda a, b: (a - b)[0], new, start)
+
+
+def _tree_l2(tree) -> float:
+    """||tree||_2 over all leaves in float32 (the update-aware policies'
+    norm signal); one host sync."""
+    leaves = tree_lib.tree_flatten(tree)[0]
+    return float(torch.sqrt(sum(
+        torch.dot(leaf.reshape(-1), leaf.reshape(-1)) for leaf in leaves
+    )))
+
+
+def _legacy_round(
+    params, devs, budgets, agg_w, dataset, shards, cfg: FLConfig, payload,
+    *, need_norms: bool, model, ota=None,
+):
+    """The per-device host round body (steps 3-5), kept as the oracle.
+
+    One :func:`local_update` + eager quantize pass per scheduled device,
+    then the FedAvg sum ``sum(w * d)`` over the devices in order, each
+    ``w`` the float32 rounding of the float64 weight and each product and
+    sum its own float32 op (no fused multiply-add), from ``0``, and ``p +
+    u``: the reference's host ``tree_map`` to the bit for the same deltas.
+    Under the OTA uplink (``ota``: gains, key, pmax) the raw deltas are
+    stacked client-major and superposed by
+    :func:`repro_torch.core.ota.superpose_tree`, which under ``use_pallas``
+    launches the keyed OTA kernel once.  Returns ``(params, bits_used,
+    ratios, norms)``; an empty round (T*K > M tails) trains and aggregates
+    nothing.
+    """
+    deltas, bits_used, ratios, norms = [], [], [], []
+    for j, d in enumerate(devs):
+        idx = shards[d]
+        delta = local_update(
+            params, dataset.x_train[idx], dataset.y_train[idx], cfg, model
+        )
+        if need_norms:
+            # the raw local update, before quantization
+            norms.append(_tree_l2(delta))
+        if cfg.compression == "adaptive":
+            # the host budget rounded to float32: the reference computes
+            # the ratio and the bits in float32 from it
+            budget = torch.tensor(float(budgets[j]), dtype=torch.float32)
+            b = int(qlib.adaptive_bits(payload, budget))
+            delta = compression.encode_decode_tree(
+                delta, b, paper_exact=cfg.paper_exact_range
+            )
+            bits_used.append(b)
+            ratios.append(float(qlib.compression_ratio(payload, budget)))
+        else:
+            bits_used.append(32)
+            ratios.append(1.0)
+        deltas.append(delta)
+
+    if deltas and ota is not None:
+        dev = tree_lib.tree_flatten(params)[0][0].device
+        stacked = tree_lib.tree_map(lambda *ds: torch.stack(ds), *deltas)
+
+        def f32(values):
+            host = torch.as_tensor(np.asarray(values, np.float64))
+            return fl_engine._to_device(host.to(torch.float32), dev)
+
+        with torch.no_grad():
+            update = ota_lib.superpose_tree(
+                stacked, f32(ota["gains"]), f32(agg_w), ota["key"],
+                pmax=float(ota["pmax"]), noise_std=float(cfg.ota_noise),
+                threshold=float(cfg.ota_threshold),
+                use_pallas=bool(cfg.use_pallas),
+            )
+        params = tree_lib.tree_map(lambda p, u: p + u, params, update)
+    elif deltas:
+        # float32 values of the float64 weights, as Python floats: each
+        # product is one correctly rounded float32 multiply
+        w32 = [float(np.float32(w)) for w in agg_w]
+        update = tree_lib.tree_map(
+            lambda *ds: sum(w * d for w, d in zip(w32, ds)), *deltas
+        )
+        params = tree_lib.tree_map(lambda p, u: p + u, params, update)
+    return params, bits_used, ratios, norms
 
 
 # --------------------------------------------------------------------------
@@ -163,6 +286,12 @@ def run_federated_learning(
     """Simulate the full FL process; returns per-round logs.
 
     dataset: ``repro_torch.data.Dataset``; shards: per-device index lists.
+    ``cfg.fl_engine`` picks the round body: ``"legacy"`` trains, quantizes
+    and sums device by device (:func:`_legacy_round`) and evaluates the
+    full test set, copied to the device once, every evaluated round;
+    ``"batched"`` runs each round in a
+    :class:`~repro_torch.core.fl_engine.BatchedRoundEngine` over a client
+    bank.  Both evaluate every ``eval_every`` rounds and the final round.
     ``uplink`` defaults to ``cfg.uplink`` and an explicit argument
     overrides it (checked against the config's combination rules either
     way).  Under ``"ota"`` the round's aggregate is the noisy analog
@@ -191,9 +320,16 @@ def run_federated_learning(
     sizes = np.array([len(s) for s in shards], dtype=np.float64)
     weights = sizes / sizes.sum()
 
-    engine = fl_engine.BatchedRoundEngine(
-        dataset, shards, cfg, payload, device=dev, model=model
-    )
+    # None selects the legacy per-device round body (the oracle)
+    engine = None
+    if cfg.fl_engine == "batched":
+        engine = fl_engine.BatchedRoundEngine(
+            dataset, shards, cfg, payload, device=dev, model=model
+        )
+    else:
+        # the legacy loop evaluates the full test set, on the device once
+        x_test = torch.from_numpy(np.asarray(dataset.x_test)).to(dev)
+        y_test = torch.from_numpy(np.asarray(dataset.y_test)).to(dev)
 
     if channels is None:
         channels = chan.sample_channels(cfg.seed, cell, cfg.num_rounds)
@@ -227,13 +363,26 @@ def run_federated_learning(
         if ota_keys is not None and devs:
             ota_round = dict(gains=gains[t, list(devs)], key=ota_keys[t],
                              pmax=float(cell.max_power_w))
-        params, bits_used, ratios = engine.run_round(
-            params, devs, budgets, agg_w, ota=ota_round
-        )
+        if engine is not None:
+            params, bits_used, ratios = engine.run_round(
+                params, devs, budgets, agg_w, ota=ota_round
+            )
+        else:
+            # precomputed policies read no update norms
+            params, bits_used, ratios, _ = _legacy_round(
+                params, devs, budgets, agg_w, dataset, shards, cfg, payload,
+                need_norms=False, model=model, ota=ota_round,
+            )
         t_wall += round_time
         # the final round is always evaluated
         do_eval = t % eval_every == 0 or t == cfg.num_rounds - 1
-        acc = engine.evaluate(params, t) if do_eval else logs[-1].test_accuracy
+        if not do_eval:
+            acc = logs[-1].test_accuracy
+        elif engine is not None:
+            acc = engine.evaluate(params, t)
+        else:
+            acc = float(fl_engine._eval_full(params, x_test, y_test,
+                                             model=model))
         log = RoundLog(t, tuple(devs), np.asarray(rates), np.asarray(bits_used),
                        np.asarray(ratios), acc, t_wall)
         logs.append(log)

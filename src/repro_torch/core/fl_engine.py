@@ -51,7 +51,8 @@ from repro_torch.kernels.fma import fma_dot
 from repro_torch.models.fl_models import get_fl_model
 
 ENGINES = ("legacy", "batched")
-# the reference's round-body engines; this slice ports "batched"
+# the reference's round-body engines, both ported: "legacy" is the
+# per-device round body in repro_torch.core.fl, "batched" this module
 
 HORIZON_MODES = ("per-round", "scan")
 # the reference's horizon modes; this slice ports "per-round"

@@ -23,8 +23,8 @@ implemented below with polyblock vertices kept in float64 on the host (this is
 control-plane math: K <= 4, a few hundred iterations).
 
 This module is the port's float64 numpy copy of ``repro.core.power`` (the
-main-path part): the arithmetic is the reference's op for op, so powers are
-bit-identical to it.
+main-path part and the test oracle :func:`grid_oracle`): the arithmetic is
+the reference's op for op, so powers are bit-identical to it.
 
 Decode order: following the uplink-NOMA convention (and the paper's WLOG
 sorting) we fix the decode order by channel gain, strongest first.
@@ -540,3 +540,20 @@ def weighted_rate(powers, gains, weights, noise_power) -> float:
     the schedulers, and the kernels all agree on one SIC rate definition.
     """
     return rates_lib.weighted_rate(powers, gains, weights, noise_power)
+
+
+def grid_oracle(
+    gains, weights, pmax, noise_power, *, points: int = 40
+) -> PowerSolution:
+    """Brute-force grid search oracle (tests only; exponential in K)."""
+    gains = np.asarray(gains, dtype=np.float64)
+    weights = np.asarray(weights, dtype=np.float64)
+    k = len(gains)
+    axes = [np.linspace(0.0, pmax, points) for _ in range(k)]
+    best, best_p = -np.inf, None
+    grid = np.stack(np.meshgrid(*axes, indexing="ij"), axis=-1).reshape(-1, k)
+    for p in grid:
+        val = weighted_rate(p, gains, weights, noise_power)
+        if val > best:
+            best, best_p = val, p
+    return PowerSolution(np.asarray(best_p), float(best), len(grid), 0.0)

@@ -1,20 +1,22 @@
-"""User scheduling for FL over NOMA (paper §III), main-path part.
+"""User scheduling for FL over NOMA (paper §III): the precomputed policies.
 
 The port's float64 numpy copy of the host control plane in
 ``repro.core.scheduling``: the policy registry, the shared finalization
-(power allocation + SIC rates, :func:`finalize_schedule`), and the paper's
-lazy GWMIN MWIS greedy (``lazy-gwmin``) with the numpy backend, plus the
-``round-robin`` baseline.  Every function is the reference's op for op, so
+(power allocation + SIC rates, :func:`finalize_schedule`), the paper's
+lazy GWMIN MWIS greedy (``lazy-gwmin``), the literal Algorithm 2 on the
+explicit graph (``literal-gwmin``, small M only), the baselines
+(``random``, ``round-robin``, ``proportional-fair``) and the exponential
+test oracle :func:`brute_force_schedule`.  Every function is the
+reference's op for op, Python set operations and numpy sorts included, so
 schedules, powers and rates are bit-identical to it, T*K > M tails included
-(tests/test_torch_control_plane.py).
+(tests/test_torch_control_plane.py, tests/test_torch_policies.py).
 
 Policies are looked up by name (:func:`register_policy` /
 :func:`get_policy`).  A precomputed policy plans the whole horizon in
-``init_state`` and replays it in ``select_round``.  The reference's other
-policies (literal-gwmin, random, proportional-fair and the online ones)
-come with later slices of the port (``ROADMAP.md`` queue 1);
-:data:`REFERENCE_POLICIES` names them so configuration checks can tell "not
-ported yet" from "unknown".
+``init_state`` and replays it in ``select_round``.  The reference's online
+policies come with a later slice of the port (``ROADMAP.md`` queue 1 item
+5); :data:`REFERENCE_POLICIES` names them so configuration checks can tell
+"not ported yet" from "unknown".
 
 All three lazy-greedy backends run: ``"numpy"`` on the host, and the
 device-resident ``"jax"`` (fused, one host sync per schedule) and
@@ -58,8 +60,8 @@ REFERENCE_POLICIES = (
     "age-fair", "lazy-gwmin", "literal-gwmin", "matching-pursuit",
     "proportional-fair", "random", "round-robin", "update-aware",
 )
-# every policy the reference registers; the ones missing from this
-# module's registry raise NotImplementedError in FLConfig
+# every policy the reference registers; the online ones are missing from
+# this module's registry and raise NotImplementedError in FLConfig
 
 REFERENCE_ONLINE_POLICIES = ("age-fair", "matching-pursuit", "update-aware")
 
@@ -224,6 +226,109 @@ def finalize_schedule(rounds, gains_tm, weights_m, power_fn, noise_power, method
     for t in range(num_rounds):    # accumulate in round order (reproducible)
         total += float(vals[t])
     return Schedule(list(map(tuple, rounds)), powers, rates, total, method)
+
+
+# --------------------------------------------------------------------------
+# Literal Algorithm 2 on the explicit scheduling graph
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class SchedulingGraph:
+    vertices: list          # list of (subset tuple, t)
+    weights: np.ndarray     # (V,)
+    adjacency: list         # list[V] of set[int]
+
+    def degree(self, v: int) -> int:
+        return len(self.adjacency[v])
+
+
+def build_scheduling_graph(
+    gains_tm: np.ndarray,
+    weights_m: np.ndarray,
+    k: int,
+    power_fn: PowerFn,
+    noise_power: float,
+) -> SchedulingGraph:
+    """Explicit graph with C(M,K)*T vertices (paper §III-A).
+
+    Small M only: the adjacency is built pairwise in Python, O(V^2) with
+    V = C(M, K) * T (at the paper's M=300, K=3 that is 4.5e6 * T vertices,
+    which cannot be built).
+    """
+    num_rounds, num_devices = gains_tm.shape
+    subsets = list(itertools.combinations(range(num_devices), k))
+    vertices = [(subset, t) for t in range(num_rounds) for subset in subsets]
+    subs_vk = np.array(subsets, dtype=np.intp).reshape(len(subsets), k)
+    weights = np.concatenate(
+        [
+            score_subsets(subs_vk, t, gains_tm, weights_m, power_fn, noise_power)
+            for t in range(num_rounds)
+        ]
+    )
+    adjacency = [set() for _ in vertices]
+    for i, (si, ti) in enumerate(vertices):
+        set_i = set(si)
+        for j in range(i + 1, len(vertices)):
+            sj, tj = vertices[j]
+            if ti == tj or set_i & set(sj):
+                adjacency[i].add(j)
+                adjacency[j].add(i)
+    return SchedulingGraph(vertices, weights, adjacency)
+
+
+def gwmin_mwis(graph: SchedulingGraph) -> list:
+    """Algorithm 2: greedy maximum-weight independent set (GWMIN).
+
+    Returns selected vertex indices. J(v) = v and its neighbours; beta(v) the
+    degree; Q = {v : w(v) >= sum_{u in J(v)} w(u)/(beta(u)+1)};
+    v* = argmax_{v in Q} w(v)/(beta(v)+1).  The Python ``set`` operations
+    are the reference's, in its order: ``max`` breaks ties by the order in
+    which Q was filled from ``alive``, so the same sets pick the same vertex.
+    """
+    alive = set(range(len(graph.vertices)))
+    adj = {v: set(graph.adjacency[v]) for v in alive}
+    w = graph.weights
+    selected = []
+    while alive:
+        beta = {v: len(adj[v]) for v in alive}
+        q = []
+        for v in alive:
+            closed = adj[v] | {v}
+            thresh = sum(w[u] / (beta[u] + 1) for u in closed)
+            if w[v] >= thresh - 1e-12:
+                q.append(v)
+        if not q:  # theoretical fallback; GWMIN guarantees Q nonempty
+            q = list(alive)
+        v_star = max(q, key=lambda v: w[v] / (beta[v] + 1))
+        selected.append(v_star)
+        remove = adj[v_star] | {v_star}
+        alive -= remove
+        for v in alive:
+            adj[v] -= remove
+    return selected
+
+
+def _literal_gwmin_rounds(gains_tm, weights_m, k, power_fn, noise_power):
+    """Selection step of the literal Algorithm 2 (graph build + GWMIN)."""
+    graph = build_scheduling_graph(gains_tm, weights_m, k, power_fn, noise_power)
+    chosen = gwmin_mwis(graph)
+    rounds = [()] * gains_tm.shape[0]
+    for v in chosen:
+        subset, t = graph.vertices[v]
+        rounds[t] = subset
+    return rounds
+
+
+def literal_graph_schedule(
+    gains_tm, weights_m, k, *, power_mode="max", pmax=0.01, noise_power=1e-13
+) -> Schedule:
+    """Paper-exact Algorithm 2 (explicit graph). Small M only (see
+    :func:`build_scheduling_graph`)."""
+    power_fn = make_power_fn(power_mode, pmax, noise_power)
+    rounds = _literal_gwmin_rounds(gains_tm, weights_m, k, power_fn, noise_power)
+    return finalize_schedule(
+        rounds, gains_tm, weights_m, power_fn, noise_power, "literal-gwmin"
+    )
 
 
 def _best_subset_for_round(
@@ -480,6 +585,138 @@ def _round_robin_rounds(num_rounds, num_devices, k):
     ]
 
 
+def round_robin_schedule(
+    gains_tm, weights_m, k, *, power_mode="max", pmax=0.01, noise_power=1e-13
+) -> Schedule:
+    """Round robin: fixed device order, K per round (ref [6] policy).
+
+    When T*K > M the tail rounds get the leftover devices (possibly none)
+    instead of emitting out-of-range device ids — C1 still holds and every
+    id stays < num_devices.
+    """
+    power_fn = make_power_fn(power_mode, pmax, noise_power)
+    num_rounds, num_devices = gains_tm.shape
+    rounds = _round_robin_rounds(num_rounds, num_devices, k)
+    return finalize_schedule(
+        rounds, gains_tm, weights_m, power_fn, noise_power, "round-robin"
+    )
+
+
+# --------------------------------------------------------------------------
+# Exact optimum (tests only)
+# --------------------------------------------------------------------------
+
+def brute_force_schedule(
+    gains_tm, weights_m, k, *, power_mode="max", pmax=0.01, noise_power=1e-13
+) -> Schedule:
+    """Enumerate every feasible schedule (C1/C2) — exponential, tests only."""
+    power_fn = make_power_fn(power_mode, pmax, noise_power)
+    num_rounds, num_devices = gains_tm.shape
+    subsets = list(itertools.combinations(range(num_devices), k))
+    subs_vk = np.array(subsets, dtype=np.intp).reshape(len(subsets), k)
+    vals = {
+        (s, t): v
+        for t in range(num_rounds)
+        for s, v in zip(
+            subsets,
+            score_subsets(subs_vk, t, gains_tm, weights_m, power_fn, noise_power),
+        )
+    }
+    best_total, best_assign = -np.inf, None
+
+    def rec(t, used, total, assign):
+        nonlocal best_total, best_assign
+        if t == num_rounds:
+            if total > best_total:
+                best_total, best_assign = total, list(assign)
+            return
+        for s in subsets:
+            if used & set(s):
+                continue
+            assign.append(s)
+            rec(t + 1, used | set(s), total + vals[(s, t)], assign)
+            assign.pop()
+
+    rec(0, set(), 0.0, [])
+    return finalize_schedule(
+        best_assign, gains_tm, weights_m, power_fn, noise_power, "brute-force"
+    )
+
+
+# --------------------------------------------------------------------------
+# Baseline schedulers (paper §IV comparisons and ref [6] policies)
+# --------------------------------------------------------------------------
+
+def _random_rounds(rng: np.random.Generator, num_rounds, num_devices, k):
+    """Selection step of random scheduling: one device permutation, chunked
+    into K-groups round by round (tail rounds past the supply come back
+    empty)."""
+    perm = rng.permutation(num_devices)
+    return [tuple(perm[t * k : (t + 1) * k].tolist()) for t in range(num_rounds)]
+
+
+def random_schedule(
+    rng: np.random.Generator, gains_tm, weights_m, k,
+    *, power_mode="max", pmax=0.01, noise_power=1e-13,
+) -> Schedule:
+    """Random scheduling respecting C1 (each device at most once); ``rng``
+    a numpy Generator, whose permutation is the reference's."""
+    power_fn = make_power_fn(power_mode, pmax, noise_power)
+    num_rounds, num_devices = gains_tm.shape
+    rounds = _random_rounds(rng, num_rounds, num_devices, k)
+    return finalize_schedule(
+        rounds, gains_tm, weights_m, power_fn, noise_power, "random"
+    )
+
+
+def _proportional_fair_rounds(
+    gains_tm, weights_m, k, *, by_gain, pmax, noise_power
+):
+    """Selection step of proportional fair: greedy top-K unused devices.
+
+    Default ranking is the weighted solo-proxy rate w_k log2(1 + p g^2 /
+    sigma^2) with a stable sort, so score ties keep the lower device id.
+    ``by_gain=True`` ranks by raw gain with numpy's default (unstable)
+    sort, as the reference does.
+    """
+    num_rounds, num_devices = gains_tm.shape
+    used = set()
+    rounds = []
+    for t in range(num_rounds):
+        avail = np.array(
+            [d for d in range(num_devices) if d not in used], dtype=np.intp
+        )
+        if by_gain:
+            order = avail[np.argsort(-gains_tm[t, avail])]
+        else:
+            score = _solo_proxy(
+                gains_tm[t, avail], weights_m[avail], pmax, noise_power
+            )
+            order = avail[np.argsort(-score, kind="stable")]
+        grp = tuple(order[:k].tolist())
+        used |= set(grp)
+        rounds.append(grp)
+    return rounds
+
+
+def proportional_fair_schedule(
+    gains_tm, weights_m, k, *, power_mode="max", pmax=0.01, noise_power=1e-13,
+    by_gain=False,
+) -> Schedule:
+    """Per round, pick the K best unused devices by weighted solo rate
+    (``by_gain=True``: by raw channel gain).  When every device has been
+    used before the horizon ends (T*K > M) the remaining rounds get empty
+    groups; the intp dtype keeps the empty ``avail`` gather legal."""
+    power_fn = make_power_fn(power_mode, pmax, noise_power)
+    rounds = _proportional_fair_rounds(
+        gains_tm, weights_m, k, by_gain=by_gain, pmax=pmax,
+        noise_power=noise_power,
+    )
+    return finalize_schedule(
+        rounds, gains_tm, weights_m, power_fn, noise_power, "proportional-fair"
+    )
+
+
 @dataclasses.dataclass(frozen=True)
 class PolicyConfig:
     """Everything a policy may read at ``init_state`` time.
@@ -608,3 +845,45 @@ class RoundRobinPolicy(_PrecomputedPolicy):
     def _plan(self, gains_tm, weights_m, cfg):
         num_rounds, num_devices = gains_tm.shape
         return _round_robin_rounds(num_rounds, num_devices, cfg.group_size)
+
+
+@register_policy("literal-gwmin")
+class LiteralGwminPolicy(_PrecomputedPolicy):
+    """Algorithm 2 on the explicit scheduling graph (small M only)."""
+
+    def _plan(self, gains_tm, weights_m, cfg):
+        power_fn = power_lib.make_power_allocator(
+            cfg.power_mode, cfg.pmax, cfg.noise_power
+        )
+        return _literal_gwmin_rounds(
+            gains_tm, weights_m, cfg.group_size, power_fn, cfg.noise_power
+        )
+
+
+@register_policy("random")
+class RandomPolicy(_PrecomputedPolicy):
+    """Random C1-respecting schedule, reproducible from the policy alone:
+    the numpy Generator is seeded ``cfg.seed + SEED_OFFSET`` (the reference's
+    offset), so seed s gives the reference's permutation."""
+
+    SEED_OFFSET = 17
+
+    def _plan(self, gains_tm, weights_m, cfg):
+        rng = np.random.default_rng(cfg.seed + self.SEED_OFFSET)
+        num_rounds, num_devices = gains_tm.shape
+        return _random_rounds(rng, num_rounds, num_devices, cfg.group_size)
+
+
+@register_policy("proportional-fair")
+class ProportionalFairPolicy(_PrecomputedPolicy):
+    """Greedy top-K unused devices by weighted solo rate (``by_gain=True``
+    ranks by raw channel gain)."""
+
+    def __init__(self, by_gain: bool = False):
+        self.by_gain = by_gain
+
+    def _plan(self, gains_tm, weights_m, cfg):
+        return _proportional_fair_rounds(
+            gains_tm, weights_m, cfg.group_size, by_gain=self.by_gain,
+            pmax=cfg.pmax, noise_power=cfg.noise_power,
+        )

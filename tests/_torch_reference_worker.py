@@ -211,6 +211,73 @@ def task_fl_runs(spec, arrays):
     return out
 
 
+def task_legacy_parts(spec, arrays):
+    """The legacy round body's parts, and whole runs, in one process.
+
+    ``spec["local"]``: ``fl.local_update`` (and ``fl._tree_l2`` of its
+    delta) from the weights ``p/`` on the shard ``x/<key>``, ``y/<key>``
+    under the FLConfig fields ``cfg``.  ``spec["rounds"]``:
+    ``fl._legacy_round`` on the weights ``p/`` (``zero_params``: zeros)
+    with ``local_update`` replaced by a hand-over of the given deltas
+    ``d/<key>/<j>/`` for the devices ``devs``, the float64 budgets
+    ``budgets/<key>`` and weights ``aggw/<key>`` and, with ``ota``, the
+    gains ``gains/<key>`` and noise key ``okey/<key>``; the new weights,
+    bits, ratios and norms come back.  ``spec["runs"]`` (optional) adds
+    task_fl_runs' output."""
+    import types
+
+    import jax.numpy as jnp
+    import numpy as np
+
+    from repro.config import FLConfig
+    from repro.core import fl
+    from repro.models.fl_models import LenetFLModel
+
+    model = LenetFLModel()
+    params = _params_from_arrays(arrays, "p/")
+    out = {}
+    for run in spec.get("local", []):
+        key = run["key"]
+        cfg = FLConfig(**run["cfg"])
+        delta = fl.local_update(params, arrays[f"x/{key}"],
+                                arrays[f"y/{key}"], cfg, model)
+        out.update(_params_to_arrays(delta, f"delta/{key}/"))
+        out[f"l2/{key}"] = np.asarray(fl._tree_l2(delta))
+    local_update = fl.local_update
+    try:
+        for run in spec.get("rounds", []):
+            key, devs = run["key"], tuple(run["devs"])
+            given = iter([_params_from_arrays(arrays, f"d/{key}/{j}/")
+                          for j in range(len(devs))])
+            fl.local_update = lambda *args, **kwargs: next(given)
+            start = params
+            if run.get("zero_params"):
+                start = {a: {c: jnp.zeros_like(v) for c, v in d.items()}
+                         for a, d in params.items()}
+            ota = None
+            if run.get("ota"):
+                ota = dict(gains=arrays[f"gains/{key}"],
+                           key=arrays[f"okey/{key}"], pmax=float(run["pmax"]))
+            dataset = types.SimpleNamespace(
+                x_train=np.zeros((1, 1), np.float32),
+                y_train=np.zeros(1, np.int32))
+            shards = [[0]] * (max(devs, default=0) + 1)
+            new, bits, ratios, norms = fl._legacy_round(
+                start, devs, arrays[f"budgets/{key}"], arrays[f"aggw/{key}"],
+                dataset, shards, FLConfig(**run["cfg"]), int(spec["payload"]),
+                need_norms=True, model=model, ota=ota,
+            )
+            out.update(_params_to_arrays(new, f"round/{key}/"))
+            out[f"bits/{key}"] = np.asarray(bits, np.int64)
+            out[f"ratios/{key}"] = np.asarray(ratios, np.float64)
+            out[f"norms/{key}"] = np.asarray(norms, np.float64)
+    finally:
+        fl.local_update = local_update
+    if spec.get("runs"):
+        out.update(task_fl_runs(spec, arrays))
+    return out
+
+
 def task_lazy_greedy(spec, arrays):
     """scheduling.lazy_greedy_schedule for each run of ``spec["runs"]``
     (backend, scorer, shards, power mode) on the gains ``g/<key>`` and
@@ -281,6 +348,7 @@ TASKS = {
     "fl_runs": task_fl_runs,
     "draws": task_draws,
     "lazy_greedy": task_lazy_greedy,
+    "legacy_parts": task_legacy_parts,
 }
 
 

@@ -716,6 +716,95 @@ def test_sparse_round_on_the_card_equals_the_cpu(cuda, use_pallas):
         _same_bits(g, r)
 
 
+def _legacy_round_on(device, monkeypatch, *, compression="adaptive",
+                     ota_round=None):
+    """fl._legacy_round on ``device`` with local_update replaced by a
+    hand-over of three seeded LeNet-shaped deltas; float64 weights that
+    float32 does not hold and budgets giving b = 4, 1 and 32."""
+    from repro_torch.config import FLConfig
+    from repro_torch.core import fl
+    from repro_torch.models.fl_models import LenetFLModel
+
+    rng = np.random.default_rng(11)
+    names = [("fc1", "w"), ("fc1", "b"), ("fc2", "w"), ("fc2", "b"),
+             ("fc3", "w"), ("fc3", "b")]
+    shapes = dict(zip(names, [(784, 300), (300,), (300, 100), (100,),
+                              (100, 10), (10,)]))
+
+    def lenet(scale):
+        out = {}
+        for (a, c), shape in shapes.items():
+            out.setdefault(a, {})[c] = torch.from_numpy(
+                (rng.standard_normal(shape) * scale).astype(np.float32)
+            ).to(device)
+        return out
+
+    # zero weights under OTA, so the new weights are the update itself
+    params = lenet(0.0 if ota_round else 0.05)
+    given = iter([lenet(0.01) for _ in range(3)])
+    monkeypatch.setattr(fl, "local_update", lambda *a, **kw: next(given))
+    sizes = np.array([37.0, 52.0, 80.0])
+    cfg = (FLConfig(uplink="ota", compression="none", power_mode="ota-align",
+                    ota_noise=1e-9, use_pallas=True)
+           if ota_round else FLConfig(compression=compression))
+    dataset = type("D", (), dict(x_train=np.zeros((1, 1), np.float32),
+                                 y_train=np.zeros(1, np.int32)))
+    return fl._legacy_round(
+        params, (5, 0, 9), np.array([1.3e6 + 0.37, 4.1e5, 3.0e7]),
+        sizes / sizes.sum(), dataset, [[0]] * 10, cfg, 266_610 * 32,
+        need_norms=False, model=LenetFLModel(), ota=ota_round)
+
+
+@pytest.mark.parametrize("compression", ["adaptive", "none"])
+def test_legacy_round_on_the_card_equals_the_cpu(cuda, compression,
+                                                 monkeypatch):
+    """The legacy round's eager DoReFa codec and its FedAvg sum (one
+    float32 product and one sum per client, in order) on the same deltas:
+    the same new weights, bit for bit, on the card as on the CPU, and no
+    kernel launch."""
+    before = (aggregate.weighted_aggregate.launches,
+              ota_aggregate.ota_aggregate.launches,
+              dorefa.quantize_dequantize.launches)
+    got = _legacy_round_on(cuda, monkeypatch, compression=compression)
+    assert (aggregate.weighted_aggregate.launches,
+            ota_aggregate.ota_aggregate.launches,
+            dorefa.quantize_dequantize.launches) == before
+    want = _legacy_round_on("cpu", monkeypatch, compression=compression)
+    assert got[1] == want[1] and got[2] == want[2]
+    for a in want[0]:
+        for c in want[0][a]:
+            assert got[0][a][c].device.type == "cuda"
+            _same_bits(got[0][a][c], want[0][a][c])
+
+
+def test_legacy_ota_round_launches_the_keyed_kernel_once(cuda, monkeypatch):
+    """Under OTA with use_pallas the legacy round stacks its deltas and
+    launches the keyed OTA kernel once (no strip, no aggregation launch);
+    the update is the CPU's within rtol 1e-5, and atol 1e-5 of its largest
+    element where noise and sum cancel (the energy sums behind eta run in
+    another order on the card)."""
+    from repro_torch.kernels import threefry
+
+    ota_round = dict(gains=np.array([1e-6, 2.5e-6, 7e-7]),
+                     key=ota.horizon_keys(3, 2)[1], pmax=PMAX)
+    before = (aggregate.weighted_aggregate.launches,
+              ota_aggregate.ota_aggregate.launches,
+              threefry.threefry_draw.launches)
+    got = _legacy_round_on(cuda, monkeypatch, ota_round=ota_round)
+    assert (aggregate.weighted_aggregate.launches,
+            ota_aggregate.ota_aggregate.launches,
+            threefry.threefry_draw.launches) == (before[0], before[1] + 1,
+                                                 before[2])
+    want = _legacy_round_on("cpu", monkeypatch, ota_round=ota_round)
+    assert got[1] == want[1] == [32] * 3
+    for a in want[0]:
+        for c in want[0][a]:
+            ref = want[0][a][c].numpy()
+            np.testing.assert_allclose(got[0][a][c].cpu().numpy(), ref,
+                                       rtol=1e-5,
+                                       atol=1e-5 * np.abs(ref).max())
+
+
 # tests/test_kernels.py's flash-decode shapes (B, Hkv, G, D, S), plus
 # Qwen2-0.5B's head layout (Hkv = 2, G = 7, D = 64) at a short cache
 FLASH_SHAPES = [(1, 1, 1, 128, 256), (2, 2, 3, 128, 512), (1, 4, 2, 64, 1024),

@@ -31,7 +31,7 @@ from test_torch_harness import (  # noqa: E402,F401
 
 from repro_torch import convert  # noqa: E402
 from repro_torch.config import FLConfig  # noqa: E402
-from repro_torch.core import channel, fl, fl_engine  # noqa: E402
+from repro_torch.core import channel, fl, fl_engine, scheduling  # noqa: E402
 from repro_torch.data import dirichlet_partition, make_mnist_like  # noqa: E402
 from repro_torch.models import lenet  # noqa: E402
 from repro_torch.models.fl_models import LenetFLModel  # noqa: E402
@@ -347,7 +347,8 @@ def test_port_imports_neither_jax_nor_reference():
                  "core.prng", "core.noma", "core.power", "kernels.dorefa",
                  "kernels.ops", "kernels.ref", "kernels.fma",
                  "core.compression", "core.tree", "kernels.flash_decode",
-                 "core.channel", "models.params", "kernels.threefry"):
+                 "core.channel", "models.params", "kernels.threefry",
+                 "core.scheduling", "core.fl_engine", "data.client_bank"):
         assert "repro_torch." + name in out["modules"]
     assert out["bad"] == []
 
@@ -399,14 +400,13 @@ def test_parameter_entry_points_default_to_cuda(monkeypatch):
                    for layer in params.values() for leaf in layer.values())
 
 
-# The case ids from "kwargs4-4" on are the ones these cases had before the
-# scheduler_backend="jax" case (item 3), the uplink="tdma" case (item 2),
-# the uplink="ota" case (item 6), and the topk and client_bank="bucketed"
-# cases (item 7) left the list as they were ported; the tiny-transformer
-# case keeps its id and now expects item 8, which brings the LLM models.
+# The case ids are the ones these cases had before the scheduler_backend=
+# "jax" case (item 3), the uplink="tdma" case (item 2), the uplink="ota"
+# case (item 6), the topk and client_bank="bucketed" cases (item 7), and the
+# default legacy engine and scheduler="random" cases (item 1) left the list
+# as they were ported; the tiny-transformer case keeps its id and now
+# expects item 8, which brings the LLM models.
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(), 1),                                        # default engine: legacy
-    (dict(fl_engine="batched", scheduler="random"), 1),
     pytest.param(dict(fl_engine="batched", horizon="scan"), 4, id="kwargs4-4"),
     pytest.param(dict(fl_engine="batched", scheduler="update-aware"), 5,
                  id="kwargs5-5"),
@@ -419,6 +419,25 @@ def test_config_names_the_roadmap_item_for_unported_settings(kwargs, item):
     with pytest.raises(NotImplementedError,
                        match=f"ROADMAP.md queue 1 item {item} brings it"):
         FLConfig(**kwargs)
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(),
+    *[dict(fl_engine=engine, scheduler=name)
+      for engine in ("legacy", "batched")
+      for name in ("literal-gwmin", "random", "proportional-fair")],
+], ids=["default", *[f"{engine}-{name}" for engine in ("legacy", "batched")
+                     for name in ("literal-gwmin", "random",
+                                  "proportional-fair")]])
+def test_config_accepts_ported_engines_and_policies(kwargs):
+    """The legacy round body (the reference's default engine) and the
+    other precomputed policies (item 1) are ported: ``FLConfig()`` is the
+    reference's default run, and the baselines construct under both
+    engines and resolve in the port's registry."""
+    cfg = FLConfig(**kwargs)
+    assert cfg.fl_engine == kwargs.get("fl_engine", "legacy")
+    assert cfg.scheduler in scheduling.available_policies()
+    assert scheduling.get_policy(cfg.scheduler).name == cfg.scheduler
 
 
 @pytest.mark.parametrize("kwargs", [
@@ -467,6 +486,12 @@ def test_config_accepts_device_scheduler_backends(backend):
     (dict(power_mode="ota-align"), "requires uplink='ota'"),
     (dict(topk=0.5, compression="none"), "topk < 1 requires"),
     (dict(scheduler_backend="tpu"), "unknown scheduler_backend"),
+    (dict(fl_engine="legacy", eval_sample=0.5),
+     "eval_sample < 1 requires fl_engine='batched'"),
+    (dict(fl_engine="legacy", topk=0.5),
+     "topk < 1 requires fl_engine='batched'"),
+    (dict(fl_engine="legacy", client_bank="bucketed"),
+     "client_bank='bucketed' requires fl_engine='batched'"),
 ])
 def test_config_keeps_the_reference_validation(kwargs, match):
     """Incoherent settings fail with the reference's messages before the
