@@ -112,7 +112,21 @@ package, and exits non-zero on the first failure.  Phases:
      do 2^20 of the kernel's uniforms, normals and truncated normals
      against its plain version on the card and the CPU.  Every main-path
      run draws LeNet's initial weights with the kernel (three launches);
-     the OTA run draws no noise strip.
+     the OTA run draws no noise strip;
+ 13. the scanned horizon (``horizon="scan"``: the plan uploaded once, every
+     round from device tensors, one download): the host and OTA runs of 6
+     and 8 scanned (``[main:scan]``, ``[main:scan-ota]``), equal to them
+     to the bit, with 5 launches of kernel #1 or of the keyed OTA kernel
+     (one per round) and the horizon's device part run under
+     ``torch.cuda.set_sync_debug_mode("error")``; a seed sweep of seeds
+     0-3 in one stacked horizon beside the four single scans
+     (``[sweep:seeds]``: logs equal, final parameters bit-equal, inside the
+     drift contract or in F1's shape, and the line says which; kernel #1
+     twice a round for the 24 (seed, leaf) sums); a cell sweep of 2 cells x
+     2 seeds with ``cell_shards=2``, clamped to the card count
+     (``[sweep:cells]``: each instance equal to its single scan to the
+     bit); and the M=30 scan on the CPU and on the card held to the
+     contract of 7 (``[cpu-vs-card:scan]``).
 
 The last lines are the card's name and power limit as nvidia-smi reports
 them, one JSON object with every kernel's numbers, and the one-line result
@@ -165,6 +179,7 @@ DOREFA_TIME_N = (235_200, 1 << 20)   # LeNet fc1/w; kernel_bench.py's N
 DOREFA_ODD_SCALES = (1.0, float("nan"), float("inf"), 0.0, -1.0)
 CODEC_BITS = (1, 4, 8, 16)
 TOPK = 0.1
+SWEEP_SEEDS = (0, 1, 2, 3)      # [sweep:seeds]; [sweep:cells] runs 0-3 too
 # tests/test_kernels.py's flash-decode shapes (B, Hkv, G, D, S), then
 # decode_32k (src/repro/config.py) at Qwen2-0.5B's head layout
 # (src/repro/configs/qwen2_0_5b.py: 14 query heads, 2 kv heads, D=64)
@@ -1407,6 +1422,9 @@ def _legacy_config(m, t, uplink="noma"):
     return FLConfig(num_devices=m, num_rounds=t, **extra)
 
 
+RUN_SECONDS = {}    # main-path mode -> seconds of its run after the schedule
+
+
 def run_main_path(kernels, mode, m=300, t=5, samples=12_000):
     """Paper-width run on the card; returns (result, launches per kernel).
 
@@ -1419,18 +1437,24 @@ def run_main_path(kernels, mode, m=300, t=5, samples=12_000):
     ``"bucketed"`` the bucketed client bank, ``"random"`` the random
     schedule; ``"legacy"`` runs ``FLConfig``'s defaults (the legacy round
     body, no kernel but the initial draws) and ``"legacy-ota"`` the legacy
-    round under OTA with the keyed OTA kernel, both with the host schedule.
+    round under OTA with the keyed OTA kernel, both with the host schedule;
+    ``"scan"`` and ``"scan-ota"`` run the host and OTA modes with
+    ``horizon="scan"``, the horizon's device part under
+    ``set_sync_debug_mode("error")``.
     The launch counts are zeroed just before and read just after the
-    schedule and the run."""
+    schedule and the run; the run's seconds go to ``RUN_SECONDS``."""
     from repro_torch.core import channel, fl, scheduling
 
     ds, cell, shards = _world(m, samples)
-    uplink = "ota" if mode in ("ota", "legacy-ota") else (
+    uplink = "ota" if mode in ("ota", "legacy-ota", "scan-ota") else (
         "tdma" if mode == "tdma" else "noma")
     legacy = mode in ("legacy", "legacy-ota")
+    scan = mode in ("scan", "scan-ota")
     overrides = {"topk": dict(topk=TOPK),
                  "bucketed": dict(client_bank="bucketed"),
-                 "random": dict(scheduler="random")}.get(mode, {})
+                 "random": dict(scheduler="random"),
+                 "scan": dict(horizon="scan"),
+                 "scan-ota": dict(horizon="scan")}.get(mode, {})
     if legacy:
         cfg = _legacy_config(m, t, uplink)
     else:
@@ -1443,7 +1467,7 @@ def run_main_path(kernels, mode, m=300, t=5, samples=12_000):
     t0 = time.perf_counter()
     schedule = None
     if mode in ("host", "ota", "tdma", "topk", "bucketed", "random",
-                "legacy", "legacy-ota"):
+                "legacy", "legacy-ota", "scan", "scan-ota"):
         schedule = fl.make_schedule(bundle.gains, sizes / sizes.sum(), cell,
                                     cfg)
     elif mode == "pallas":
@@ -1463,34 +1487,51 @@ def run_main_path(kernels, mode, m=300, t=5, samples=12_000):
     def progress(lg):
         torch.cuda.synchronize()
         stamps.append(time.perf_counter())
+        # a scanned horizon logs its rounds after its one download
+        host = ("" if scan else
+                f" host {stamps[-1] - stamps[-2]:.4f} s")
         log(f"[main:{mode}] round {lg.round}: devices {list(lg.devices)} bits "
             f"{lg.bits.tolist()} acc {lg.test_accuracy:.4f} sim_time "
-            f"{lg.wall_time_s:.4f} s host {stamps[-1] - stamps[-2]:.4f} s")
+            f"{lg.wall_time_s:.4f} s{host}")
 
+    def run():
+        return fl.run_federated_learning(
+            ds, shards, cell, cfg, channels=bundle, schedule=schedule,
+            progress=progress, device="cuda",
+        )
+
+    horizon_s = []
     torch.cuda.synchronize()
     stamps.append(time.perf_counter())
     t1 = stamps[0]
-    res = fl.run_federated_learning(
-        ds, shards, cell, cfg, channels=bundle, schedule=schedule,
-        progress=progress, device="cuda",
-    )
+    res = _with_checked_horizon(run, horizon_s) if scan else run()
     torch.cuda.synchronize()
     total = time.perf_counter() - t1
+    RUN_SECONDS[mode] = total
     launches = read_launches(kernels)
     log(f"[main:{mode}] run {total:.3f} s after the schedule"
         f"{' (schedule inside the run)' if schedule is None else ''}; "
         f"launches {launches}")
+    if scan:
+        check(len(horizon_s) == 1, f"[main:{mode}] ran {len(horizon_s)} "
+              f"horizons")
+        log(f"[main:{mode}] the horizon's device part (after its one upload, "
+            f"before its one download) ran under torch.cuda."
+            f"set_sync_debug_mode('error'): no host sync; {horizon_s[0]:.4f} "
+            f"s for {t} rounds, {horizon_s[0] / t:.4f} s per round")
 
     nonempty = sum(1 for lg in res.logs if lg.devices)
     acc = res.accuracies()
     want = {name: 0 for name in launches}   # the codec and flash decode
     # one grouped launch for the six leaves, or one on the concatenated
-    # payload under top-k, per non-empty round of the batched engine; the
-    # legacy round sums on the host
+    # payload under top-k, per non-empty round of the batched engine and
+    # per round of a scanned horizon (which sums all-padding rounds too);
+    # the legacy round sums on the host
+    rounds = t if scan else nonempty
     want["weighted_aggregate"] = (
-        0 if uplink == "ota" or cfg.fl_engine == "legacy" else nonempty)
+        0 if uplink == "ota" or legacy else rounds)
     want["ota_aggregate"] = (
-        nonempty if uplink == "ota" and cfg.use_pallas else 0)
+        rounds if uplink == "ota" and cfg.use_pallas else 0)
     want["sic_weighted_rates"] = (
         min(t, m // cfg.group_size) if mode == "pallas" else 0)
     # LeNet's initial weights; the OTA round forms its noise inside the
@@ -1677,20 +1718,203 @@ def run_topk_main_path(kernels):
     return res, launches, err
 
 
+def _timed(fn):
+    """(fn(), seconds), the card synchronised on both sides."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _with_checked_horizon(fn, seen):
+    """fn() with every scanned horizon's device part (``fl_engine.
+    _horizon_core``: after the horizon's one upload, before its one
+    download) run under ``torch.cuda.set_sync_debug_mode("error")``, so a
+    host sync inside raises; each horizon's seconds go to ``seen``."""
+    from repro_torch.core import fl_engine
+
+    core = fl_engine._horizon_core
+
+    def checked(*args, **kwargs):
+        torch.cuda.synchronize()            # the upload, queued before
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = core(*args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        seen.append(time.perf_counter() - t0)
+        return out
+
+    fl_engine._horizon_core = checked
+    try:
+        return fn()
+    finally:
+        fl_engine._horizon_core = core
+
+
+def _scan_rounds(fn, run):
+    """fn() with the scanned round body wrapped to keep run ``run``'s
+    parameters after every round on the host: a read of the card every
+    round, so never under the sync check.  Returns (fn(), rounds)."""
+    from repro_torch.core import fl_engine
+
+    body = fl_engine._train_quantize_aggregate
+    rounds = []
+
+    def keep(*args, **kwargs):
+        out = body(*args, **kwargs)
+        rounds.append({f"{a}/{c}": v[run].double().cpu()
+                       for a, d in out[0].items() for c, v in d.items()})
+        return out
+
+    fl_engine._train_quantize_aggregate = keep
+    try:
+        return fn(), rounds
+    finally:
+        fl_engine._train_quantize_aggregate = body
+
+
+def _params_equal(got, want):
+    return all(torch.equal(got.final_params[a][c], v)
+               for a, d in want.final_params.items() for c, v in d.items())
+
+
+def run_seed_sweep(kernels, scan_run, m=300, t=5, samples=12_000):
+    """``[sweep:seeds]``: ``run_horizon_vmapped`` over SWEEP_SEEDS at the
+    ``[main:scan]`` width, beside one ``run_horizon_scanned`` per seed.
+    Row 0's logs are held against ``[main:scan]``, every row's against its
+    single scan; the final parameters are bit-equal, or within the drift
+    contract, or leave it in F1's shape (float order until a round of at
+    most K code flips), and the line says which.  Kernel #1 launches
+    ceil(6 S / 16) times a round.  Returns the single scans and their
+    device parts' seconds."""
+    from repro_torch.core import fl
+
+    ds, cell, shards = _world(m, samples)
+    cfg = _config(m, t, horizon="scan")
+    num = len(SWEEP_SEEDS)
+    single_dev, sweep_dev = [], []
+    singles, single_s = [], 0.0
+    for seed in SWEEP_SEEDS:
+        res, sec = _timed(lambda seed=seed: _with_checked_horizon(
+            lambda: fl.run_federated_learning(
+                ds, shards, cell, dataclasses.replace(cfg, seed=seed),
+                device="cuda"), single_dev))
+        singles.append(res)
+        single_s += sec
+    reset_launches(kernels)
+    sweep, sweep_s = _timed(lambda: _with_checked_horizon(
+        lambda: fl.run_horizon_vmapped(ds, shards, cell, cfg,
+                                       seeds=SWEEP_SEEDS, device="cuda"),
+        sweep_dev))
+    launches = read_launches(kernels)
+    per_round = -(-6 * num // 16)
+    want = {name: 0 for name in launches}
+    want["weighted_aggregate"] = t * per_round
+    want["threefry_draw"] = LENET_WEIGHT_LEAVES * num
+    check(launches == want, f"[sweep:seeds] launches {launches}, expected "
+          f"{want}")
+    _check_equal_logs(sweep[0], scan_run,
+                      "[sweep:seeds] row 0 against [main:scan]:")
+    check(any([lg.devices for lg in res.logs]
+              != [lg.devices for lg in sweep[0].logs] for res in sweep[1:]),
+          "[sweep:seeds] every seed scheduled as seed 0")
+    held = []
+    for s, (res, single) in enumerate(zip(sweep, singles)):
+        label = f"[sweep:seeds] row {s} (seed {SWEEP_SEEDS[s]}) against its " \
+                f"single scan:"
+        worst_mean, worst_max = _check_equal_logs(res, single, label)
+        if _params_equal(res, single):
+            held.append("bit-equal")
+        elif worst_mean < PARAM_MEAN_ATOL and worst_max < PARAM_MAX_ATOL:
+            held.append("drift contract")
+        else:
+            seed_cfg = dataclasses.replace(cfg, seed=SWEEP_SEEDS[s])
+            _, alone = _scan_rounds(lambda: fl.run_federated_learning(
+                ds, shards, cell, seed_cfg, device="cuda"), 0)
+            _, stacked = _scan_rounds(lambda: fl.run_horizon_vmapped(
+                ds, shards, cell, cfg, seeds=SWEEP_SEEDS, device="cuda"), s)
+            _check_code_flips(alone, stacked, cfg.group_size, label)
+            held.append("F1 shape")
+    log(f"[sweep:seeds] S={num} seeds {list(SWEEP_SEEDS)} at M={m} K=3 T={t}:"
+        f" final parameters against the single scans: {held}; the device "
+        f"part under set_sync_debug_mode('error'): no host sync")
+    log(f"[sweep:seeds] kernel #1 {launches['weighted_aggregate'] / t:g} "
+        f"launches per round ({6 * num} (seed, leaf) matrices, 16 a launch);"
+        f" the sweep {sweep_s / num:.4f} s per seed (device part "
+        f"{sweep_dev[0] / num:.4f}) against {num} single scans "
+        f"{single_s / num:.4f} s per seed (device part "
+        f"{sum(single_dev) / num:.4f}), schedules included")
+    return singles, single_dev
+
+
+def run_cell_sweep(kernels, singles, single_dev, m=300, t=5,
+                   samples=12_000):
+    """``[sweep:cells]``: ``run_cell_sweep`` with 2 cells of 2 seeds and
+    ``cell_shards=2``, which clamps to the card count; every instance's
+    logs and final parameters equal its own single scan's to the bit (the
+    same ``run_horizon`` program at the same batch count).  Each of the
+    four horizons' device part runs under the sync check, and its seconds
+    print beside the single scans'."""
+    from repro_torch.core import fl
+    from repro_torch.sharding import cells
+
+    ds, cell, shards = _world(m, samples)
+    cfg = _config(m, t, horizon="scan")
+    shards_n = cells.cell_shards(2, "cuda")
+    check(shards_n == min(2, torch.cuda.device_count()),
+          f"cell_shards=2 ran as {shards_n} shards")
+    reset_launches(kernels)
+    cells_dev = []
+    grid, sec = _timed(lambda: _with_checked_horizon(
+        lambda: fl.run_cell_sweep(
+            ds, shards, cell, cfg, num_cells=2, seeds_per_cell=2,
+            cell_shards=2, device="cuda"), cells_dev))
+    launches = read_launches(kernels)
+    check(len(cells_dev) == 4,
+          f"[sweep:cells] {len(cells_dev)} checked horizons, expected 4")
+    check(launches["weighted_aggregate"] == 4 * t
+          and launches["threefry_draw"] == 4 * LENET_WEIGHT_LEAVES,
+          f"[sweep:cells] launches {launches}")
+    for c in range(2):
+        for s in range(2):
+            seed = c * 2 + s
+            _check_identical_runs(
+                grid[c][s], singles[SWEEP_SEEDS.index(seed)],
+                f"[sweep:cells] cell {c} seed {s} (seed {seed}) against its "
+                f"single scan:")
+    log(f"[sweep:cells] C=2 x S=2 at M={m} K=3 T={t}, cell_shards=2 clamped "
+        f"to {shards_n} on {torch.cuda.device_count()} card(s): one "
+        f"run_horizon per instance; {sec:.3f} s ({sec / 4:.4f} s per "
+        f"instance, schedules included); launches {launches}")
+    singles_dev = [single_dev[SWEEP_SEEDS.index(seed)] for seed in range(4)]
+    log(f"[sweep:cells] the device part under set_sync_debug_mode('error'):"
+        f" no host sync; per instance {[round(x, 4) for x in cells_dev]} s "
+        f"(mean {sum(cells_dev) / 4:.4f}) against the single scans' "
+        f"{[round(x, 4) for x in singles_dev]} s (mean "
+        f"{sum(singles_dev) / 4:.4f})")
+
+
 def compare_cpu_and_card(kernels, m=30, t=5, samples=12_000, uplink="noma",
-                         topk=1.0, legacy=False):
+                         topk=1.0, legacy=False, scan=False):
     """The M=30 run on the CPU (plain versions) and on the card (kernels):
     with ``scheduler_backend="jax"`` (greedy on the CPU and on the card)
     under NOMA, under OTA with ota-align powers, receiver noise 1e-9
     and truncation threshold 0.1, with the top-k stage (``topk`` < 1,
-    host schedule), and ``legacy``: ``FLConfig``'s defaults, the legacy
-    round body.  Held to the full contract, parameter drift included."""
+    host schedule), ``legacy``: ``FLConfig``'s defaults, the legacy
+    round body, and ``scan``: the scanned horizon with the host schedule.
+    Held to the full contract, parameter drift included."""
     from repro_torch.core import fl
 
     ds, cell, shards = _world(m, samples)
     rounds = {"cpu": [], "cuda": []}
     if legacy:
         cfg = _legacy_config(m, t)
+    elif scan:
+        cfg = _config(m, t, horizon="scan")
     elif uplink == "ota":
         cfg = _config(m, t, "numpy", "ota", ota_threshold=0.1)
     elif topk < 1.0:
@@ -1717,6 +1941,8 @@ def compare_cpu_and_card(kernels, m=30, t=5, samples=12_000, uplink="noma",
         fl._legacy_round = legacy_round
     if legacy:
         label = f"[cpu-vs-card:legacy] M={m} FLConfig defaults (legacy)"
+    elif scan:
+        label = f"[cpu-vs-card:scan] M={m} horizon='scan'"
     elif uplink == "ota":
         label = f"[cpu-vs-card:ota] M={m} ota-align noise 1e-9 threshold 0.1"
     elif topk < 1.0:
@@ -1730,7 +1956,8 @@ def compare_cpu_and_card(kernels, m=30, t=5, samples=12_000, uplink="noma",
                           label)
     else:
         check(within, f"{label} param drift mean {worst_mean} max {worst_max}")
-    nonempty = sum(1 for lg in gpu.logs if lg.devices)
+    # a scanned horizon aggregates every round, all-padding ones too
+    nonempty = t if scan else sum(1 for lg in gpu.logs if lg.devices)
     check(launches["ota_aggregate"] == (nonempty if uplink == "ota" else 0),
           f"card run launched ota_aggregate {launches['ota_aggregate']} times")
     want_agg = 0 if uplink == "ota" or legacy else nonempty
@@ -2063,6 +2290,21 @@ def main() -> int:
           != [lg.devices for lg in host.logs],
           "the random schedule equals the lazy-gwmin one")
     compare_cpu_and_card(kernels, legacy=True)
+
+    scan_run, _ = run_main_path(kernels, "scan")
+    _check_identical_runs(scan_run, host, "[main:scan] against [main:host]:")
+    log(f"[main:scan] {RUN_SECONDS['scan']:.4f} s after the schedule, "
+        f"{RUN_SECONDS['scan'] / 5:.4f} s per round; [main:host] "
+        f"{RUN_SECONDS['host']:.4f} s, {RUN_SECONDS['host'] / 5:.4f} s per "
+        f"round")
+    scan_ota_run, _ = run_main_path(kernels, "scan-ota")
+    _check_identical_runs(scan_ota_run, ota_run,
+                          "[main:scan-ota] against [main:ota]:")
+    log(f"[main:scan-ota] {RUN_SECONDS['scan-ota']:.4f} s after the "
+        f"schedule; [main:ota] {RUN_SECONDS['ota']:.4f} s")
+    singles, single_dev = run_seed_sweep(kernels, scan_run)
+    run_cell_sweep(kernels, singles, single_dev)
+    compare_cpu_and_card(kernels, scan=True)
 
     flash_mod = kernels[6]["module"]
     flash_err = compare_flash(flash_mod)

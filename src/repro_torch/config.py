@@ -3,8 +3,8 @@
 The same field names and defaults as ``repro.config.FLConfig``, validated
 at construction with the reference's rules, so ``FLConfig()`` is the
 reference's default run (the legacy round body).  Settings the reference
-accepts but the port does not run yet (online policies, ``horizon="scan"``
-and the non-LeNet models) raise ``NotImplementedError`` naming the
+accepts but the port does not run yet (online policies and the non-LeNet
+models) raise ``NotImplementedError`` naming the
 ``ROADMAP.md`` queue 1 item that brings them, so a run is never quietly a
 different simulation.
 """
@@ -53,7 +53,9 @@ class FLConfig:
                                      # fused Pallas path): the batched
                                      # engine's rounds, and the OTA rounds
                                      # of both engines
-    horizon: str = "per-round"       # per-round (ported) | scan
+    horizon: str = "per-round"       # per-round | scan (both ported; scan
+                                     # runs the batched round body whatever
+                                     # fl_engine says)
     eval_sample: float = 1.0         # fraction of the test set evaluated per
                                      # round; 1.0 = full test set
     model: str = "lenet"             # lenet (ported)
@@ -159,7 +161,5 @@ class FLConfig:
         """Valid settings that a later slice of the port brings."""
         if self.scheduler in scheduling.REFERENCE_ONLINE_POLICIES:
             raise _not_ported(f"online scheduler {self.scheduler!r}", 5)
-        if self.horizon == "scan":
-            raise _not_ported("horizon='scan'", 4)
         if self.model != "lenet":
             raise _not_ported(f"model={self.model!r}", 8)

@@ -35,6 +35,12 @@ round-body engines, selected by ``FLConfig.fl_engine``:
     every shard resident in a client bank, the K clients trained at once
     and the round's aggregation in one kernel launch (``use_pallas``).
 
+``FLConfig.horizon = "scan"`` runs the whole precomputed horizon from
+device tensors instead (:func:`run_horizon_scanned`): the host plans every
+round up front, uploads the plan once, and reads the card once at the end;
+:func:`run_horizon_vmapped` stacks a seed sweep into one such program and
+:func:`run_cell_sweep` runs a (cells x seeds) grid of them.
+
 With ``scheduler_backend="jax"`` or ``"jax-stepwise"`` the schedule's
 greedy search runs on the run's device too (float64, the same schedule).
 Without ``channels=`` and ``init_params=`` the run draws what the reference
@@ -59,6 +65,7 @@ from repro_torch.core import compression, fl_engine, noma, scheduling
 from repro_torch.core import ota as ota_lib
 from repro_torch.core import quantization as qlib
 from repro_torch.core import tree as tree_lib
+from repro_torch.data.client_bank import ClientBank, EvalBank, eval_sample_plan
 from repro_torch.device import resolve_device
 from repro_torch.models.fl_models import get_fl_model
 
@@ -265,9 +272,48 @@ def _param_count(params) -> int:
                for leaf in layer.values())
 
 
+def _setup(shards, cell, cfg: FLConfig, *, schedule, channels, init_params,
+           device, model):
+    """What every driver computes before round 0: the initial parameters
+    (drawn from ``cfg.seed`` or ``init_params``), the payload I in bits,
+    the shard sizes, the (T, M) channel gains (drawn or ``channels``), the
+    schedule (planned or ``schedule``, validated) and the downlink
+    broadcast time.  Returns them in that order."""
+    if init_params is None:
+        params = model.init(cfg.seed, device=device)
+    else:
+        params = params_from_jax(init_params, device=device)
+    payload = _param_count(params) * 32  # I: full-precision payload bits
+    sizes = np.array([len(s) for s in shards], dtype=np.float64)
+    if channels is None:
+        channels = chan.sample_channels(cfg.seed, cell, cfg.num_rounds)
+    gains = np.asarray(channels.gains)
+    if schedule is None:
+        schedule = make_schedule(gains, sizes / sizes.sum(), cell, cfg,
+                                 device=device)
+    else:
+        schedule.validate(cell.num_devices, cfg.group_size)
+    # Downlink broadcast time on the large-scale gain only (the paper's
+    # Fig. 5 time scale implies a fading-free downlink)
+    dl_time = float(chan.downlink_time_seconds(payload, channels.dl_gains,
+                                               cell))
+    return params, payload, sizes, gains, schedule, dl_time
+
+
 # --------------------------------------------------------------------------
 # Main simulation
 # --------------------------------------------------------------------------
+
+def _resolve_uplink(cfg: FLConfig, uplink) -> str:
+    """``uplink``, or ``cfg.uplink`` where it is None, checked against the
+    config's combination rules."""
+    uplink = cfg.uplink if uplink is None else uplink
+    ota_lib.check_uplink(
+        uplink, compression=cfg.compression, topk=cfg.topk,
+        power_mode=cfg.power_mode,
+    )
+    return uplink
+
 
 def run_federated_learning(
     dataset,
@@ -305,20 +351,18 @@ def run_federated_learning(
     run on the CPU.
     """
     dev = resolve_device(device)
-    uplink = cfg.uplink if uplink is None else uplink
-    ota_lib.check_uplink(
-        uplink, compression=cfg.compression, topk=cfg.topk,
-        power_mode=cfg.power_mode,
-    )
+    uplink = _resolve_uplink(cfg, uplink)
+    if cfg.horizon == "scan":
+        return run_horizon_scanned(
+            dataset, shards, cell, cfg, uplink=uplink, schedule=schedule,
+            eval_every=eval_every, progress=progress, channels=channels,
+            init_params=init_params, device=dev,
+        )
     model = get_fl_model(cfg.model)
-    if init_params is None:
-        params = model.init(cfg.seed, device=dev)
-    else:
-        params = params_from_jax(init_params, device=dev)
-    payload = _param_count(params) * 32  # I: full-precision payload bits
-
-    sizes = np.array([len(s) for s in shards], dtype=np.float64)
-    weights = sizes / sizes.sum()
+    params, payload, sizes, gains, schedule, dl_time = _setup(
+        shards, cell, cfg, schedule=schedule, channels=channels,
+        init_params=init_params, device=dev, model=model,
+    )
 
     # None selects the legacy per-device round body (the oracle)
     engine = None
@@ -331,25 +375,13 @@ def run_federated_learning(
         x_test = torch.from_numpy(np.asarray(dataset.x_test)).to(dev)
         y_test = torch.from_numpy(np.asarray(dataset.y_test)).to(dev)
 
-    if channels is None:
-        channels = chan.sample_channels(cfg.seed, cell, cfg.num_rounds)
-    gains = np.asarray(channels.gains)
-
-    if schedule is None:
-        schedule = make_schedule(gains, weights, cell, cfg, device=dev)
-    else:
-        schedule.validate(cell.num_devices, cfg.group_size)
-
-    # Downlink broadcast time on the large-scale gain only (the paper's
-    # Fig. 5 time scale implies a fading-free downlink)
-    dl_time = float(chan.downlink_time_seconds(payload, channels.dl_gains, cell))
-
     # OTA receiver-noise keys for the whole horizon, on the host
     ota_keys = (
         ota_lib.horizon_keys(cfg.seed, cfg.num_rounds)
         if uplink == "ota" else None
     )
 
+    eval_mask = _eval_mask(cfg.num_rounds, eval_every)
     logs = []
     t_wall = 0.0
     for t in range(cfg.num_rounds):
@@ -374,9 +406,7 @@ def run_federated_learning(
                 need_norms=False, model=model, ota=ota_round,
             )
         t_wall += round_time
-        # the final round is always evaluated
-        do_eval = t % eval_every == 0 or t == cfg.num_rounds - 1
-        if not do_eval:
+        if not eval_mask[t]:
             acc = logs[-1].test_accuracy
         elif engine is not None:
             acc = engine.evaluate(params, t)
@@ -391,3 +421,319 @@ def run_federated_learning(
 
     scheme = f"{uplink}/{cfg.scheduler}/{cfg.power_mode}/{cfg.compression}"
     return FLResult(logs, params, scheme)
+
+
+# --------------------------------------------------------------------------
+# Scanned horizons: every round of a precomputed schedule on the device
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class _HorizonPlan:
+    """The host plan of one simulation instance (one seed).
+
+    Everything the per-round driver computes on the host (initial weights,
+    channel draws, schedule, rates, budgets, FedAvg weights, timing),
+    packed into fixed-shape (T, K) arrays, zero-padded past each round's
+    true group size (a zero weight multiplies a padded row out of the
+    aggregate exactly).
+    """
+
+    params0: dict                # initial weights, on the run's device
+    payload: int                 # I: full-precision payload bits
+    schedule: scheduling.Schedule
+    dev_tk: np.ndarray           # (T, K) int64 device ids, 0-padded
+    ksizes: np.ndarray           # (T,) true per-round group sizes
+    budgets_tk: np.ndarray       # (T, K) float64 uplink bit budgets
+    aggw_tk: np.ndarray          # (T, K) float64 FedAvg weights
+    gains_tk: np.ndarray         # (T, K) float32 channel amplitudes (OTA)
+    noise_keys: np.ndarray       # (T, 2) uint32 OTA receiver-noise keys
+    rates: list                  # per-round (k,) uplink rates
+    times: np.ndarray            # (T,) cumulative simulated wall clock
+    eval_idx: Optional[np.ndarray]  # (T, n) eval plan; None = full set
+
+
+def _horizon_setup(dataset, shards, cell, cfg: FLConfig, uplink, schedule,
+                   *, device, channels=None, init_params=None) -> _HorizonPlan:
+    """The host plan of one scanned instance, from the per-round driver's
+    own setup (:func:`_setup`) and round rules (:func:`_round_physics`,
+    :func:`_agg_weights`), so both drivers simulate the same system and
+    log the same schedules, budgets, rates and times."""
+    params, payload, sizes, gains, schedule, dl_time = _setup(
+        shards, cell, cfg, schedule=schedule, channels=channels,
+        init_params=init_params, device=device,
+        model=get_fl_model(cfg.model),
+    )
+    num_rounds, k_max = cfg.num_rounds, cfg.group_size
+    dev_tk = np.zeros((num_rounds, k_max), np.int64)
+    ksizes = np.zeros(num_rounds, np.intp)
+    budgets_tk = np.zeros((num_rounds, k_max), np.float64)
+    aggw_tk = np.zeros((num_rounds, k_max), np.float64)
+    gains_tk = np.zeros((num_rounds, k_max), np.float32)
+    rates_list = []
+    times = np.zeros(num_rounds, np.float64)
+    t_wall = 0.0
+    for t in range(num_rounds):
+        devs = schedule.rounds[t]
+        rates, budgets, round_time = _round_physics(
+            devs, schedule.powers[t], schedule.rates[t], t, gains, cell,
+            uplink, dl_time,
+        )
+        k = len(devs)
+        ksizes[t] = k
+        dev_tk[t, :k] = devs
+        budgets_tk[t, :k] = budgets
+        aggw_tk[t, :k] = _agg_weights(sizes, devs)
+        gains_tk[t, :k] = gains[t, list(devs)]
+        rates_list.append(rates)
+        t_wall += round_time
+        times[t] = t_wall
+    eval_idx = eval_sample_plan(
+        len(dataset.y_test), cfg.eval_sample, num_rounds, cfg.seed
+    )
+    return _HorizonPlan(
+        params, payload, schedule, dev_tk, ksizes, budgets_tk, aggw_tk,
+        gains_tk, ota_lib.horizon_keys(cfg.seed, num_rounds), rates_list,
+        times, eval_idx,
+    )
+
+
+def _horizon_statics(cfg: FLConfig, payload: int, cell, uplink) -> dict:
+    """The keyword arguments of the fl_engine horizon functions; the OTA
+    ones are zeros outside the OTA uplink."""
+    ota = uplink == "ota"
+    return dict(
+        lr=float(cfg.learning_rate), epochs=int(cfg.local_epochs),
+        payload=int(payload), compress=cfg.compression == "adaptive",
+        paper_exact=bool(cfg.paper_exact_range),
+        use_pallas=bool(cfg.use_pallas), model=get_fl_model(cfg.model),
+        topk=float(cfg.topk), ota=ota,
+        ota_noise=float(cfg.ota_noise) if ota else 0.0,
+        ota_threshold=float(cfg.ota_threshold) if ota else 0.0,
+        pmax=float(cell.max_power_w) if ota else 0.0,
+    )
+
+
+def _eval_mask(num_rounds: int, eval_every: int) -> np.ndarray:
+    """(T,) bool: the rounds that evaluate, every ``eval_every``-th and
+    the final one."""
+    return np.array([t % eval_every == 0 or t == num_rounds - 1
+                     for t in range(num_rounds)])
+
+
+def _stack_plans(plans, bank, device):
+    """The plans' arrays stacked on a leading run axis and put on
+    ``device`` once, before the horizon: through pinned memory and queued
+    on the stream on the card (a pageable copy would make the host wait).
+    Budgets, weights and gains enter in float32, as the per-round engine
+    takes them.  Returns ``(params_s, dev, bud, agg, gains, keys, eidx,
+    nb)``: keys stay host numpy, ``eidx`` is ``None`` for the full test
+    set, and ``nb`` is the sweep-wide batch count of the scheduled groups.
+    """
+    def put(arrays, dtype):
+        host = torch.from_numpy(np.stack(arrays)).to(dtype)
+        return fl_engine._to_device(host, device)
+
+    eidx = None
+    if plans[0].eval_idx is not None:
+        eidx = put([p.eval_idx for p in plans], torch.int64)
+    nb = max(bank.n_batches_for(g) for p in plans for g in p.schedule.rounds)
+    return (
+        fl_engine._stack_runs([p.params0 for p in plans]),
+        put([p.dev_tk for p in plans], torch.int64),
+        put([p.budgets_tk for p in plans], torch.float32),
+        put([p.aggw_tk for p in plans], torch.float32),
+        put([p.gains_tk for p in plans], torch.float32),
+        np.stack([p.noise_keys for p in plans]), eidx, nb,
+    )
+
+
+def _assemble_horizon_result(plan: _HorizonPlan, cfg: FLConfig, uplink,
+                             eval_mask, bits_tk, kept_tk, accs_t,
+                             final_params, progress=None) -> FLResult:
+    """Per-round ``RoundLog`` entries from a horizon's downloaded log and
+    its host plan: each round's (K,) row cut to its true group size, the
+    compression ratios from the per-round engine's own rule
+    (:func:`repro_torch.core.fl_engine._round_ratios`; ``kept_tk`` is
+    ``None`` without top-k), skipped evaluations forward-filled.  The
+    per-round driver's logs, entry for entry."""
+    logs = []
+    acc = None
+    compress = cfg.compression == "adaptive"
+    for t in range(cfg.num_rounds):
+        k = int(plan.ksizes[t])
+        bits = bits_tk[t, :k]
+        ratios = fl_engine._round_ratios(
+            plan.payload, compress, None if kept_tk is None else
+            kept_tk[t, :k], bits,
+            torch.from_numpy(plan.budgets_tk[t, :k]).to(torch.float32),
+        )
+        if eval_mask[t]:
+            acc = float(accs_t[t])
+        log = RoundLog(t, tuple(plan.schedule.rounds[t]),
+                       np.asarray(plan.rates[t]), bits, ratios, acc,
+                       float(plan.times[t]))
+        logs.append(log)
+        if progress:
+            progress(log)
+    scheme = f"{uplink}/{cfg.scheduler}/{cfg.power_mode}/{cfg.compression}"
+    return FLResult(logs, final_params, scheme)
+
+
+def _horizon_world(dataset, shards, cfg: FLConfig, device):
+    """The client bank and the test set on the run's device."""
+    bank = ClientBank.build(dataset.x_train, dataset.y_train, shards,
+                            cfg.batch_size, device=device)
+    return bank, EvalBank.build(dataset.x_test, dataset.y_test,
+                                device=device)
+
+
+def _run_plan(plan: _HorizonPlan, cfg: FLConfig, uplink, cell, eval_mask,
+              bank, ebank, device, progress=None) -> FLResult:
+    """One instance's scanned horizon from its host plan: the plan's one
+    upload, the T rounds at its own batch count, the log's one download."""
+    _, dev_tk, bud, agg, gains, keys, eidx, nb = _stack_plans([plan], bank,
+                                                              device)
+    final, log = fl_engine.run_horizon(
+        plan.params0, dev_tk[0], bud[0], agg[0], gains[0], keys[0],
+        eval_mask, None if eidx is None else eidx[0], bank, ebank, nb=nb,
+        **_horizon_statics(cfg, plan.payload, cell, uplink),
+    )
+    bits, kept, accs = fl_engine.horizon_logs(log)
+    return _assemble_horizon_result(plan, cfg, uplink, eval_mask, bits, kept,
+                                    accs, final, progress)
+
+
+def run_horizon_scanned(
+    dataset,
+    shards: list,
+    cell: chan.CellConfig,
+    cfg: FLConfig,
+    *,
+    uplink: Optional[str] = None,
+    schedule: Optional[scheduling.Schedule] = None,
+    eval_every: int = 1,
+    progress: Optional[Callable[[RoundLog], None]] = None,
+    channels: Optional[chan.ChannelBundle] = None,
+    init_params=None,
+    device=None,
+) -> FLResult:
+    """One whole horizon with one read of the card (``cfg.horizon =
+    "scan"``).
+
+    All host work (draws, schedule, rates, budgets, weights, timing)
+    happens up front in :func:`_horizon_setup`; the plan goes to the
+    device in one upload; training, quantization, aggregation and
+    evaluation for all T rounds then run from device tensors
+    (:func:`repro_torch.core.fl_engine.run_horizon`), with kernel #1 in
+    every dense round (all-padding tail rounds included) and the keyed
+    OTA kernel in every OTA round; the log comes back in one download at
+    the end.  The batched round body runs whatever ``cfg.fl_engine``
+    says, as in the reference.  Same logs as the per-round driver:
+    schedules, bits, rates, ratios and times equal, and accuracies and
+    parameters too where every round is full.  ``channels``,
+    ``init_params``, ``schedule`` and ``device`` act as in
+    :func:`run_federated_learning`.
+    """
+    dev = resolve_device(device)
+    uplink = _resolve_uplink(cfg, uplink)
+    plan = _horizon_setup(dataset, shards, cell, cfg, uplink, schedule,
+                          device=dev, channels=channels,
+                          init_params=init_params)
+    bank, ebank = _horizon_world(dataset, shards, cfg, dev)
+    return _run_plan(plan, cfg, uplink, cell,
+                     _eval_mask(cfg.num_rounds, eval_every), bank, ebank,
+                     dev, progress)
+
+
+def run_horizon_vmapped(
+    dataset,
+    shards: list,
+    cell: chan.CellConfig,
+    cfg: FLConfig,
+    *,
+    seeds,
+    uplink: Optional[str] = None,
+    eval_every: int = 1,
+    device=None,
+) -> list:
+    """A seed sweep: S independent scanned horizons in one stacked program.
+
+    Each seed gets its own initial weights, channel draws, schedule, eval
+    plan and receiver noise (``dataclasses.replace(cfg, seed=s)``); the
+    client bank and test set are shared.  The seed axis folds into the
+    client rows (:func:`repro_torch.core.fl_engine._horizon_core`):
+    one local-SGD pass for all S*K rows per batch, and the dense rounds'
+    S x 6 (seed, leaf) sums through kernel #1, up to 16 to a launch.
+    Returns one :class:`FLResult` per seed, in order; row s is the program
+    :func:`run_horizon_scanned` runs for that seed alone.
+    """
+    dev = resolve_device(device)
+    uplink = _resolve_uplink(cfg, uplink)
+    seeds = [int(s) for s in seeds]
+    if not seeds:
+        raise ValueError("seeds must be a non-empty sequence")
+    cfgs = [dataclasses.replace(cfg, seed=s) for s in seeds]
+    plans = [_horizon_setup(dataset, shards, cell, c, uplink, None,
+                            device=dev) for c in cfgs]
+    bank, ebank = _horizon_world(dataset, shards, cfg, dev)
+    eval_mask = _eval_mask(cfg.num_rounds, eval_every)
+    params_s, dev_stk, bud, agg, gains, keys, eidx, nb = _stack_plans(
+        plans, bank, dev)
+    final_s, log = fl_engine._horizon_core(
+        params_s, dev_stk, bud, agg, gains, keys, eval_mask, eidx, bank,
+        ebank, nb=nb, **_horizon_statics(cfg, plans[0].payload, cell, uplink),
+    )
+    bits, kept, accs = fl_engine.horizon_logs(log)
+    return [
+        _assemble_horizon_result(plan, c, uplink, eval_mask, bits[i],
+                                 None if kept is None else kept[i], accs[i],
+                                 fl_engine._run_of(final_s, i))
+        for i, (plan, c) in enumerate(zip(plans, cfgs))
+    ]
+
+
+def run_cell_sweep(
+    dataset,
+    shards: list,
+    cell: chan.CellConfig,
+    cfg: FLConfig,
+    *,
+    num_cells: int,
+    seeds_per_cell: int = 1,
+    uplink: Optional[str] = None,
+    eval_every: int = 1,
+    cell_shards: Optional[int] = None,
+    device=None,
+) -> list:
+    """A (cells x seeds) grid of independent scanned horizons.
+
+    Instance (c, s) runs seed ``cfg.seed + c * seeds_per_cell + s``: cells
+    are disjoint seed blocks of one cell geometry.  Every instance runs
+    on the run's device as one :func:`repro_torch.core.fl_engine.
+    run_horizon` at its own batch count, over the shared bank and test set:
+    the reference's own path on a one-device mesh.  ``cell_shards`` is the
+    reference's cell-axis split across devices
+    (:func:`repro_torch.sharding.cells.cell_shards` clamps it to the card
+    count); the split across cards is not ported (``ROADMAP.md`` item 4's
+    residue), so the port runs the same instances whatever it says.
+    Returns ``results[c][s]``.
+    """
+    dev = resolve_device(device)
+    uplink = _resolve_uplink(cfg, uplink)
+    num_c, num_s = int(num_cells), int(seeds_per_cell)
+    if num_c < 1 or num_s < 1:
+        raise ValueError(f"need num_cells >= 1 and seeds_per_cell >= 1, "
+                         f"got ({num_cells}, {seeds_per_cell})")
+    bank, ebank = _horizon_world(dataset, shards, cfg, dev)
+    eval_mask = _eval_mask(cfg.num_rounds, eval_every)
+    results = []
+    for c in range(num_c):
+        row = []
+        for s in range(num_s):
+            inst = dataclasses.replace(cfg, seed=cfg.seed + c * num_s + s)
+            plan = _horizon_setup(dataset, shards, cell, inst, uplink, None,
+                                  device=dev)
+            row.append(_run_plan(plan, inst, uplink, cell, eval_mask, bank,
+                                 ebank, dev))
+        results.append(row)
+    return results

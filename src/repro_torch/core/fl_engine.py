@@ -55,7 +55,8 @@ ENGINES = ("legacy", "batched")
 # per-device round body in repro_torch.core.fl, "batched" this module
 
 HORIZON_MODES = ("per-round", "scan")
-# the reference's horizon modes; this slice ports "per-round"
+# the reference's horizon modes, both ported: "per-round" is the host round
+# loop of repro_torch.core.fl, "scan" the whole horizon of _horizon_core
 
 
 # --------------------------------------------------------------------------
@@ -91,23 +92,28 @@ def sgd_epoch(params, x, y, lr, *, model):
 # Aggregation
 # --------------------------------------------------------------------------
 
-def _pallas_aggregate_leaves(leaves, bits_k, agg_w, *, compress,
-                             paper_exact):
-    """Fused dequant + weighted sum of client-stacked leaves (kernel path),
-    in two passes: every leaf is quantized, then one grouped kernel call
-    reduces them all.
+def _pallas_aggregate_seeds(leaves, bits_k, agg_w, *, seeds, compress,
+                            paper_exact):
+    """Fused dequant + weighted sum of client-stacked leaves (kernel path)
+    for ``seeds`` runs stacked on the client axis, in two passes: every
+    leaf is quantized, then one grouped kernel call reduces every (seed,
+    leaf) matrix.
 
-    Quantizes the raw deltas to per-client float32-held codes and lets the
+    Leaves are (S*K, ...), seed s owning rows s*K to (s+1)*K - 1.  Quantizes
+    the raw deltas to per-client float32-held codes and lets the
     aggregation kernel apply scale_k * w_k / a_k during the reduction.  A
     client with b >= 32 passes through at full precision: its kernel weight
-    is zeroed and its raw delta joins through a separate weighted sum.
-    With ``compress=False`` the identity codes (scale = a = 1) reduce to the
-    plain weighted sum.  Returns one aggregate per leaf, shaped like
-    ``leaf[0]``.
+    is zeroed and its raw delta joins through a separate weighted sum of
+    its seed's rows.  With ``compress=False`` the identity codes (scale = a
+    = 1) reduce to the plain weighted sum.  Returns one (S, ...) aggregate
+    per leaf; quantization is per row, so seed s's aggregate is the one its
+    K rows give alone.
     """
-    k = leaves[0].shape[0]
-    flats = [leaf.reshape(k, -1).to(torch.float32) for leaf in leaves]
-    ones = torch.ones(k, dtype=torch.float32, device=leaves[0].device)
+    rows = leaves[0].shape[0]
+    k = rows // seeds
+    parts = [slice(i * k, (i + 1) * k) for i in range(seeds)]
+    flats = [leaf.reshape(rows, -1).to(torch.float32) for leaf in leaves]
+    ones = torch.ones(rows, dtype=torch.float32, device=leaves[0].device)
     if compress:
         full = (bits_k >= 32).to(torch.float32)
         w_q, w_full = agg_w * (1.0 - full), agg_w * full
@@ -118,15 +124,31 @@ def _pallas_aggregate_leaves(leaves, bits_k, agg_w, *, compress,
             )
             codes.append(c)
             coeffs.append(coefficients(scales, w_q, a))
-        outs = [
-            out + torch.einsum("k,kn->n", w_full, flat)
-            for out, flat in zip(weighted_aggregate_group(codes, coeffs),
-                                 flats)
-        ]
     else:
-        coeff = coefficients(ones, agg_w, ones)
-        outs = weighted_aggregate_group(flats, [coeff] * len(flats))
-    return [out.reshape(leaf.shape[1:]) for out, leaf in zip(outs, leaves)]
+        codes = flats
+        coeffs = [coefficients(ones, agg_w, ones)] * len(flats)
+    sums = iter(weighted_aggregate_group(
+        [c[r] for c in codes for r in parts],
+        [c[r] for c in coeffs for r in parts],
+    ))
+    outs = []
+    for flat, leaf in zip(flats, leaves):
+        per_seed = [next(sums) for _ in parts]
+        if compress:
+            per_seed = [out + torch.einsum("k,kn->n", w_full[r], flat[r])
+                        for out, r in zip(per_seed, parts)]
+        out = per_seed[0].unsqueeze(0) if seeds == 1 else torch.stack(per_seed)
+        outs.append(out.reshape(seeds, *leaf.shape[1:]))
+    return outs
+
+
+def _pallas_aggregate_leaves(leaves, bits_k, agg_w, *, compress,
+                             paper_exact):
+    """:func:`_pallas_aggregate_seeds` of one run: (K, ...) leaves, one
+    aggregate per leaf shaped like ``leaf[0]``."""
+    return [out[0] for out in _pallas_aggregate_seeds(
+        leaves, bits_k, agg_w, seeds=1, compress=compress,
+        paper_exact=paper_exact)]
 
 
 def _pallas_aggregate_leaf(leaf, bits_k, agg_w, *, compress, paper_exact):
@@ -211,73 +233,222 @@ def _sparse_quantize_aggregate(
     return update, kept, bits
 
 
+def _stack_runs(trees):
+    """Parameter trees of S runs -> one tree of (S, ...) leaves (views of
+    the one tree's leaves when S = 1)."""
+    if len(trees) == 1:
+        return tree_lib.tree_map(lambda w: w.unsqueeze(0), trees[0])
+    return tree_lib.tree_map(lambda *ws: torch.stack(ws), *trees)
+
+
+def _round_ratios(payload, compress, kept, bits, budgets32):
+    """A round log's per-client compression ratios, for both drivers.
+
+    With the top-k stage on (``kept`` not ``None``) the honest sparse
+    on-air ratios I / S_k from the realized (kept, bits) pair
+    (``compression.sparse_compression_ratio``); with adaptive DoReFa
+    ``compression_ratio`` on the float32 budgets, as the reference's host
+    call computes it; else ones.  ``kept`` and ``bits`` are (K,) host
+    arrays, ``budgets32`` a (K,) host float32 tensor; returns (K,) float64.
+    """
+    if kept is not None:
+        return comp.sparse_compression_ratio(payload, kept, bits,
+                                             payload // 32)
+    if compress:
+        return qlib.compression_ratio(payload, budgets32).numpy().astype(
+            np.float64)
+    return np.ones(len(bits))
+
+
+def _run_of(params_s, i):
+    """Run i's parameters out of a tree of (S, ...) leaves (views)."""
+    return tree_lib.tree_map(lambda w: w[i], params_s)
+
+
+def _rows(tree, part):
+    """The client rows ``part`` (a slice) of every leaf of a tree."""
+    return tree_lib.tree_map(lambda leaf: leaf[part], tree)
+
+
 def _train_quantize_aggregate(
-    params, x, y, budgets, agg_w,
+    params_s, x, y, budgets, agg_w,
     *, lr, epochs, payload, compress, paper_exact, use_pallas, model,
     topk, ota=None,
 ):
-    """The round body on gathered client rows: batched local SGD ->
-    per-client quantization -> weighted aggregation.
+    """The round body on gathered client rows of S runs at once: batched
+    local SGD -> per-client quantization -> weighted aggregation per run.
 
-    x: (K, nb, BS, ...); y: (K, nb, BS); budgets: (K,) float32 bit budgets;
-    agg_w: (K,) float32 FedAvg weights.  Returns ``(new_params, bits,
-    kept)``: bits (K,) int32, kept (K,) int32 coordinates per client under
+    params_s: leaves (S, ...), run s's parameters; x: (S*K, nb, BS, ...)
+    and y: (S*K, nb, BS), run s owning rows s*K to (s+1)*K - 1; budgets:
+    (S*K,) float32 bit budgets; agg_w: (S*K,) float32 FedAvg weights (zero
+    on padding rows, which train and then drop out of the sum exactly).
+    The per-round engine runs it with S = 1 and the scanned horizon with a
+    seed or cell axis: every step is per row or per run, so run s's round
+    is the one it would run alone.  Returns ``(new_params_s, bits, kept)``:
+    bits (S*K,) int32, kept (S*K,) int32 coordinates per client under
     ``topk < 1`` (with ``compress``), else ``None``.  ``ota`` (dict or
     None) swaps quantization and aggregation for the over-the-air
-    superposition: ``gains`` (K,) float32 channel amplitudes on the device,
-    ``key`` (2,) uint32 noise key, ``pmax``, ``noise_std`` and
-    ``threshold``; bits are then logged as 32 (nothing is quantized on
-    air).
+    superposition: ``gains`` (S*K,) float32 channel amplitudes on the
+    device, ``keys`` one (2,) uint32 host noise key per run, ``pmax``,
+    ``noise_std`` and ``threshold``; bits are then logged as 32 (nothing
+    is quantized on air).
     """
-    k = x.shape[0]
+    seeds = tree_lib.tree_flatten(params_s)[0][0].shape[0]
+    rows = x.shape[0]
+    k = rows // seeds
+    parts = [slice(i * k, (i + 1) * k) for i in range(seeds)]
+    # each run's parameters repeated over its K client rows (a view when
+    # S = 1, as the per-round engine has always trained them)
     start = tree_lib.tree_map(
-        lambda w: w.unsqueeze(0).expand(k, *w.shape), params
+        lambda w: w.unsqueeze(1).expand(seeds, k, *w.shape[1:])
+        .reshape(rows, *w.shape[1:]),
+        params_s,
     )
     new = start
     for _ in range(epochs):
         new = sgd_epoch(new, x, y, lr, model=model)
     deltas = tree_lib.tree_map(lambda a, b: a - b, new, start)
 
-    if ota is not None:
-        with torch.no_grad():
-            update = ota_lib.superpose_tree(
-                deltas, ota["gains"], agg_w, ota["key"], pmax=ota["pmax"],
-                noise_std=ota["noise_std"], threshold=ota["threshold"],
-                use_pallas=use_pallas,
-            )
-            new_params = tree_lib.tree_map(lambda p, u: p + u, params, update)
-        return new_params, torch.full((k,), 32, dtype=torch.int32,
-                                      device=x.device), None
-
-    if compress and topk < 1.0:
-        with torch.no_grad():
-            update, kept, bits = _sparse_quantize_aggregate(
-                deltas, budgets, agg_w, payload=payload, topk=topk,
-                paper_exact=paper_exact, use_pallas=use_pallas,
-            )
-            new_params = tree_lib.tree_map(lambda p, u: p + u, params, update)
-        return new_params, bits, kept
-
-    if compress:
-        bits = qlib.adaptive_bits(payload, budgets)
-    else:
-        bits = torch.full((k,), 32, dtype=torch.int32, device=x.device)
+    kept = None
     with torch.no_grad():
-        if use_pallas:
-            leaves, treedef = tree_lib.tree_flatten(deltas)
-            update = tree_lib.tree_unflatten(treedef, _pallas_aggregate_leaves(
-                leaves, bits, agg_w, compress=compress, paper_exact=paper_exact,
-            ))
+        if ota is not None:
+            updates = [ota_lib.superpose_tree(
+                _rows(deltas, r), ota["gains"][r], agg_w[r], key,
+                pmax=ota["pmax"], noise_std=ota["noise_std"],
+                threshold=ota["threshold"], use_pallas=use_pallas,
+            ) for r, key in zip(parts, ota["keys"])]
+            bits = torch.full((rows,), 32, dtype=torch.int32, device=x.device)
+        elif compress and topk < 1.0:
+            outs = [_sparse_quantize_aggregate(
+                _rows(deltas, r), budgets[r], agg_w[r], payload=payload,
+                topk=topk, paper_exact=paper_exact, use_pallas=use_pallas,
+            ) for r in parts]
+            updates = [update for update, _, _ in outs]
+            kept = torch.cat([kept_r for _, kept_r, _ in outs])
+            bits = torch.cat([bits_r for _, _, bits_r in outs])
+        if ota is not None or kept is not None:
+            update_s = tree_lib.tree_map(lambda *us: torch.stack(us), *updates)
         else:
-            update = tree_lib.tree_map(
-                lambda leaf: _einsum_aggregate_leaf(
-                    leaf, bits, agg_w, compress=compress,
+            if compress:
+                bits = qlib.adaptive_bits(payload, budgets)
+            else:
+                bits = torch.full((rows,), 32, dtype=torch.int32,
+                                  device=x.device)
+            leaves, treedef = tree_lib.tree_flatten(deltas)
+            if use_pallas:
+                per_leaf = _pallas_aggregate_seeds(
+                    leaves, bits, agg_w, seeds=seeds, compress=compress,
                     paper_exact=paper_exact,
-                ),
-                deltas,
+                )
+            else:
+                per_leaf = [torch.stack([_einsum_aggregate_leaf(
+                    leaf[r], bits[r], agg_w[r], compress=compress,
+                    paper_exact=paper_exact,
+                ) for r in parts]) for leaf in leaves]
+            update_s = tree_lib.tree_unflatten(treedef, per_leaf)
+        new_params = tree_lib.tree_map(lambda p, u: p + u, params_s, update_s)
+    return new_params, bits, kept
+
+
+# --------------------------------------------------------------------------
+# Scanned horizon: every round of a precomputed schedule on device tensors
+# --------------------------------------------------------------------------
+
+def _horizon_core(
+    params_s, dev_stk, budgets_stk, agg_stk, gains_stk, keys_st, eval_mask_t,
+    eval_idx_stn, bank, ebank,
+    *, nb, lr, epochs, payload, compress, paper_exact, use_pallas, model,
+    topk, ota, ota_noise, ota_threshold, pmax,
+):
+    """S independent horizons of T rounds, the port of the reference's
+    ``lax.scan`` over rounds (``repro/core/fl_engine.py:_horizon_core``)
+    and of its ``vmap`` over a seed sweep (``run_horizon_vmapped``): the
+    seed axis folds into the client rows, since the kernel launches cannot
+    be traced.  The bank, test set and eval cadence are shared, and run s
+    is the program :func:`run_horizon` runs for it alone.
+
+    The carry is ``params_s`` (leaves (S, ...), one run per row); the
+    per-round inputs are the precomputed plans the fl driver uploaded once:
+    ``dev_stk`` (S, T, K) int64 device ids, 0-padded past each round's true
+    group size; ``budgets_stk``, ``agg_stk`` and ``gains_stk`` (S, T, K)
+    float32 bit budgets, FedAvg weights and channel amplitudes, zero on
+    padding (a zero weight multiplies a padded row out of the aggregate
+    exactly, so an all-padding round leaves the parameters as they were);
+    ``keys_st`` (S, T, 2) uint32 receiver-noise keys, host numpy (the keyed
+    OTA kernel takes a key by value; read only under ``ota``);
+    ``eval_mask_t`` (T,) host bool; ``eval_idx_stn`` (S, T, n) int64
+    eval-row plans, or ``None`` for the full test set; ``bank`` a
+    :class:`ClientBank` and ``ebank`` an :class:`EvalBank` on the run's
+    device, the bank read ``nb`` batches deep (the horizon-wide count: the
+    extra all-padding batches give exactly-zero gradients).
+
+    Round t of all S runs is one :func:`_train_quantize_aggregate` over
+    S*K gathered rows, so local SGD takes one forward and backward per
+    batch for every run and the dense aggregation one grouped kernel call.
+    Nothing reads the card from the host: the gather index, budgets and
+    weights are device tensors, and each round writes its bit widths,
+    kept-coordinate counts (left NaN unless top-k is on) and accuracy (NaN
+    on rounds ``eval_mask_t`` skips; the host forward-fills) into one
+    preallocated (S, T, 2K+1) float64 log on the device.  Returns
+    ``(final params_s, log)``; :func:`horizon_logs` downloads the log.
+    """
+    seeds, num_rounds, k = dev_stk.shape
+    logs = torch.full((seeds, num_rounds, 2 * k + 1), float("nan"),
+                      dtype=torch.float64, device=dev_stk.device)
+    for t in range(num_rounds):
+        x, y = bank.take(dev_stk[:, t].reshape(-1), nb)
+        ota_round = None
+        if ota:
+            ota_round = dict(
+                gains=gains_stk[:, t].reshape(-1), keys=keys_st[:, t],
+                pmax=pmax, noise_std=ota_noise, threshold=ota_threshold,
             )
-        new_params = tree_lib.tree_map(lambda p, u: p + u, params, update)
-    return new_params, bits, None
+        params_s, bits, kept = _train_quantize_aggregate(
+            params_s, x, y, budgets_stk[:, t].reshape(-1),
+            agg_stk[:, t].reshape(-1), lr=lr, epochs=epochs, payload=payload,
+            compress=compress, paper_exact=paper_exact, use_pallas=use_pallas,
+            model=model, topk=topk, ota=ota_round,
+        )
+        logs[:, t, :k] = bits.view(seeds, k)
+        if kept is not None:
+            logs[:, t, k:2 * k] = kept.view(seeds, k)
+        if not eval_mask_t[t]:
+            continue
+        for i in range(seeds):
+            params = _run_of(params_s, i)
+            if eval_idx_stn is None:
+                acc = _eval_full(params, ebank.xe, ebank.ye, model=model)
+            else:
+                acc = _eval_sampled(params, ebank.xe, ebank.ye,
+                                    eval_idx_stn[i, t], model=model)
+            logs[i, t, 2 * k] = acc
+    return params_s, logs
+
+
+def run_horizon(params, dev_tk, budgets_tk, agg_tk, gains_tk, keys_t,
+                eval_mask_t, eval_idx_tn, bank, ebank, *, nb, **statics):
+    """One precomputed-schedule horizon (:func:`_horizon_core` with S = 1):
+    (T, K) plans, (T, 2) keys, (T, n) eval plans or ``None``.  Returns
+    ``(final params, log (T, 2K+1))``, both on the device."""
+    final_s, logs = _horizon_core(
+        _stack_runs([params]), dev_tk[None], budgets_tk[None], agg_tk[None],
+        gains_tk[None], keys_t[None], eval_mask_t,
+        None if eval_idx_tn is None else eval_idx_tn[None], bank, ebank,
+        nb=nb, **statics,
+    )
+    return _run_of(final_s, 0), logs[0]
+
+
+def horizon_logs(logs: torch.Tensor):
+    """A horizon log (..., T, 2K+1) -> host ``(bits, kept, acc)`` numpy
+    arrays ((..., T, K) int32, (..., T, K) int32 or ``None`` where the
+    round body kept no counts (top-k off), (..., T) float64): the
+    horizon's one read of the card."""
+    host = logs.cpu().numpy()
+    k = (host.shape[-1] - 1) // 2
+    kept = host[..., k:2 * k]
+    kept = None if np.isnan(kept).all() else kept.astype(np.int32)
+    return host[..., :k].astype(np.int32), kept, host[..., 2 * k]
 
 
 # --------------------------------------------------------------------------
@@ -379,7 +550,7 @@ class BatchedRoundEngine:
                 torch.float32
             )
             ota_dev = dict(
-                gains=_to_device(gains32, self.device), key=ota["key"],
+                gains=_to_device(gains32, self.device), keys=[ota["key"]],
                 pmax=float(ota["pmax"]), noise_std=float(cfg.ota_noise),
                 threshold=float(cfg.ota_threshold),
             )
@@ -387,25 +558,18 @@ class BatchedRoundEngine:
         # batches past a client's own count are all padding and contribute
         # exactly-zero gradients
         x, y = self.bank.gather(devs, nb)
-        params, bits, kept = _train_quantize_aggregate(
-            params, x, y, budgets32.to(self.device), agg32.to(self.device),
+        params_s, bits, kept = _train_quantize_aggregate(
+            _stack_runs([params]), x, y, budgets32.to(self.device),
+            agg32.to(self.device),
             lr=float(cfg.learning_rate), epochs=int(cfg.local_epochs),
             payload=self.payload, compress=compress,
             paper_exact=bool(cfg.paper_exact_range),
             use_pallas=bool(cfg.use_pallas), model=self.model,
             topk=float(cfg.topk), ota=ota_dev,
         )
-        if kept is not None:
-            # honest sparse accounting: on-air size from the realized
-            # (kept, bits) pair, not the dense 32-bit payload
-            ratios = comp.sparse_compression_ratio(
-                self.payload, kept.cpu().numpy(), bits.cpu().numpy(),
-                self.payload // 32,
-            )
-        elif compress:
-            # the reference's host call computes in float32 too
-            ratios = qlib.compression_ratio(self.payload, budgets32)
-            ratios = ratios.numpy().astype(np.float64)
-        else:
-            ratios = np.ones(k)
-        return params, bits.cpu().numpy(), ratios
+        bits = bits.cpu().numpy()
+        ratios = _round_ratios(
+            self.payload, compress, None if kept is None else
+            kept.cpu().numpy(), bits, budgets32,
+        )
+        return _run_of(params_s, 0), bits, ratios

@@ -126,6 +126,12 @@ class ClientBank:
         """The scheduled rows, (K, nb, BS, ...) each, row k device devs[k]."""
         idx = torch.as_tensor(list(devs), dtype=torch.int64,
                               device=self.xb.device)
+        return self.take(idx, nb)
+
+    def take(self, idx: torch.Tensor, nb: int):
+        """The rows of the device ids ``idx`` (an int64 tensor on the bank's
+        device), cut to ``nb`` batches: the scanned horizon's gather, with
+        no host list and no copy to the card."""
         return self.xb[idx, :nb], self.yb[idx, :nb]
 
     @classmethod

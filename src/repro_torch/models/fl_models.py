@@ -52,9 +52,8 @@ def get_fl_model(name: str):
     """Resolve ``FLConfig.model``; only ``"lenet"`` is ported."""
     if name == "lenet":
         return LenetFLModel()
-    # the reference's tiny transformers ride with the token payloads, its
-    # architecture ids with the LLM substrate
-    item = 7 if name.startswith("tiny-transformer") else 8
+    # the reference's tiny transformers and its architecture ids both come
+    # with the LLM substrate and the token payloads
     raise NotImplementedError(
-        errors.ERR_NOT_PORTED.format(feature=f"model={name!r}", item=item)
+        errors.ERR_NOT_PORTED.format(feature=f"model={name!r}", item=8)
     )

@@ -211,6 +211,66 @@ def task_fl_runs(spec, arrays):
     return out
 
 
+def _run_arrays(res, prefix):
+    """One FLResult's logs and final parameters, ``prefix``-named."""
+    import numpy as np
+
+    out = _params_to_arrays(res.final_params, prefix + "final/")
+    out[prefix + "acc"] = res.accuracies()
+    out[prefix + "times"] = res.times()
+    for log in res.logs:
+        t = log.round
+        out[f"{prefix}devices/{t}"] = np.asarray(log.devices, np.int64)
+        out[f"{prefix}bits/{t}"] = np.asarray(log.bits)
+        out[f"{prefix}rates/{t}"] = np.asarray(log.rates)
+        out[f"{prefix}ratios/{t}"] = np.asarray(log.compression_ratios)
+    return out
+
+
+def task_horizon_runs(spec, arrays):
+    """The reference's scanned drivers for each run of ``spec["runs"]``,
+    all in this one process: ``kind`` ``"scan"`` is
+    ``run_federated_learning`` with the run's FLConfig fields ``cfg``
+    (``horizon="scan"`` among them), ``"seeds"`` is
+    ``run_horizon_vmapped(seeds=...)`` and ``"cells"`` is
+    ``run_cell_sweep(num_cells=..., seeds_per_cell=...)``, each on the
+    world of ``num_devices`` devices and ``num_samples`` samples with
+    ``eval_every``.  A run's arrays are prefixed ``<key>/``, a sweep's
+    instances ``<key>/<s>/`` and ``<key>/<c>/<s>/``; every instance draws
+    from its own seed."""
+    from repro.config import FLConfig
+    from repro.core import channel, fl
+    from repro.data import dirichlet_partition, make_mnist_like
+
+    out = {}
+    for run in spec["runs"]:
+        m = int(run["num_devices"])
+        ds = make_mnist_like(num_samples=int(run["num_samples"]), seed=0)
+        cell = channel.CellConfig(num_devices=m)
+        shards = dirichlet_partition(ds.y_train, m, seed=0)
+        cfg = FLConfig(**run["cfg"])
+        every = int(run.get("eval_every", 1))
+        key = run["key"]
+        if run["kind"] == "scan":
+            res = fl.run_federated_learning(ds, shards, cell, cfg,
+                                            eval_every=every)
+            out.update(_run_arrays(res, f"{key}/"))
+        elif run["kind"] == "seeds":
+            sweep = fl.run_horizon_vmapped(ds, shards, cell, cfg,
+                                           seeds=run["seeds"],
+                                           eval_every=every)
+            for s, res in enumerate(sweep):
+                out.update(_run_arrays(res, f"{key}/{s}/"))
+        else:
+            grid = fl.run_cell_sweep(
+                ds, shards, cell, cfg, num_cells=int(run["num_cells"]),
+                seeds_per_cell=int(run["seeds_per_cell"]), eval_every=every)
+            for c, row in enumerate(grid):
+                for s, res in enumerate(row):
+                    out.update(_run_arrays(res, f"{key}/{c}/{s}/"))
+    return out
+
+
 def task_legacy_parts(spec, arrays):
     """The legacy round body's parts, and whole runs, in one process.
 
@@ -349,6 +409,7 @@ TASKS = {
     "draws": task_draws,
     "lazy_greedy": task_lazy_greedy,
     "legacy_parts": task_legacy_parts,
+    "horizon_runs": task_horizon_runs,
 }
 
 

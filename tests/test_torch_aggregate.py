@@ -336,6 +336,15 @@ def _per_leaf_aggregate(leaves, bits_k, agg_w, *, compress, paper_exact):
     return outs
 
 
+def _per_leaf_aggregate_seeds(leaves, bits_k, agg_w, *, seeds, compress,
+                              paper_exact):
+    """:func:`_per_leaf_aggregate` in the round body's seed-stacked form,
+    for one run: one (1, ...) aggregate per leaf."""
+    assert seeds == 1
+    return [out.unsqueeze(0) for out in _per_leaf_aggregate(
+        leaves, bits_k, agg_w, compress=compress, paper_exact=paper_exact)]
+
+
 @pytest.mark.parametrize("paper_exact", [False, True])
 @pytest.mark.parametrize("compress", [True, False])
 def test_leaves_in_one_group_equal_the_per_leaf_aggregate(compress,
@@ -375,8 +384,8 @@ def test_dense_round_equals_the_per_leaf_round(monkeypatch, compression,
                    fl_engine="batched", use_pallas=True,
                    compression=compression, paper_exact_range=paper_exact)
     grouped = fl.run_federated_learning(ds, shards, cell, cfg, device="cpu")
-    monkeypatch.setattr(fl_engine, "_pallas_aggregate_leaves",
-                        _per_leaf_aggregate)
+    monkeypatch.setattr(fl_engine, "_pallas_aggregate_seeds",
+                        _per_leaf_aggregate_seeds)
     per_leaf = fl.run_federated_learning(ds, shards, cell, cfg, device="cpu")
     assert len(grouped.logs) == len(per_leaf.logs) == 2
     if compression == "adaptive":

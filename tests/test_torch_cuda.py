@@ -32,7 +32,10 @@ views of a buffer at every element offset off a 16-byte boundary.  The
 grouped aggregation kernel (one launch for many matrices) equals the
 plain version matrix by matrix, bit for bit, and the dense FL round that
 reduces every leaf in that one launch gives the same update and bits on
-the card as on the CPU.
+the card as on the CPU.  A scanned horizon syncs nothing between its one
+upload and its one download (``torch.cuda.set_sync_debug_mode("error")``)
+and equals the per-round run on the card to the bit; a seed sweep groups
+its (seed, leaf) sums, 16 to a launch.
 """
 import math
 
@@ -753,6 +756,109 @@ def _legacy_round_on(device, monkeypatch, *, compression="adaptive",
         params, (5, 0, 9), np.array([1.3e6 + 0.37, 4.1e5, 3.0e7]),
         sizes / sizes.sum(), dataset, [[0]] * 10, cfg, 266_610 * 32,
         need_norms=False, model=LenetFLModel(), ota=ota_round)
+
+
+def _scan_world(m, samples=800):
+    from repro_torch.core import channel
+    from repro_torch.data import dirichlet_partition, make_mnist_like
+
+    ds = make_mnist_like(num_samples=samples, seed=0)
+    return ds, channel.CellConfig(num_devices=m), dirichlet_partition(
+        ds.y_train, m, seed=0)
+
+
+def _scan_config(**kw):
+    from repro_torch.config import FLConfig
+
+    if kw.get("uplink") == "ota":
+        kw = dict(compression="none", power_mode="ota-align", ota_noise=1e-9,
+                  **kw)
+    return FLConfig(**{**dict(
+        num_devices=12, group_size=3, num_rounds=3, power_mode="max",
+        fl_engine="batched", use_pallas=True, horizon="scan", seed=0,
+    ), **kw})
+
+
+def _synced_horizon(monkeypatch, seen):
+    """Run every scanned horizon's device part under
+    ``set_sync_debug_mode("error")``: a host sync inside raises."""
+    core = fl_engine._horizon_core
+
+    def checked(*args, **kwargs):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = core(*args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        seen.append(True)
+        return out
+
+    monkeypatch.setattr(fl_engine, "_horizon_core", checked)
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(compression="none"),
+                                dict(uplink="tdma"), dict(uplink="ota"),
+                                dict(topk=0.1), dict(eval_sample=0.5)],
+                         ids=["dense", "none", "tdma", "ota", "topk",
+                              "eval-sample"])
+def test_scan_on_the_card_equals_the_per_round_run(cuda, monkeypatch, kw):
+    """A scanned horizon on the card syncs nothing between its upload and
+    its download, launches its aggregation kernel once per round, and
+    gives the per-round run's logs and final parameters to the bit (every
+    round here is full)."""
+    import dataclasses
+
+    from repro_torch.core import fl
+
+    ds, cell, shards = _scan_world(12)
+    cfg = _scan_config(**kw)
+    seen = []
+    _synced_horizon(monkeypatch, seen)
+    ota_run = cfg.uplink == "ota"
+    before = (aggregate.weighted_aggregate.launches,
+              ota_aggregate.ota_aggregate.launches)
+    scan = fl.run_federated_learning(ds, shards, cell, cfg, device=cuda)
+    assert seen == [True]
+    assert (aggregate.weighted_aggregate.launches - before[0],
+            ota_aggregate.ota_aggregate.launches - before[1]) == (
+        (0, 3) if ota_run else (3, 0))
+    per_round = fl.run_federated_learning(
+        ds, shards, cell, dataclasses.replace(cfg, horizon="per-round"),
+        device=cuda)
+    assert all(len(lg.devices) == 3 for lg in per_round.logs)
+    for a, b in zip(scan.logs, per_round.logs):
+        assert a.devices == b.devices and a.test_accuracy == b.test_accuracy
+        for field in ("bits", "rates", "compression_ratios"):
+            np.testing.assert_array_equal(getattr(a, field), getattr(b, field))
+    for a in per_round.final_params:
+        for c in per_round.final_params[a]:
+            _same_bits(scan.final_params[a][c], per_round.final_params[a][c])
+
+
+def test_seed_sweep_on_the_card_groups_its_launches(cuda, monkeypatch):
+    """Four seeds in one stacked horizon: ceil(24 / 16) = 2 aggregation
+    launches a round, no host sync inside, and each row's logs equal the
+    single scan's at its seed."""
+    import dataclasses
+
+    from repro_torch.core import fl
+
+    ds, cell, shards = _scan_world(12)
+    cfg = _scan_config()
+    seen = []
+    _synced_horizon(monkeypatch, seen)
+    before = aggregate.weighted_aggregate.launches
+    sweep = fl.run_horizon_vmapped(ds, shards, cell, cfg, seeds=[0, 1, 2, 3],
+                                   device=cuda)
+    assert aggregate.weighted_aggregate.launches - before == 2 * 3
+    for s, res in enumerate(sweep):
+        single = fl.run_federated_learning(
+            ds, shards, cell, dataclasses.replace(cfg, seed=s), device=cuda)
+        assert [lg.devices for lg in res.logs] == [
+            lg.devices for lg in single.logs]
+        for a, b in zip(res.logs, single.logs):
+            np.testing.assert_array_equal(a.bits, b.bits)
+    assert len(seen) == 5
 
 
 @pytest.mark.parametrize("compression", ["adaptive", "none"])

@@ -402,12 +402,12 @@ def test_parameter_entry_points_default_to_cuda(monkeypatch):
 
 # The case ids are the ones these cases had before the scheduler_backend=
 # "jax" case (item 3), the uplink="tdma" case (item 2), the uplink="ota"
-# case (item 6), the topk and client_bank="bucketed" cases (item 7), and the
-# default legacy engine and scheduler="random" cases (item 1) left the list
-# as they were ported; the tiny-transformer case keeps its id and now
-# expects item 8, which brings the LLM models.
+# case (item 6), the topk and client_bank="bucketed" cases (item 7), the
+# default legacy engine and scheduler="random" cases (item 1) and the
+# horizon="scan" case (item 4) left the list as they were ported; the
+# tiny-transformer case keeps its id and now expects item 8, which brings
+# the LLM models.
 @pytest.mark.parametrize("kwargs,item", [
-    pytest.param(dict(fl_engine="batched", horizon="scan"), 4, id="kwargs4-4"),
     pytest.param(dict(fl_engine="batched", scheduler="update-aware"), 5,
                  id="kwargs5-5"),
     pytest.param(dict(fl_engine="batched", model="tiny-transformer"), 8,
@@ -419,6 +419,62 @@ def test_config_names_the_roadmap_item_for_unported_settings(kwargs, item):
     with pytest.raises(NotImplementedError,
                        match=f"ROADMAP.md queue 1 item {item} brings it"):
         FLConfig(**kwargs)
+
+
+@pytest.mark.parametrize("name", ["tiny-transformer", "tiny-transformer-1m",
+                                  "qwen2_0_5b"])
+def test_get_fl_model_names_item_8_for_every_unported_model(name):
+    """The reference's tiny transformers and its architecture ids all come
+    with item 8 (the LLM substrate and the token payloads), called
+    directly as through ``FLConfig``."""
+    from repro_torch.models.fl_models import get_fl_model
+
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.md queue 1 item 8 brings it"):
+        get_fl_model(name)
+
+
+@pytest.mark.parametrize("engine", ["legacy", "batched"])
+def test_config_accepts_scan_under_both_engines_and_runs(engine):
+    """horizon='scan' (item 4) constructs under either engine, with a
+    sampled eval too, and runs the batched round body whatever fl_engine
+    says: its logs are the batched per-round run's, over a horizon that
+    ends in an empty round."""
+    assert FLConfig(fl_engine=engine, horizon="scan",
+                    eval_sample=0.5).eval_sample == 0.5
+    ds = make_mnist_like(num_samples=400, seed=0)
+    cell = channel.CellConfig(num_devices=4)
+    shards = dirichlet_partition(ds.y_train, 4, seed=0)
+    kw = dict(num_devices=4, group_size=2, num_rounds=3,
+              scheduler="round-robin", power_mode="max", use_pallas=True)
+    scan = fl.run_federated_learning(
+        ds, shards, cell, FLConfig(fl_engine=engine, horizon="scan", **kw),
+        device="cpu")
+    per_round = fl.run_federated_learning(
+        ds, shards, cell, FLConfig(fl_engine="batched", **kw), device="cpu")
+    assert scan.logs[-1].devices == () and scan.logs[-1].bits.size == 0
+    for a, b in zip(scan.logs, per_round.logs):
+        assert a.devices == b.devices and a.test_accuracy == b.test_accuracy
+        assert a.wall_time_s == b.wall_time_s
+        for field in ("bits", "rates", "compression_ratios"):
+            np.testing.assert_array_equal(getattr(a, field), getattr(b, field))
+
+
+def test_config_rejects_the_bucketed_bank_with_scan():
+    """The scan indexes one dense bank: the reference's rule stands."""
+    with pytest.raises(ValueError,
+                       match="client_bank='bucketed' requires fl_engine="
+                             "'batched' with horizon='per-round'"):
+        FLConfig(fl_engine="batched", horizon="scan", client_bank="bucketed")
+
+
+@pytest.mark.parametrize("scheduler", ["update-aware", "age-fair"])
+def test_config_online_scheduler_with_scan_names_item_5(scheduler):
+    """An online policy raises item 5 under the scan as per round."""
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.md queue 1 item 5 brings it"):
+        FLConfig(fl_engine="batched", horizon="scan", scheduler=scheduler,
+                 power_mode="max")
 
 
 @pytest.mark.parametrize("kwargs", [
