@@ -126,7 +126,25 @@ package, and exits non-zero on the first failure.  Phases:
      2 seeds with ``cell_shards=2``, clamped to the card count
      (``[sweep:cells]``: each instance equal to its single scan to the
      bit); and the M=30 scan on the CPU and on the card held to the
-     contract of 7 (``[cpu-vs-card:scan]``).
+     contract of 7 (``[cpu-vs-card:scan]``);
+ 14. the online policies, which select each round from the FL state of
+     the rounds before: update-aware with MAPEL per round
+     (``[main:online]``: each round's norms fed to the policy and host
+     time printed; kernel #1 once per non-empty round), age-fair with max
+     power (``[main:online-age]``), update-aware with max power scanned
+     (``[main:online-scan]``: selection, powers, rates and budgets on the
+     card inside the horizon, under the sync check, its logs equal to the
+     same configuration per round (``[main:online-max]``) and its
+     parameters within the drift contract), matching-pursuit over OTA
+     (ota-align, noise 1e-9) per round and scanned (``[main:online-mp]``,
+     ``[main:online-mp-scan]``: one keyed OTA launch per round, the one
+     equal to the other), ``FLConfig(scheduler="update-aware")`` on the
+     legacy engine (``[main:online-legacy]``: no kernel but Threefry's
+     3), the online seed sweep over seeds 0-3 (``[sweep:online-seeds]``:
+     every row's logs equal to its single online scan's) and the M=30
+     update-aware run on the CPU and on the card
+     (``[cpu-vs-card:online]``: the contract of 7, or F1's shape where
+     the drift leaves it).
 
 The last lines are the card's name and power limit as nvidia-smi reports
 them, one JSON object with every kernel's numbers, and the one-line result
@@ -1407,11 +1425,11 @@ def _config(m, t, backend="numpy", uplink="noma", **overrides):
     ), **extra})
 
 
-def _legacy_config(m, t, uplink="noma"):
+def _legacy_config(m, t, uplink="noma", **overrides):
     """``FLConfig``'s defaults (the legacy engine, ``use_pallas=False``,
     numpy lazy GWMIN, MAPEL, adaptive DoReFa, NOMA) at M devices and T
     rounds; ``uplink="ota"`` the reference's OTA settings with the keyed
-    OTA kernel (``use_pallas=True``)."""
+    OTA kernel (``use_pallas=True``); ``overrides`` replace any field."""
     from repro_torch.config import FLConfig
 
     extra = {}
@@ -1419,7 +1437,22 @@ def _legacy_config(m, t, uplink="noma"):
         extra = dict(uplink="ota", compression="none",
                      power_mode="ota-align", ota_noise=OTA_NOISE,
                      use_pallas=True)
+    extra.update(overrides)
     return FLConfig(num_devices=m, num_rounds=t, **extra)
+
+
+# the online policies' main-path modes -> their FLConfig overrides;
+# "online-mp*" run under OTA, "online-legacy" on the legacy engine
+ONLINE_MODES = {
+    "online": dict(scheduler="update-aware"),
+    "online-age": dict(scheduler="age-fair", power_mode="max"),
+    "online-max": dict(scheduler="update-aware", power_mode="max"),
+    "online-scan": dict(scheduler="update-aware", power_mode="max",
+                        horizon="scan"),
+    "online-mp": dict(scheduler="matching-pursuit"),
+    "online-mp-scan": dict(scheduler="matching-pursuit", horizon="scan"),
+    "online-legacy": dict(scheduler="update-aware"),
+}
 
 
 RUN_SECONDS = {}    # main-path mode -> seconds of its run after the schedule
@@ -1440,23 +1473,27 @@ def run_main_path(kernels, mode, m=300, t=5, samples=12_000):
     round under OTA with the keyed OTA kernel, both with the host schedule;
     ``"scan"`` and ``"scan-ota"`` run the host and OTA modes with
     ``horizon="scan"``, the horizon's device part under
-    ``set_sync_debug_mode("error")``.
+    ``set_sync_debug_mode("error")``; the ``ONLINE_MODES`` run an online
+    policy, which selects inside the run (per round each round's norms fed
+    to the policy are printed; a scanned horizon selects on the card).
     The launch counts are zeroed just before and read just after the
     schedule and the run; the run's seconds go to ``RUN_SECONDS``."""
     from repro_torch.core import channel, fl, scheduling
 
     ds, cell, shards = _world(m, samples)
-    uplink = "ota" if mode in ("ota", "legacy-ota", "scan-ota") else (
+    uplink = "ota" if mode in ("ota", "legacy-ota", "scan-ota", "online-mp",
+                               "online-mp-scan") else (
         "tdma" if mode == "tdma" else "noma")
-    legacy = mode in ("legacy", "legacy-ota")
-    scan = mode in ("scan", "scan-ota")
+    legacy = mode in ("legacy", "legacy-ota", "online-legacy")
+    scan = mode in ("scan", "scan-ota", "online-scan", "online-mp-scan")
     overrides = {"topk": dict(topk=TOPK),
                  "bucketed": dict(client_bank="bucketed"),
                  "random": dict(scheduler="random"),
                  "scan": dict(horizon="scan"),
-                 "scan-ota": dict(horizon="scan")}.get(mode, {})
+                 "scan-ota": dict(horizon="scan"),
+                 **ONLINE_MODES}.get(mode, {})
     if legacy:
-        cfg = _legacy_config(m, t, uplink)
+        cfg = _legacy_config(m, t, uplink, **overrides)
     else:
         cfg = _config(m, t, "jax" if mode in ("jax", "pallas") else "numpy",
                       uplink, **overrides)
@@ -1483,6 +1520,12 @@ def run_main_path(kernels, mode, m=300, t=5, samples=12_000):
             f"({cfg.scheduler} + {cfg.power_mode}) {t_sched:.3f} s")
 
     stamps = []    # host clock at the start, then after each round
+    fed = []       # the norms an online policy was fed, round by round
+    record = scheduling.Observation.record_round
+
+    def keep_norms(self, t, group, rates_k, update_norms_k=None):
+        fed.append([] if update_norms_k is None else list(update_norms_k))
+        return record(self, t, group, rates_k, update_norms_k)
 
     def progress(lg):
         torch.cuda.synchronize()
@@ -1490,9 +1533,11 @@ def run_main_path(kernels, mode, m=300, t=5, samples=12_000):
         # a scanned horizon logs its rounds after its one download
         host = ("" if scan else
                 f" host {stamps[-1] - stamps[-2]:.4f} s")
+        norms = (f" norms {[float(f'{v:.6g}') for v in fed[-1]]}"
+                 if fed and fed[-1] else "")
         log(f"[main:{mode}] round {lg.round}: devices {list(lg.devices)} bits "
             f"{lg.bits.tolist()} acc {lg.test_accuracy:.4f} sim_time "
-            f"{lg.wall_time_s:.4f} s{host}")
+            f"{lg.wall_time_s:.4f} s{host}{norms}")
 
     def run():
         return fl.run_federated_learning(
@@ -1504,7 +1549,11 @@ def run_main_path(kernels, mode, m=300, t=5, samples=12_000):
     torch.cuda.synchronize()
     stamps.append(time.perf_counter())
     t1 = stamps[0]
-    res = _with_checked_horizon(run, horizon_s) if scan else run()
+    scheduling.Observation.record_round = keep_norms
+    try:
+        res = _with_checked_horizon(run, horizon_s) if scan else run()
+    finally:
+        scheduling.Observation.record_round = record
     torch.cuda.synchronize()
     total = time.perf_counter() - t1
     RUN_SECONDS[mode] = total
@@ -1543,6 +1592,13 @@ def run_main_path(kernels, mode, m=300, t=5, samples=12_000):
               f"expected {n} ({nonempty} non-empty rounds)")
     check(bool(np.all(np.isfinite(acc))), f"non-finite accuracy {acc}")
     check(acc[-1] > acc[0], f"accuracy did not improve: {acc.tolist()}")
+    if mode in ONLINE_MODES and not scan:
+        check(len(fed) == t, f"[main:{mode}] fed its policy {len(fed)} times")
+        if cfg.scheduler != "age-fair":
+            check(all(len(f) == len(lg.devices) and np.all(np.isfinite(f))
+                      and min(f, default=1.0) > 0.0
+                      for f, lg in zip(fed, res.logs)),
+                  f"[main:{mode}] norms fed to the policy: {fed}")
     for layer in res.final_params.values():
         for leaf in layer.values():
             check(leaf.device.type == "cuda" and bool(torch.isfinite(leaf).all()),
@@ -1729,30 +1785,36 @@ def _timed(fn):
 
 def _with_checked_horizon(fn, seen):
     """fn() with every scanned horizon's device part (``fl_engine.
-    _horizon_core``: after the horizon's one upload, before its one
-    download) run under ``torch.cuda.set_sync_debug_mode("error")``, so a
-    host sync inside raises; each horizon's seconds go to ``seen``."""
+    _horizon_core`` or, for an online policy, ``_online_horizon_core``:
+    after the horizon's one upload, before its one download) run under
+    ``torch.cuda.set_sync_debug_mode("error")``, so a host sync inside
+    raises; each horizon's seconds go to ``seen``."""
     from repro_torch.core import fl_engine
 
-    core = fl_engine._horizon_core
+    cores = {name: getattr(fl_engine, name)
+             for name in ("_horizon_core", "_online_horizon_core")}
 
-    def checked(*args, **kwargs):
-        torch.cuda.synchronize()            # the upload, queued before
-        t0 = time.perf_counter()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            out = core(*args, **kwargs)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-        torch.cuda.synchronize()
-        seen.append(time.perf_counter() - t0)
-        return out
+    def checked(core):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()            # the upload, queued before
+            t0 = time.perf_counter()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = core(*args, **kwargs)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+            seen.append(time.perf_counter() - t0)
+            return out
+        return run
 
-    fl_engine._horizon_core = checked
+    for name, core in cores.items():
+        setattr(fl_engine, name, checked(core))
     try:
         return fn()
     finally:
-        fl_engine._horizon_core = core
+        for name, core in cores.items():
+            setattr(fl_engine, name, core)
 
 
 def _scan_rounds(fn, run):
@@ -1898,21 +1960,131 @@ def run_cell_sweep(kernels, singles, single_dev, m=300, t=5,
         f"{sum(singles_dev) / 4:.4f})")
 
 
+def run_online_phases(kernels):
+    """The online policies at the main path's width: ``[main:online]``
+    (update-aware, MAPEL, per round), ``[main:online-age]`` (age-fair,
+    max power), ``[main:online-scan]`` (update-aware, max power, the
+    scanned horizon) against the same configuration per round
+    (``[main:online-max]``), ``[main:online-mp]`` and
+    ``[main:online-mp-scan]`` (matching-pursuit over OTA, per round and
+    scanned, the one against the other), and ``[main:online-legacy]``
+    (``FLConfig(scheduler="update-aware")``: the legacy engine, as Fig. 6
+    runs it).  Each run checks its own launch counts (run_main_path); a
+    scan must give the per-round run's logs exactly and its parameters
+    within the drift contract.  Returns the scanned update-aware run."""
+    per_round = {}
+    for mode in ("online", "online-age", "online-max", "online-mp"):
+        per_round[mode], _ = run_main_path(kernels, mode)
+    scans = {}
+    for mode, twin in (("online-scan", "online-max"),
+                       ("online-mp-scan", "online-mp")):
+        scans[mode], _ = run_main_path(kernels, mode)
+        label = f"[main:{mode}] against [main:{twin}] (per round):"
+        worst_mean, worst_max = _check_equal_logs(scans[mode],
+                                                  per_round[twin], label)
+        check(worst_mean < PARAM_MEAN_ATOL and worst_max < PARAM_MAX_ATOL,
+              f"{label} param drift mean {worst_mean} max {worst_max}")
+        held = ("bit-equal" if _params_equal(scans[mode], per_round[twin])
+                else "inside the drift contract")
+        log(f"{label} final parameters {held}; {RUN_SECONDS[mode]:.4f} s "
+            f"after the set-up against {RUN_SECONDS[twin]:.4f} s per round")
+    legacy, _ = run_main_path(kernels, "online-legacy")
+    same = ([lg.devices for lg in legacy.logs]
+            == [lg.devices for lg in per_round["online"].logs])
+    log(f"[main:online-legacy] schedules "
+        f"{'equal' if same else 'differ from'} [main:online]'s; "
+        f"{RUN_SECONDS['online-legacy']:.4f} s against "
+        f"{RUN_SECONDS['online']:.4f} s")
+    return scans["online-scan"]
+
+
+def run_online_seed_sweep(kernels, scan_run, m=300, t=5, samples=12_000):
+    """``[sweep:online-seeds]``: ``run_horizon_vmapped`` of the
+    ``[main:online-scan]`` configuration over SWEEP_SEEDS beside one
+    single online scan per seed, every horizon under the sync check: each
+    row's logs equal its single scan's (the rows select on the card from
+    their own norms), its parameters within the drift contract or in F1's
+    shape, and the line says which.  Kernel #1 launches ceil(6 S / 16)
+    times a round."""
+    from repro_torch.core import fl
+
+    ds, cell, shards = _world(m, samples)
+    cfg = _config(m, t, **ONLINE_MODES["online-scan"])
+    num = len(SWEEP_SEEDS)
+    single_dev, sweep_dev, singles, single_s = [], [], [], 0.0
+    for seed in SWEEP_SEEDS:
+        res, sec = _timed(lambda seed=seed: _with_checked_horizon(
+            lambda: fl.run_federated_learning(
+                ds, shards, cell, dataclasses.replace(cfg, seed=seed),
+                device="cuda"), single_dev))
+        singles.append(res)
+        single_s += sec
+    reset_launches(kernels)
+    sweep, sweep_s = _timed(lambda: _with_checked_horizon(
+        lambda: fl.run_horizon_vmapped(ds, shards, cell, cfg,
+                                       seeds=SWEEP_SEEDS, device="cuda"),
+        sweep_dev))
+    launches = read_launches(kernels)
+    want = {name: 0 for name in launches}
+    want["weighted_aggregate"] = t * -(-6 * num // 16)
+    want["threefry_draw"] = LENET_WEIGHT_LEAVES * num
+    check(launches == want, f"[sweep:online-seeds] launches {launches}, "
+          f"expected {want}")
+    check(len(sweep_dev) == 1 and len(single_dev) == num,
+          f"[sweep:online-seeds] {len(sweep_dev)} + {len(single_dev)} "
+          f"checked horizons")
+    _check_equal_logs(sweep[0], scan_run,
+                      "[sweep:online-seeds] row 0 against [main:online-scan]:")
+    held = []
+    for s, (res, single) in enumerate(zip(sweep, singles)):
+        label = (f"[sweep:online-seeds] row {s} (seed {SWEEP_SEEDS[s]}) "
+                 f"against its single scan:")
+        worst_mean, worst_max = _check_equal_logs(res, single, label)
+        if _params_equal(res, single):
+            held.append("bit-equal")
+        elif worst_mean < PARAM_MEAN_ATOL and worst_max < PARAM_MAX_ATOL:
+            held.append("drift contract")
+        else:
+            seed_cfg = dataclasses.replace(cfg, seed=SWEEP_SEEDS[s])
+            _, alone = _scan_rounds(lambda: fl.run_federated_learning(
+                ds, shards, cell, seed_cfg, device="cuda"), 0)
+            _, stacked = _scan_rounds(lambda: fl.run_horizon_vmapped(
+                ds, shards, cell, cfg, seeds=SWEEP_SEEDS, device="cuda"), s)
+            _check_code_flips(alone, stacked, cfg.group_size, label)
+            held.append("F1 shape")
+    check(any([lg.devices for lg in res.logs]
+              != [lg.devices for lg in sweep[0].logs] for res in sweep[1:]),
+          "[sweep:online-seeds] every seed scheduled as seed 0")
+    log(f"[sweep:online-seeds] S={num} seeds {list(SWEEP_SEEDS)} at M={m} "
+        f"K=3 T={t}: final parameters against the single scans: {held}; "
+        f"every horizon's device part under set_sync_debug_mode('error'): "
+        f"no host sync; launches {launches}")
+    log(f"[sweep:online-seeds] the sweep {sweep_s / num:.4f} s per seed "
+        f"(device part {sweep_dev[0] / num:.4f}) against {num} single scans "
+        f"{single_s / num:.4f} s per seed (device part "
+        f"{sum(single_dev) / num:.4f}), set-up included")
+
+
 def compare_cpu_and_card(kernels, m=30, t=5, samples=12_000, uplink="noma",
-                         topk=1.0, legacy=False, scan=False):
+                         topk=1.0, legacy=False, scan=False, online=False):
     """The M=30 run on the CPU (plain versions) and on the card (kernels):
     with ``scheduler_backend="jax"`` (greedy on the CPU and on the card)
     under NOMA, under OTA with ota-align powers, receiver noise 1e-9
     and truncation threshold 0.1, with the top-k stage (``topk`` < 1,
     host schedule), ``legacy``: ``FLConfig``'s defaults, the legacy
-    round body, and ``scan``: the scanned horizon with the host schedule.
-    Held to the full contract, parameter drift included."""
-    from repro_torch.core import fl
+    round body, ``scan``: the scanned horizon with the host schedule, and
+    ``online``: update-aware on the batched engine, each round selected
+    from the norms of the rounds before on its own device.
+    Held to the full contract, parameter drift included (the legacy and
+    online runs: or F1's shape where the drift leaves it)."""
+    from repro_torch.core import fl, fl_engine
 
     ds, cell, shards = _world(m, samples)
     rounds = {"cpu": [], "cuda": []}
     if legacy:
         cfg = _legacy_config(m, t)
+    elif online:
+        cfg = _config(m, t, **ONLINE_MODES["online"])
     elif scan:
         cfg = _config(m, t, horizon="scan")
     elif uplink == "ota":
@@ -1930,8 +2102,19 @@ def compare_cpu_and_card(kernels, m=30, t=5, samples=12_000, uplink="noma",
                             for a, d in out[0].items() for c, v in d.items()})
         return out
 
+    run_round = fl_engine.BatchedRoundEngine.run_round
+
+    def keep_batched(self, params, *args, **kwargs):
+        out = run_round(self, params, *args, **kwargs)
+        rounds[self.device.type].append({
+            f"{a}/{c}": v.double().cpu()
+            for a, d in out[0].items() for c, v in d.items()})
+        return out
+
     if legacy:
         fl._legacy_round = keep
+    if online:
+        fl_engine.BatchedRoundEngine.run_round = keep_batched
     try:
         cpu = fl.run_federated_learning(ds, shards, cell, cfg, device="cpu")
         reset_launches(kernels)
@@ -1939,8 +2122,11 @@ def compare_cpu_and_card(kernels, m=30, t=5, samples=12_000, uplink="noma",
         launches = read_launches(kernels)
     finally:
         fl._legacy_round = legacy_round
+        fl_engine.BatchedRoundEngine.run_round = run_round
     if legacy:
         label = f"[cpu-vs-card:legacy] M={m} FLConfig defaults (legacy)"
+    elif online:
+        label = f"[cpu-vs-card:online] M={m} update-aware (batched)"
     elif scan:
         label = f"[cpu-vs-card:scan] M={m} horizon='scan'"
     elif uplink == "ota":
@@ -1951,7 +2137,7 @@ def compare_cpu_and_card(kernels, m=30, t=5, samples=12_000, uplink="noma",
         label = f"[parity] M={m} scheduler_backend='jax'"
     worst_mean, worst_max = _check_equal_logs(gpu, cpu, label + " CPU vs card:")
     within = worst_mean < PARAM_MEAN_ATOL and worst_max < PARAM_MAX_ATOL
-    if legacy and not within:
+    if (legacy or online) and not within:
         _check_code_flips(rounds["cpu"], rounds["cuda"], cfg.group_size,
                           label)
     else:
@@ -2305,6 +2491,10 @@ def main() -> int:
     singles, single_dev = run_seed_sweep(kernels, scan_run)
     run_cell_sweep(kernels, singles, single_dev)
     compare_cpu_and_card(kernels, scan=True)
+
+    online_scan = run_online_phases(kernels)
+    run_online_seed_sweep(kernels, online_scan)
+    compare_cpu_and_card(kernels, online=True)
 
     flash_mod = kernels[6]["module"]
     flash_err = compare_flash(flash_mod)

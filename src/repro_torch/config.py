@@ -3,10 +3,9 @@
 The same field names and defaults as ``repro.config.FLConfig``, validated
 at construction with the reference's rules, so ``FLConfig()`` is the
 reference's default run (the legacy round body).  Settings the reference
-accepts but the port does not run yet (online policies and the non-LeNet
-models) raise ``NotImplementedError`` naming the
-``ROADMAP.md`` queue 1 item that brings them, so a run is never quietly a
-different simulation.
+accepts but the port does not run yet (the non-LeNet models) raise
+``NotImplementedError`` naming the ``ROADMAP.md`` queue 1 item that brings
+them, so a run is never quietly a different simulation.
 """
 from __future__ import annotations
 
@@ -36,9 +35,9 @@ class FLConfig:
     batch_size: int = 10             # B
     local_epochs: int = 1
     scheduler: str = "lazy-gwmin"    # lazy-gwmin | literal-gwmin | random |
-                                     # round-robin | proportional-fair
-                                     # (ported); update-aware | age-fair |
-                                     # matching-pursuit (online, item 5)
+                                     # round-robin | proportional-fair |
+                                     # update-aware | age-fair |
+                                     # matching-pursuit (online); all ported
     scheduler_backend: str = "numpy"  # numpy (host) | jax (device, fused) |
                                       # jax-stepwise (device, sync per step)
     power_mode: str = "mapel"        # mapel | max | ota-align (ported)
@@ -76,10 +75,10 @@ class FLConfig:
                 f"group_size must be in [1, num_devices={self.num_devices}], "
                 f"got {self.group_size}"
             )
-        if self.scheduler not in scheduling.REFERENCE_POLICIES:
+        if self.scheduler not in scheduling.available_policies():
             raise ValueError(
                 f"unknown scheduler {self.scheduler!r}; registered: "
-                f"{scheduling.REFERENCE_POLICIES}"
+                f"{scheduling.available_policies()}"
             )
         if self.power_mode not in power_lib.POWER_MODES:
             raise ValueError(
@@ -99,6 +98,17 @@ class FLConfig:
             raise ValueError(
                 f"unknown horizon {self.horizon!r}; known: {HORIZON_MODES}"
             )
+        if self.horizon == "scan" and scheduling.policy_is_online(
+                self.scheduler):
+            # an online policy runs inside the scan iff it implements the
+            # traced protocol; no quiet fallback to the per-round driver
+            if not scheduling.policy_is_traced(self.scheduler):
+                raise ValueError(errors.ERR_SCAN_ONLINE_POLICY.format(
+                    scheduler=self.scheduler))
+            if self.power_mode == "mapel":
+                # the polyblock search is host-iterative
+                raise ValueError(errors.ERR_SCAN_ONLINE_MAPEL.format(
+                    scheduler=self.scheduler))
         if not 0.0 < self.eval_sample <= 1.0:
             raise ValueError(
                 f"eval_sample must be in (0, 1], got {self.eval_sample}"
@@ -159,7 +169,5 @@ class FLConfig:
 
     def _check_ported(self):
         """Valid settings that a later slice of the port brings."""
-        if self.scheduler in scheduling.REFERENCE_ONLINE_POLICIES:
-            raise _not_ported(f"online scheduler {self.scheduler!r}", 5)
         if self.model != "lenet":
             raise _not_ported(f"model={self.model!r}", 8)

@@ -1,8 +1,8 @@
 """Pinned error-message constants of the port.
 
-The uplink-combination messages are the port's own copy of the constants in
-``repro.core.errors`` (same text, so callers matching on them see one
-wording in both packages).  The rest belong to the port: the entry points'
+The uplink-combination and horizon/policy messages are the port's own
+copy of the constants in ``repro.core.errors`` (same text, so callers
+matching on them see one wording in both packages).  The rest belong to the port: the entry points'
 device rule and the features that later slices of the port bring.
 
 Messages are ``.format()`` templates; call sites format them and never
@@ -36,6 +36,24 @@ ERR_OTA_ALIGN_UPLINK = (
     "power_mode='ota-align' requires uplink='ota': alignment "
     "powers implement truncated channel inversion for the analog "
     "sum and have no digital-uplink meaning"
+)
+
+# --- horizon / policy coherence (FLConfig + the scanned drivers) ----------
+
+ERR_SCAN_ONLINE_POLICY = (
+    "horizon='scan' cannot drive online policy "
+    "{scheduler!r}: it does not implement the traced selection "
+    "protocol (scheduling.SchedulerPolicy: traced_protocol = True "
+    "+ init_traced/select_round_traced), so its FL-state feedback "
+    "needs the host round loop; use horizon='per-round' or add "
+    "the traced protocol"
+)
+
+ERR_SCAN_ONLINE_MAPEL = (
+    "horizon='scan' with online policy {scheduler!r} cannot use "
+    "power_mode='mapel': the polyblock search is host-iterative "
+    "and cannot run inside the traced round body; use "
+    "power_mode='max' (or 'ota-align' under uplink='ota')"
 )
 
 # --- port-only rules --------------------------------------------------------

@@ -2,9 +2,13 @@
 
 FedAvg over the simulated NOMA cell, per round t:
     1. PS broadcasts theta^t (downlink timing model, no compression).
-    2. The precomputed schedule assigns K devices to round t (the MWIS
-       schedule over the whole horizon, or a §IV baseline, planned before
-       training).
+    2. The scheduler assigns K devices to round t: a precomputed policy
+       (the MWIS schedule over the whole horizon, or a §IV baseline) planned
+       this before training; an online policy (update-aware, age-fair,
+       matching-pursuit) selects here, inside the loop, from the update
+       norms, participation and realized rates of the rounds before
+       (``scheduling.Observation``), and the round is finalized (powers,
+       SIC rates) as it is selected.
     3. Each scheduled device runs local SGD on its own non-iid shard.
     4. The SIC uplink rate of each device over the shared slot sets its bit
        budget c_k = R_k * B * t; its delta is DoReFa-quantized to
@@ -35,9 +39,13 @@ round-body engines, selected by ``FLConfig.fl_engine``:
     every shard resident in a client bank, the K clients trained at once
     and the round's aggregation in one kernel launch (``use_pallas``).
 
-``FLConfig.horizon = "scan"`` runs the whole precomputed horizon from
-device tensors instead (:func:`run_horizon_scanned`): the host plans every
-round up front, uploads the plan once, and reads the card once at the end;
+``FLConfig.horizon = "scan"`` runs the whole horizon from device tensors
+instead (:func:`run_horizon_scanned`): for a precomputed schedule the host
+plans every round up front, uploads the plan once, and reads the card once
+at the end; an online policy with the traced protocol selects on the
+device inside the horizon (``fl_engine._online_horizon_core``), and the
+host replays the downloaded schedule through the per-round driver's own
+calls for the float64 logs (:func:`_finalize_online_plan`).
 :func:`run_horizon_vmapped` stacks a seed sweep into one such program and
 :func:`run_cell_sweep` runs a (cells x seeds) grid of them.
 
@@ -61,8 +69,9 @@ import torch
 from repro_torch.config import FLConfig
 from repro_torch.convert import params_from_jax
 from repro_torch.core import channel as chan
-from repro_torch.core import compression, fl_engine, noma, scheduling
+from repro_torch.core import compression, errors, fl_engine, noma, scheduling
 from repro_torch.core import ota as ota_lib
+from repro_torch.core import power as power_lib
 from repro_torch.core import quantization as qlib
 from repro_torch.core import tree as tree_lib
 from repro_torch.data.client_bank import ClientBank, EvalBank, eval_sample_plan
@@ -216,6 +225,7 @@ def policy_config(
         noise_power=cell.noise_power_w,
         backend=cfg.scheduler_backend,
         device=device,
+        ota_noise=cfg.ota_noise,
         seed=cfg.seed,
     )
 
@@ -277,8 +287,9 @@ def _setup(shards, cell, cfg: FLConfig, *, schedule, channels, init_params,
     """What every driver computes before round 0: the initial parameters
     (drawn from ``cfg.seed`` or ``init_params``), the payload I in bits,
     the shard sizes, the (T, M) channel gains (drawn or ``channels``), the
-    schedule (planned or ``schedule``, validated) and the downlink
-    broadcast time.  Returns them in that order."""
+    schedule (planned or ``schedule``, validated; ``None`` for an online
+    policy, which selects round by round) and the downlink broadcast
+    time.  Returns them in that order."""
     if init_params is None:
         params = model.init(cfg.seed, device=device)
     else:
@@ -288,11 +299,11 @@ def _setup(shards, cell, cfg: FLConfig, *, schedule, channels, init_params,
     if channels is None:
         channels = chan.sample_channels(cfg.seed, cell, cfg.num_rounds)
     gains = np.asarray(channels.gains)
-    if schedule is None:
+    if schedule is not None:
+        schedule.validate(cell.num_devices, cfg.group_size)
+    elif not scheduling.policy_is_online(cfg.scheduler):
         schedule = make_schedule(gains, sizes / sizes.sum(), cell, cfg,
                                  device=device)
-    else:
-        schedule.validate(cell.num_devices, cfg.group_size)
     # Downlink broadcast time on the large-scale gain only (the paper's
     # Fig. 5 time scale implies a fading-free downlink)
     dl_time = float(chan.downlink_time_seconds(payload, channels.dl_gains,
@@ -363,6 +374,20 @@ def run_federated_learning(
         shards, cell, cfg, schedule=schedule, channels=channels,
         init_params=init_params, device=dev, model=model,
     )
+    weights = sizes / sizes.sum()
+
+    # an online policy selects inside the round loop, from the FL state of
+    # the rounds before (live mode); a precomputed schedule is fixed
+    policy = obs = policy_state = allocator = None
+    if schedule is None:
+        policy = scheduling.get_policy(cfg.scheduler)
+        policy_state = policy.init_state(gains, weights,
+                                         policy_config(cell, cfg, dev))
+        obs = scheduling.Observation.initial(cell.num_devices)
+        allocator = power_lib.make_power_allocator(
+            cfg.power_mode, cell.max_power_w, cell.noise_power_w
+        )
+    need_norms = policy is not None and getattr(policy, "needs_norms", True)
 
     # None selects the legacy per-device round body (the oracle)
     engine = None
@@ -385,10 +410,21 @@ def run_federated_learning(
     logs = []
     t_wall = 0.0
     for t in range(cfg.num_rounds):
-        devs = schedule.rounds[t]
+        if policy is not None:
+            group, policy_state = policy.select_round(t, policy_state, obs)
+            devs = tuple(int(d) for d in group)
+            scheduling.validate_group(
+                devs, cell.num_devices, cfg.group_size,
+                label=f"round-{t} group from policy {policy.name!r}",
+            )
+            powers_t, rates = scheduling.finalize_round(
+                devs, t, gains, weights, allocator, cell.noise_power_w
+            )
+        else:
+            devs = schedule.rounds[t]
+            powers_t, rates = schedule.powers[t], schedule.rates[t]
         rates, budgets, round_time = _round_physics(
-            devs, schedule.powers[t], schedule.rates[t], t, gains, cell,
-            uplink, dl_time,
+            devs, powers_t, rates, t, gains, cell, uplink, dl_time,
         )
         agg_w = _agg_weights(sizes, devs)
         ota_round = None
@@ -396,15 +432,20 @@ def run_federated_learning(
             ota_round = dict(gains=gains[t, list(devs)], key=ota_keys[t],
                              pmax=float(cell.max_power_w))
         if engine is not None:
-            params, bits_used, ratios = engine.run_round(
-                params, devs, budgets, agg_w, ota=ota_round
+            params, bits_used, ratios, norms = engine.run_round(
+                params, devs, budgets, agg_w, need_norms=need_norms,
+                ota=ota_round,
             )
         else:
-            # precomputed policies read no update norms
-            params, bits_used, ratios, _ = _legacy_round(
+            params, bits_used, ratios, norms = _legacy_round(
                 params, devs, budgets, agg_w, dataset, shards, cfg, payload,
-                need_norms=False, model=model, ota=ota_round,
+                need_norms=need_norms, model=model, ota=ota_round,
             )
+        if policy is not None:
+            # the realized rates and (when the policy reads them) the raw
+            # updates' norms, for the next round's selection
+            obs = obs.record_round(t, devs, np.asarray(rates),
+                                   norms if norms else None)
         t_wall += round_time
         if not eval_mask[t]:
             acc = logs[-1].test_accuracy
@@ -463,6 +504,25 @@ def _horizon_setup(dataset, shards, cell, cfg: FLConfig, uplink, schedule,
         init_params=init_params, device=device,
         model=get_fl_model(cfg.model),
     )
+    if schedule is None:
+        # traced online policies go to the online driver before this; an
+        # online policy here lacks the traced protocol
+        raise ValueError(
+            errors.ERR_SCAN_ONLINE_POLICY.format(scheduler=cfg.scheduler))
+    return _pack_plan(
+        params, payload, schedule, gains, sizes, dl_time, cfg, cell, uplink,
+        ota_lib.horizon_keys(cfg.seed, cfg.num_rounds),
+        eval_sample_plan(len(dataset.y_test), cfg.eval_sample,
+                         cfg.num_rounds, cfg.seed),
+    )
+
+
+def _pack_plan(params, payload, schedule, gains, sizes, dl_time,
+               cfg: FLConfig, cell, uplink, noise_keys,
+               eval_idx) -> _HorizonPlan:
+    """A schedule's rounds through the per-round driver's round rules
+    (:func:`_round_physics`, :func:`_agg_weights`), packed into the
+    zero-padded (T, K) arrays of a :class:`_HorizonPlan`."""
     num_rounds, k_max = cfg.num_rounds, cfg.group_size
     dev_tk = np.zeros((num_rounds, k_max), np.int64)
     ksizes = np.zeros(num_rounds, np.intp)
@@ -487,13 +547,9 @@ def _horizon_setup(dataset, shards, cell, cfg: FLConfig, uplink, schedule,
         rates_list.append(rates)
         t_wall += round_time
         times[t] = t_wall
-    eval_idx = eval_sample_plan(
-        len(dataset.y_test), cfg.eval_sample, num_rounds, cfg.seed
-    )
     return _HorizonPlan(
         params, payload, schedule, dev_tk, ksizes, budgets_tk, aggw_tk,
-        gains_tk, ota_lib.horizon_keys(cfg.seed, num_rounds), rates_list,
-        times, eval_idx,
+        gains_tk, noise_keys, rates_list, times, eval_idx,
     )
 
 
@@ -529,22 +585,31 @@ def _stack_plans(plans, bank, device):
     nb)``: keys stay host numpy, ``eidx`` is ``None`` for the full test
     set, and ``nb`` is the sweep-wide batch count of the scheduled groups.
     """
-    def put(arrays, dtype):
-        host = torch.from_numpy(np.stack(arrays)).to(dtype)
-        return fl_engine._to_device(host, device)
-
-    eidx = None
-    if plans[0].eval_idx is not None:
-        eidx = put([p.eval_idx for p in plans], torch.int64)
     nb = max(bank.n_batches_for(g) for p in plans for g in p.schedule.rounds)
     return (
         fl_engine._stack_runs([p.params0 for p in plans]),
-        put([p.dev_tk for p in plans], torch.int64),
-        put([p.budgets_tk for p in plans], torch.float32),
-        put([p.aggw_tk for p in plans], torch.float32),
-        put([p.gains_tk for p in plans], torch.float32),
-        np.stack([p.noise_keys for p in plans]), eidx, nb,
+        _upload([p.dev_tk for p in plans], torch.int64, device),
+        _upload([p.budgets_tk for p in plans], torch.float32, device),
+        _upload([p.aggw_tk for p in plans], torch.float32, device),
+        _upload([p.gains_tk for p in plans], torch.float32, device),
+        np.stack([p.noise_keys for p in plans]), _upload_eval(plans, device),
+        nb,
     )
+
+
+def _upload(arrays, dtype, device):
+    """Host arrays stacked on a leading axis, as ``dtype`` on ``device``
+    (through pinned memory, queued on the stream, on the card)."""
+    host = torch.from_numpy(np.stack(arrays)).to(dtype)
+    return fl_engine._to_device(host, device)
+
+
+def _upload_eval(plans, device):
+    """The plans' (S, T, n) eval-row plans on ``device``, or ``None`` for
+    the full test set."""
+    if plans[0].eval_idx is None:
+        return None
+    return _upload([p.eval_idx for p in plans], torch.int64, device)
 
 
 def _assemble_horizon_result(plan: _HorizonPlan, cfg: FLConfig, uplink,
@@ -636,13 +701,20 @@ def run_horizon_scanned(
     """
     dev = resolve_device(device)
     uplink = _resolve_uplink(cfg, uplink)
+    eval_mask = _eval_mask(cfg.num_rounds, eval_every)
+    if schedule is None and _traced_online(cfg):
+        plan = _online_horizon_setup(dataset, shards, cell, cfg, device=dev,
+                                     channels=channels,
+                                     init_params=init_params)
+        bank, ebank = _horizon_world(dataset, shards, cfg, dev)
+        return _run_online_plan(plan, cfg, uplink, cell, eval_mask, bank,
+                                ebank, dev, progress)
     plan = _horizon_setup(dataset, shards, cell, cfg, uplink, schedule,
                           device=dev, channels=channels,
                           init_params=init_params)
     bank, ebank = _horizon_world(dataset, shards, cfg, dev)
-    return _run_plan(plan, cfg, uplink, cell,
-                     _eval_mask(cfg.num_rounds, eval_every), bank, ebank,
-                     dev, progress)
+    return _run_plan(plan, cfg, uplink, cell, eval_mask, bank, ebank, dev,
+                     progress)
 
 
 def run_horizon_vmapped(
@@ -673,6 +745,9 @@ def run_horizon_vmapped(
     if not seeds:
         raise ValueError("seeds must be a non-empty sequence")
     cfgs = [dataclasses.replace(cfg, seed=s) for s in seeds]
+    if _traced_online(cfg):
+        return _run_horizon_vmapped_online(dataset, shards, cell, cfg, cfgs,
+                                           uplink, eval_every, dev)
     plans = [_horizon_setup(dataset, shards, cell, c, uplink, None,
                             device=dev) for c in cfgs]
     bank, ebank = _horizon_world(dataset, shards, cfg, dev)
@@ -726,14 +801,191 @@ def run_cell_sweep(
                          f"got ({num_cells}, {seeds_per_cell})")
     bank, ebank = _horizon_world(dataset, shards, cfg, dev)
     eval_mask = _eval_mask(cfg.num_rounds, eval_every)
+    online = _traced_online(cfg)
     results = []
     for c in range(num_c):
         row = []
         for s in range(num_s):
             inst = dataclasses.replace(cfg, seed=cfg.seed + c * num_s + s)
+            if online:
+                plan = _online_horizon_setup(dataset, shards, cell, inst,
+                                             device=dev)
+                row.append(_run_online_plan(plan, inst, uplink, cell,
+                                            eval_mask, bank, ebank, dev))
+                continue
             plan = _horizon_setup(dataset, shards, cell, inst, uplink, None,
                                   device=dev)
             row.append(_run_plan(plan, inst, uplink, cell, eval_mask, bank,
                                  ebank, dev))
         results.append(row)
     return results
+
+
+# --------------------------------------------------------------------------
+# Online-policy scanned horizons: selection inside the rounds on the device
+# --------------------------------------------------------------------------
+
+def _traced_online(cfg: FLConfig) -> bool:
+    """Whether ``cfg.scheduler`` is an online policy with the traced
+    protocol: the scanned drivers then select inside the horizon.  Under
+    MAPEL they raise the pinned message, as ``FLConfig`` does (the
+    polyblock search is host-iterative)."""
+    if not (scheduling.policy_is_online(cfg.scheduler)
+            and scheduling.policy_is_traced(cfg.scheduler)):
+        return False
+    if cfg.power_mode == "mapel":
+        raise ValueError(
+            errors.ERR_SCAN_ONLINE_MAPEL.format(scheduler=cfg.scheduler))
+    return True
+
+
+@dataclasses.dataclass
+class _OnlinePlan:
+    """The host plan of one online-policy instance (one seed).
+
+    There is no schedule to pack (selection happens in the horizon), so the
+    plan carries what the device selection and the host replay of its
+    schedule read: the (T, M) channel gains, the data weights and shard
+    sizes, and the policy's float32 solo-rate table (``init_traced``).
+    """
+
+    params0: dict                # initial weights, on the run's device
+    payload: int                 # I: full-precision payload bits
+    gains: np.ndarray            # (T, M) float32 channel amplitudes
+    weights: np.ndarray          # (M,) float64 data weights
+    sizes: np.ndarray            # (M,) float64 shard sizes
+    solo: np.ndarray             # (T, M) float32 policy aux (init_traced)
+    noise_keys: np.ndarray       # (T, 2) uint32 OTA receiver-noise keys
+    dl_time: float               # downlink broadcast seconds per round
+    eval_idx: Optional[np.ndarray]  # (T, n) eval plan; None = full set
+
+
+def _online_statics(cfg: FLConfig, cell, uplink, policy) -> dict:
+    """The online keyword arguments of ``fl_engine._online_horizon_core``
+    (beside :func:`_horizon_statics`): the policy and its config, the
+    uplink, the bandwidth * slot budget factor and whether the policy
+    reads the norms."""
+    return dict(
+        policy=policy, pcfg=policy_config(cell, cfg), uplink=uplink,
+        budget_scale=float(cell.bandwidth_hz) * float(cell.slot_seconds),
+        need_norms=bool(getattr(policy, "needs_norms", True)),
+    )
+
+
+def _online_horizon_setup(dataset, shards, cell, cfg: FLConfig, *, device,
+                          channels=None, init_params=None) -> _OnlinePlan:
+    """The host plan of one online scanned instance, from the per-round
+    driver's own setup (:func:`_setup`), with the policy's ``init_traced``
+    solo table, so the device selection ranks what ``select_round`` ranks
+    per round."""
+    params, payload, sizes, gains, _, dl_time = _setup(
+        shards, cell, cfg, schedule=None, channels=channels,
+        init_params=init_params, device=device,
+        model=get_fl_model(cfg.model),
+    )
+    weights = sizes / sizes.sum()
+    policy = scheduling.get_policy(cfg.scheduler)
+    aux = policy.init_traced(gains, weights, policy_config(cell, cfg))
+    return _OnlinePlan(
+        params, payload, gains, weights, sizes, aux["solo"],
+        ota_lib.horizon_keys(cfg.seed, cfg.num_rounds), dl_time,
+        eval_sample_plan(len(dataset.y_test), cfg.eval_sample,
+                         cfg.num_rounds, cfg.seed),
+    )
+
+
+def _finalize_online_plan(plan: _OnlinePlan, cfg: FLConfig, cell, uplink,
+                          dev_tk, mask_tk) -> _HorizonPlan:
+    """The host float64 log plan of a realized online schedule: each
+    round's (K,) device ids and masks from the horizon's download replay
+    through the per-round driver's own calls (``scheduling.finalize_round``
+    for powers and rates, :func:`_round_physics` for budgets and times), so
+    the logged values are the per-round driver's by construction (the
+    horizon's float32 rates priced only the bit budgets)."""
+    allocator = power_lib.make_power_allocator(
+        cfg.power_mode, cell.max_power_w, cell.noise_power_w
+    )
+    rounds, powers, rates_raw, total = [], [], [], 0.0
+    for t in range(cfg.num_rounds):
+        devs = tuple(int(d) for d in dev_tk[t][mask_tk[t]])
+        p_k, r_k = scheduling.finalize_round(
+            devs, t, plan.gains, plan.weights, allocator, cell.noise_power_w
+        )
+        rounds.append(devs)
+        powers.append(p_k)
+        rates_raw.append(r_k)
+        if devs:
+            total += float(np.sum(plan.weights[np.asarray(devs, np.intp)]
+                                  * r_k))
+    schedule = scheduling.Schedule(rounds, powers, rates_raw, total,
+                                   cfg.scheduler, True)
+    return _pack_plan(plan.params0, plan.payload, schedule, plan.gains,
+                      plan.sizes, plan.dl_time, cfg, cell, uplink,
+                      plan.noise_keys, plan.eval_idx)
+
+
+def _stack_online_plans(plans, device):
+    """The online plans' arrays stacked on a leading run axis and put on
+    ``device`` once, as :func:`_stack_plans` does.  Returns ``(params_s,
+    solo, gains, weights, sizes, keys, eidx)``: (S, T, M) float32 solo
+    tables and gains, (M,) float32 data weights and shard sizes (shared),
+    host numpy keys, and ``eidx`` ``None`` for the full test set."""
+    return (
+        fl_engine._stack_runs([p.params0 for p in plans]),
+        _upload([p.solo for p in plans], torch.float32, device),
+        _upload([p.gains for p in plans], torch.float32, device),
+        _upload([plans[0].weights], torch.float32, device)[0],
+        _upload([plans[0].sizes], torch.float32, device)[0],
+        np.stack([p.noise_keys for p in plans]), _upload_eval(plans, device),
+    )
+
+
+def _run_online_plan(plan: _OnlinePlan, cfg: FLConfig, uplink, cell,
+                     eval_mask, bank, ebank, device,
+                     progress=None) -> FLResult:
+    """One instance's online horizon from its host plan: the plan's one
+    upload, the T rounds at the bank-wide batch count (the schedule is
+    decided in the horizon, so every device must fit the gathered shape),
+    the log's one download, then the host replay of the realized
+    schedule."""
+    _, solo, gains, weights, sizes, keys, eidx = _stack_online_plans(
+        [plan], device)
+    policy = scheduling.get_policy(cfg.scheduler)
+    final, log = fl_engine.run_horizon_online(
+        plan.params0, solo[0], gains[0], weights, sizes, keys[0], eval_mask,
+        None if eidx is None else eidx[0], bank, ebank,
+        nb=bank.n_batches_for(range(cell.num_devices)),
+        **_online_statics(cfg, cell, uplink, policy),
+        **_horizon_statics(cfg, plan.payload, cell, uplink),
+    )
+    dev_tk, mask_tk, bits, kept, accs = fl_engine.online_horizon_logs(log)
+    hplan = _finalize_online_plan(plan, cfg, cell, uplink, dev_tk, mask_tk)
+    return _assemble_horizon_result(hplan, cfg, uplink, eval_mask, bits, kept,
+                                    accs, final, progress)
+
+
+def _run_horizon_vmapped_online(dataset, shards, cell, cfg: FLConfig, cfgs,
+                                uplink, eval_every, device) -> list:
+    """The online seed sweep: S online horizons folded into the client rows
+    of one program, one upload and one download."""
+    plans = [_online_horizon_setup(dataset, shards, cell, c, device=device)
+             for c in cfgs]
+    bank, ebank = _horizon_world(dataset, shards, cfg, device)
+    eval_mask = _eval_mask(cfg.num_rounds, eval_every)
+    params_s, solo, gains, weights, sizes, keys, eidx = _stack_online_plans(
+        plans, device)
+    policy = scheduling.get_policy(cfg.scheduler)
+    final_s, log = fl_engine._online_horizon_core(
+        params_s, solo, gains, weights, sizes, keys, eval_mask, eidx, bank,
+        ebank, nb=bank.n_batches_for(range(cell.num_devices)),
+        **_online_statics(cfg, cell, uplink, policy),
+        **_horizon_statics(cfg, plans[0].payload, cell, uplink),
+    )
+    dev, mask, bits, kept, accs = fl_engine.online_horizon_logs(log)
+    return [
+        _assemble_horizon_result(
+            _finalize_online_plan(plan, c, cell, uplink, dev[i], mask[i]), c,
+            uplink, eval_mask, bits[i], None if kept is None else kept[i],
+            accs[i], fl_engine._run_of(final_s, i))
+        for i, (plan, c) in enumerate(zip(plans, cfgs))
+    ]

@@ -30,7 +30,11 @@ buckets outside the round body; the gathered rows equal the padded bank's,
 so the round is bit-identical.
 
 Scheduling, power allocation, budgets, timing and logging stay in the
-:mod:`repro_torch.core.fl` runtime on the host.
+:mod:`repro_torch.core.fl` runtime on the host, except in the scanned
+horizons: :func:`_horizon_core` runs a host-planned schedule from device
+tensors, and :func:`_online_horizon_core` runs an online policy's
+selection, its closed-form powers, the rates and the bit budgets on the
+device, round by round, reading nothing back.
 """
 from __future__ import annotations
 
@@ -38,9 +42,14 @@ import numpy as np
 import torch
 
 from repro_torch.core import compression as comp
+from repro_torch.core import noma
 from repro_torch.core import ota as ota_lib
+from repro_torch.core import power as power_lib
 from repro_torch.core import quantization as qlib
+from repro_torch.core import rates_device
+from repro_torch.core import scheduling as sched_lib
 from repro_torch.core import tree as tree_lib
+from repro_torch.core.prng import sqrt_f32
 from repro_torch.data.client_bank import (
     BucketedClientBank, ClientBank, EvalBank, eval_sample_plan,
 )
@@ -273,7 +282,7 @@ def _rows(tree, part):
 def _train_quantize_aggregate(
     params_s, x, y, budgets, agg_w,
     *, lr, epochs, payload, compress, paper_exact, use_pallas, model,
-    topk, ota=None,
+    topk, ota=None, need_norms=False,
 ):
     """The round body on gathered client rows of S runs at once: batched
     local SGD -> per-client quantization -> weighted aggregation per run.
@@ -284,10 +293,14 @@ def _train_quantize_aggregate(
     on padding rows, which train and then drop out of the sum exactly).
     The per-round engine runs it with S = 1 and the scanned horizon with a
     seed or cell axis: every step is per row or per run, so run s's round
-    is the one it would run alone.  Returns ``(new_params_s, bits, kept)``:
-    bits (S*K,) int32, kept (S*K,) int32 coordinates per client under
-    ``topk < 1`` (with ``compress``), else ``None``.  ``ota`` (dict or
-    None) swaps quantization and aggregation for the over-the-air
+    is the one it would run alone.  Returns ``(new_params_s, bits, kept,
+    norms)``: bits (S*K,) int32, kept (S*K,) int32 coordinates per client
+    under ``topk < 1`` (with ``compress``), else ``None``, and with
+    ``need_norms`` the (S*K,) float32 norms of the raw (pre-quantization)
+    deltas, the online policies' signal, else ``None``: each row's squares
+    summed per leaf over the sorted leaves in float32, then the square
+    root, as the reference's batched reduction takes them.  ``ota`` (dict
+    or None) swaps quantization and aggregation for the over-the-air
     superposition: ``gains`` (S*K,) float32 channel amplitudes on the
     device, ``keys`` one (2,) uint32 host noise key per run, ``pmax``,
     ``noise_std`` and ``threshold``; bits are then logged as 32 (nothing
@@ -309,8 +322,14 @@ def _train_quantize_aggregate(
         new = sgd_epoch(new, x, y, lr, model=model)
     deltas = tree_lib.tree_map(lambda a, b: a - b, new, start)
 
-    kept = None
+    kept = norms = None
     with torch.no_grad():
+        if need_norms:
+            norms = sqrt_f32(sum(
+                torch.sum(torch.square(leaf.reshape(rows, -1).to(
+                    torch.float32)), dim=1)
+                for leaf in tree_lib.tree_flatten(deltas)[0]
+            ))
         if ota is not None:
             updates = [ota_lib.superpose_tree(
                 _rows(deltas, r), ota["gains"][r], agg_w[r], key,
@@ -347,7 +366,7 @@ def _train_quantize_aggregate(
                 ) for r in parts]) for leaf in leaves]
             update_s = tree_lib.tree_unflatten(treedef, per_leaf)
         new_params = tree_lib.tree_map(lambda p, u: p + u, params_s, update_s)
-    return new_params, bits, kept
+    return new_params, bits, kept, norms
 
 
 # --------------------------------------------------------------------------
@@ -403,26 +422,39 @@ def _horizon_core(
                 gains=gains_stk[:, t].reshape(-1), keys=keys_st[:, t],
                 pmax=pmax, noise_std=ota_noise, threshold=ota_threshold,
             )
-        params_s, bits, kept = _train_quantize_aggregate(
+        params_s, bits, kept, _ = _train_quantize_aggregate(
             params_s, x, y, budgets_stk[:, t].reshape(-1),
             agg_stk[:, t].reshape(-1), lr=lr, epochs=epochs, payload=payload,
             compress=compress, paper_exact=paper_exact, use_pallas=use_pallas,
             model=model, topk=topk, ota=ota_round,
         )
-        logs[:, t, :k] = bits.view(seeds, k)
-        if kept is not None:
-            logs[:, t, k:2 * k] = kept.view(seeds, k)
-        if not eval_mask_t[t]:
-            continue
-        for i in range(seeds):
-            params = _run_of(params_s, i)
-            if eval_idx_stn is None:
-                acc = _eval_full(params, ebank.xe, ebank.ye, model=model)
-            else:
-                acc = _eval_sampled(params, ebank.xe, ebank.ye,
-                                    eval_idx_stn[i, t], model=model)
-            logs[i, t, 2 * k] = acc
+        _log_round(logs[:, t], params_s, bits, kept, eval_mask_t[t],
+                   None if eval_idx_stn is None else eval_idx_stn[:, t],
+                   ebank, model)
     return params_s, logs
+
+
+def _log_round(log_s, params_s, bits, kept, do_eval, eval_idx_sn, ebank,
+               model):
+    """Write one round of S runs into its rows of a horizon log (``log_s``
+    (S, 2K+1 or more), a view of the device log): the bit widths, the kept
+    counts (top-k only) and, on an evaluated round, each run's accuracy,
+    on the full test set (``eval_idx_sn`` None) or its (S, n) sample."""
+    seeds = log_s.shape[0]
+    k = bits.shape[0] // seeds
+    log_s[:, :k] = bits.view(seeds, k)
+    if kept is not None:
+        log_s[:, k:2 * k] = kept.view(seeds, k)
+    if not do_eval:
+        return
+    for i in range(seeds):
+        params = _run_of(params_s, i)
+        if eval_idx_sn is None:
+            acc = _eval_full(params, ebank.xe, ebank.ye, model=model)
+        else:
+            acc = _eval_sampled(params, ebank.xe, ebank.ye, eval_idx_sn[i],
+                                model=model)
+        log_s[i, 2 * k] = acc
 
 
 def run_horizon(params, dev_tk, budgets_tk, agg_tk, gains_tk, keys_t,
@@ -445,10 +477,161 @@ def horizon_logs(logs: torch.Tensor):
     round body kept no counts (top-k off), (..., T) float64): the
     horizon's one read of the card."""
     host = logs.cpu().numpy()
-    k = (host.shape[-1] - 1) // 2
+    return _split_log(host, (host.shape[-1] - 1) // 2)
+
+
+def _split_log(host: np.ndarray, k: int):
+    """The (bits, kept, acc) columns of a downloaded horizon log."""
     kept = host[..., k:2 * k]
     kept = None if np.isnan(kept).all() else kept.astype(np.int32)
     return host[..., :k].astype(np.int32), kept, host[..., 2 * k]
+
+
+# --------------------------------------------------------------------------
+# Online-policy horizon: selection, powers and budgets inside the rounds
+# --------------------------------------------------------------------------
+
+def _scatter_drop(buf, idx, src, *, add=False):
+    """``buf`` (S, M) with ``src`` written (or added) at the columns ``idx``
+    (S, K), where column M drops the write: the scatter goes into an
+    (S, M+1) copy whose last column is cut off, so a padding lane never
+    writes device 0 (the reference's out-of-bounds ``mode="drop"``)."""
+    ext = torch.cat([buf, buf[:, :1]], dim=1)
+    if add:
+        ext.scatter_add_(1, idx, src)
+    else:
+        ext.scatter_(1, idx, src)
+    return ext[:, :-1]
+
+
+def _online_horizon_core(
+    params_s, solo_stm, gains_stm, weights_m, sizes_m, keys_st, eval_mask_t,
+    eval_idx_stn, bank, ebank,
+    *, nb, policy, pcfg, uplink, budget_scale, need_norms, lr, epochs,
+    payload, compress, paper_exact, use_pallas, model, topk, ota, ota_noise,
+    ota_threshold, pmax,
+):
+    """S independent online-policy horizons of T rounds, the port of the
+    reference's ``_online_horizon_core`` (``lax.scan``) and its seed-sweep
+    ``vmap``, with the seed axis folded into the client rows as in
+    :func:`_horizon_core`.  Where that one consumes a host-planned
+    schedule, each round here runs the policy on the device:
+
+      1. ``policy.select_round_traced`` on round t's rows of the (S, T, M)
+         float32 solo table ``solo_stm`` and gains ``gains_stm``, the (M,)
+         float32 data weights ``weights_m`` and the carried
+         :class:`~repro_torch.core.scheduling.TracedObservation` -> (S, K)
+         device ids and validity masks;
+      2. the masked lanes' gains and weights ->
+         ``power.traced_round_powers`` -> float32 rates
+         (``rates_device.sic_rates`` under NOMA and OTA,
+         ``noma.tdma_rates`` under TDMA) -> bit budgets ``rates *
+         budget_scale`` and FedAvg weights ``raw / max(sum(raw), 1)`` from
+         the (M,) float32 shard sizes ``sizes_m``, in float32 as the
+         reference computes them (padding lanes get zero power, rate,
+         budget and weight);
+      3. the rows gathered by ``ClientBank.take`` at ``nb``, the bank-wide
+         batch count (the schedule is unknown up front; the extra
+         all-padding batches give exactly-zero gradients), and trained,
+         quantized and aggregated by :func:`_train_quantize_aggregate`,
+         so kernel #1 or the keyed OTA kernel runs every round;
+      4. participation, last round and (``need_norms``) the raw deltas'
+         norms scattered into the observation, padding lanes dropped.
+
+    ``policy`` is the registered policy object, ``pcfg`` its
+    ``PolicyConfig`` and ``budget_scale`` the host-folded bandwidth *
+    slot.  The observation's norms start at the policy's
+    ``COLD_START_NORM``.  Nothing reads the card from the host: each round
+    writes its bit widths, kept counts, accuracy (as :func:`_horizon_core`)
+    and its device ids and masks into one preallocated (S, T, 4K+1)
+    float64 log.  Returns ``(final params_s, log)``;
+    :func:`online_horizon_logs` downloads the log.
+    """
+    seeds, num_rounds, num_devices = solo_stm.shape
+    device = solo_stm.device
+    k = min(int(pcfg.group_size), num_devices)
+    logs = torch.full((seeds, num_rounds, 4 * k + 1), float("nan"),
+                      dtype=torch.float64, device=device)
+    obs = sched_lib.TracedObservation.initial(
+        seeds, num_devices, getattr(policy, "COLD_START_NORM", 1.0),
+        device=device,
+    )
+    for t in range(num_rounds):
+        g_row = gains_stm[:, t]
+        dev, mask = policy.select_round_traced(
+            t, solo_stm[:, t], g_row, weights_m, obs, pcfg
+        )
+        maskf = mask.to(torch.float32)
+        g_k = g_row.gather(1, dev) * maskf
+        w_k = weights_m[dev] * maskf
+        p_k = power_lib.traced_round_powers(pcfg.power_mode, g_k, w_k,
+                                            pcfg.pmax)
+        if uplink == "tdma":
+            rates_k = noma.tdma_rates(p_k, g_k, pcfg.noise_power)
+        else:
+            # NOMA and OTA both price the shared slot's SIC rates; padding
+            # lanes send at zero power and sort behind every live lane
+            rates_k = rates_device.sic_rates(p_k, g_k, pcfg.noise_power)
+        bud = rates_k * float(np.float32(budget_scale))
+        raw = sizes_m[dev] * maskf
+        agg = raw / torch.clamp_min(raw.sum(dim=-1, keepdim=True), 1.0)
+
+        x, y = bank.take(dev.reshape(-1), nb)
+        ota_round = None
+        if ota:
+            ota_round = dict(
+                gains=g_k.reshape(-1), keys=keys_st[:, t], pmax=pmax,
+                noise_std=ota_noise, threshold=ota_threshold,
+            )
+        params_s, bits, kept, norms = _train_quantize_aggregate(
+            params_s, x, y, bud.reshape(-1), agg.reshape(-1), lr=lr,
+            epochs=epochs, payload=payload, compress=compress,
+            paper_exact=paper_exact, use_pallas=use_pallas, model=model,
+            topk=topk, ota=ota_round, need_norms=need_norms,
+        )
+
+        scat = torch.where(mask, dev, num_devices)
+        obs = sched_lib.TracedObservation(
+            _scatter_drop(obs.update_norms, scat, norms.view(seeds, k))
+            if need_norms else obs.update_norms,
+            _scatter_drop(obs.participation, scat, torch.ones_like(
+                scat, dtype=torch.int32), add=True),
+            _scatter_drop(obs.last_round, scat, torch.full_like(
+                scat, t, dtype=torch.int32)),
+        )
+        _log_round(logs[:, t], params_s, bits, kept, eval_mask_t[t],
+                   None if eval_idx_stn is None else eval_idx_stn[:, t],
+                   ebank, model)
+        logs[:, t, 2 * k + 1:3 * k + 1] = dev
+        logs[:, t, 3 * k + 1:] = mask.to(torch.float64)
+    return params_s, logs
+
+
+def run_horizon_online(params, solo_tm, gains_tm, weights_m, sizes_m,
+                       keys_t, eval_mask_t, eval_idx_tn, bank, ebank, *, nb,
+                       **statics):
+    """One online-policy horizon (:func:`_online_horizon_core` with
+    S = 1): (T, M) solo table and gains, (T, 2) keys, (T, n) eval plan or
+    ``None``.  Returns ``(final params, log (T, 4K+1))`` on the device."""
+    final_s, logs = _online_horizon_core(
+        _stack_runs([params]), solo_tm[None], gains_tm[None], weights_m,
+        sizes_m, keys_t[None], eval_mask_t,
+        None if eval_idx_tn is None else eval_idx_tn[None], bank, ebank,
+        nb=nb, **statics,
+    )
+    return _run_of(final_s, 0), logs[0]
+
+
+def online_horizon_logs(logs: torch.Tensor):
+    """An online horizon log (..., T, 4K+1) -> host ``(dev, mask, bits,
+    kept, acc)`` numpy arrays: the selected (..., T, K) int64 device ids
+    and bool masks, then :func:`horizon_logs`' three; the horizon's one
+    read of the card."""
+    host = logs.cpu().numpy()
+    k = (host.shape[-1] - 1) // 4
+    dev = host[..., 2 * k + 1:3 * k + 1].astype(np.int64)
+    mask = host[..., 3 * k + 1:] > 0.5
+    return (dev, mask) + _split_log(host, k)
 
 
 # --------------------------------------------------------------------------
@@ -515,7 +698,8 @@ class BatchedRoundEngine:
             )
         return float(acc)
 
-    def run_round(self, params, devs, budgets, agg_w, ota=None):
+    def run_round(self, params, devs, budgets, agg_w, *,
+                  need_norms: bool = False, ota=None):
         """Run one round's local training + upload + aggregation.
 
         devs: scheduled device ids; budgets: per-device uplink bit budgets
@@ -524,15 +708,17 @@ class BatchedRoundEngine:
         over-the-air superposition: ``gains`` (K,) channel amplitudes
         (float64, host), ``key`` (2,) uint32 receiver-noise key and
         ``pmax`` for the round; noise std and truncation threshold come
-        from the config.  Returns ``(params, bits, ratios)`` with bits (K,)
-        int32 and ratios (K,) float64 numpy arrays for the round log.  With
-        the top-k stage on, bits are the widths of the kept coordinates and
-        ratios the honest sparse on-air ratios I / S_k
+        from the config.  Returns ``(params, bits, ratios, norms)`` with
+        bits (K,) int32 and ratios (K,) float64 numpy arrays for the round
+        log, and norms a list of the K raw deltas' float32 norms as Python
+        floats (empty unless ``need_norms``: the online policies' signal).
+        With the top-k stage on, bits are the widths of the kept
+        coordinates and ratios the honest sparse on-air ratios I / S_k
         (``compression.sparse_compression_ratio``).
         """
         k = len(devs)
         if k == 0:    # empty T*K > M tail round: nothing to train or send
-            return params, np.zeros(0, np.int32), np.zeros(0)
+            return params, np.zeros(0, np.int32), np.zeros(0), []
         cfg = self.cfg
         compress = cfg.compression == "adaptive"
         nb = self.bank.n_batches_for(devs)
@@ -558,18 +744,19 @@ class BatchedRoundEngine:
         # batches past a client's own count are all padding and contribute
         # exactly-zero gradients
         x, y = self.bank.gather(devs, nb)
-        params_s, bits, kept = _train_quantize_aggregate(
+        params_s, bits, kept, norms = _train_quantize_aggregate(
             _stack_runs([params]), x, y, budgets32.to(self.device),
             agg32.to(self.device),
             lr=float(cfg.learning_rate), epochs=int(cfg.local_epochs),
             payload=self.payload, compress=compress,
             paper_exact=bool(cfg.paper_exact_range),
             use_pallas=bool(cfg.use_pallas), model=self.model,
-            topk=float(cfg.topk), ota=ota_dev,
+            topk=float(cfg.topk), ota=ota_dev, need_norms=need_norms,
         )
         bits = bits.cpu().numpy()
         ratios = _round_ratios(
             self.payload, compress, None if kept is None else
             kept.cpu().numpy(), bits, budgets32,
         )
-        return _run_of(params_s, 0), bits, ratios
+        norms = [] if norms is None else norms.cpu().tolist()
+        return _run_of(params_s, 0), bits, ratios, norms

@@ -25,6 +25,8 @@ control-plane math: K <= 4, a few hundred iterations).
 This module is the port's float64 numpy copy of ``repro.core.power`` (the
 main-path part and the test oracle :func:`grid_oracle`): the arithmetic is
 the reference's op for op, so powers are bit-identical to it.
+:func:`traced_round_powers` is the float32 tensor allocator of the scanned
+online horizon, for the closed-form modes (:data:`TRACED_POWER_MODES`).
 
 Decode order: following the uplink-NOMA convention (and the paper's WLOG
 sorting) we fix the decode order by channel gain, strongest first.
@@ -34,6 +36,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 from repro_torch.core import rates as rates_lib
 
@@ -457,6 +460,36 @@ def ota_align_powers(gains, weights, pmax: float) -> np.ndarray:
     with np.errstate(divide="ignore"):
         p = np.where(live, eta * w * w / np.maximum(g * g, 1e-300), 0.0)
     return np.minimum(p, pmax)   # the min-cap guarantees this; belt and braces
+
+
+TRACED_POWER_MODES = ("max", "ota-align")
+# the modes with a closed-form tensor allocator (traced_round_powers), i.e.
+# the modes the scanned online horizon supports; "mapel" is the
+# host-iterative polyblock search and stays per-round only (FLConfig raises
+# errors.ERR_SCAN_ONLINE_MAPEL)
+
+
+def traced_round_powers(mode: str, gains_k, weights_k, pmax: float):
+    """:meth:`PowerAllocator.solve` on tensors for the scanned online
+    horizon: (..., K) float32 gains and weights of masked groups (padding
+    lanes carry zero gain and weight and get zero power, hence zero rate
+    and budget), the reference's float32 op order.  Only the closed-form
+    modes of :data:`TRACED_POWER_MODES` are supported."""
+    g, w = gains_k, weights_k
+    if mode == "max":
+        return torch.where(g > 0.0, torch.full_like(g, pmax), 0.0)
+    if mode != "ota-align":
+        raise ValueError(
+            f"power mode {mode!r} has no traced allocator; "
+            f"supported: {TRACED_POWER_MODES}"
+        )
+    live = (g > 0.0) & (w > 0.0)
+    caps = torch.where(
+        live, pmax * g * g / torch.clamp_min(w * w, 1e-30), float("inf")
+    )
+    eta = caps.amin(dim=-1, keepdim=True)   # inf when nothing is live
+    p = torch.where(live, eta, 0.0) * w * w / torch.clamp_min(g * g, 1e-30)
+    return torch.clamp_max(p, pmax)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,22 +1,31 @@
-"""User scheduling for FL over NOMA (paper §III): the precomputed policies.
+"""User scheduling for FL over NOMA (paper §III): the scheduling policies.
 
-The port's float64 numpy copy of the host control plane in
-``repro.core.scheduling``: the policy registry, the shared finalization
-(power allocation + SIC rates, :func:`finalize_schedule`), the paper's
-lazy GWMIN MWIS greedy (``lazy-gwmin``), the literal Algorithm 2 on the
-explicit graph (``literal-gwmin``, small M only), the baselines
-(``random``, ``round-robin``, ``proportional-fair``) and the exponential
-test oracle :func:`brute_force_schedule`.  Every function is the
-reference's op for op, Python set operations and numpy sorts included, so
-schedules, powers and rates are bit-identical to it, T*K > M tails included
-(tests/test_torch_control_plane.py, tests/test_torch_policies.py).
+The port of ``repro.core.scheduling``: the policy registry, the shared
+finalization (power allocation + SIC rates, :func:`finalize_schedule` and
+its per-round twin :func:`finalize_round`), the paper's lazy GWMIN MWIS
+greedy (``lazy-gwmin``), the literal Algorithm 2 on the explicit graph
+(``literal-gwmin``, small M only), the baselines (``random``,
+``round-robin``, ``proportional-fair``), the exponential test oracle
+:func:`brute_force_schedule`, and the three online policies
+(``update-aware``, ``age-fair``, ``matching-pursuit``).  The host control
+plane is float64 numpy, the reference's op for op, Python set operations
+and numpy sorts included, so schedules, powers and rates are bit-identical
+to it, T*K > M tails included (tests/test_torch_control_plane.py,
+tests/test_torch_policies.py, tests/test_torch_online.py).
 
 Policies are looked up by name (:func:`register_policy` /
 :func:`get_policy`).  A precomputed policy plans the whole horizon in
-``init_state`` and replays it in ``select_round``.  The reference's online
-policies come with a later slice of the port (``ROADMAP.md`` queue 1 item
-5); :data:`REFERENCE_POLICIES` names them so configuration checks can tell
-"not ported yet" from "unknown".
+``init_state`` and replays it in ``select_round``.  An online policy
+(``online = True``) selects each round from FL state in an
+:class:`Observation` (update norms, participation, last round, realized
+rates), which ``fl.run_federated_learning`` feeds back round by round
+(:meth:`Observation.record_round`); it may revisit devices
+(``respects_c1 = False``).  All three online policies also implement the
+traced protocol (``traced_protocol = True``): ``init_traced`` (the float32
+solo-rate table, once per horizon, on the host) and
+``select_round_traced``, which selects on tensors of the run's device from
+a :class:`TracedObservation` with a leading run axis, reading nothing back,
+inside the scanned horizon (``fl_engine._online_horizon_core``).
 
 All three lazy-greedy backends run: ``"numpy"`` on the host, and the
 device-resident ``"jax"`` (fused, one host sync per schedule) and
@@ -37,12 +46,11 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
-from typing import Callable, Sequence
+from typing import Callable, NamedTuple, Sequence
 
 import numpy as np
 import torch
 
-from repro_torch.core import errors
 from repro_torch.core import power as power_lib
 from repro_torch.core import rates as rates_lib
 from repro_torch.core import rates_device
@@ -55,16 +63,6 @@ PowerFn = Callable[[np.ndarray, np.ndarray], np.ndarray]
 
 SCHEDULER_BACKENDS = ("numpy", "jax", "jax-stepwise")
 # the reference's lazy-greedy backends: host, device fused, device step-wise
-
-REFERENCE_POLICIES = (
-    "age-fair", "lazy-gwmin", "literal-gwmin", "matching-pursuit",
-    "proportional-fair", "random", "round-robin", "update-aware",
-)
-# every policy the reference registers; the online ones are missing from
-# this module's registry and raise NotImplementedError in FLConfig
-
-REFERENCE_ONLINE_POLICIES = ("age-fair", "matching-pursuit", "update-aware")
-
 
 def make_power_fn(
     mode: str, pmax: float, noise_power: float
@@ -737,7 +735,100 @@ class PolicyConfig:
     shards: "int | None" = None     # fused-backend vertex shards (clamped)
     device: "str | torch.device | None" = None   # device backends' device;
                                     # None = cuda (repro_torch.device)
+    ota_noise: float = 0.0          # OTA receiver noise std (matching-pursuit
+                                    # aggregation-error model; 0 = noiseless)
     seed: int = 0
+
+
+@dataclasses.dataclass
+class Observation:
+    """Online observables fed to ``select_round`` (all (M,) arrays).
+
+    The FL runtime updates these after every live round
+    (:meth:`record_round`); :func:`build_schedule` feeds realized rates and
+    participation but no update norms (there is no FL state outside the
+    training loop).
+    """
+
+    update_norms: np.ndarray    # last observed ||delta W_k||_2; 0 if never
+    participation: np.ndarray   # rounds device k was scheduled so far
+    last_round: np.ndarray      # last round k participated; -1 if never
+    realized_rates: np.ndarray  # rate k achieved when last scheduled; 0 if never
+
+    @classmethod
+    def initial(cls, num_devices: int) -> "Observation":
+        return cls(
+            update_norms=np.zeros(num_devices),
+            participation=np.zeros(num_devices, dtype=np.intp),
+            last_round=np.full(num_devices, -1, dtype=np.intp),
+            realized_rates=np.zeros(num_devices),
+        )
+
+    def record_round(self, t, group, rates_k, update_norms_k=None) -> "Observation":
+        """Functional update after round t (the caller keeps the new copy,
+        so a policy holding an old Observation never sees the future)."""
+        obs = Observation(
+            self.update_norms.copy(), self.participation.copy(),
+            self.last_round.copy(), self.realized_rates.copy(),
+        )
+        idx = np.asarray(group, dtype=np.intp)
+        if idx.size:
+            obs.participation[idx] += 1
+            obs.last_round[idx] = t
+            obs.realized_rates[idx] = np.asarray(rates_k, dtype=np.float64)
+            if update_norms_k is not None:
+                obs.update_norms[idx] = np.asarray(update_norms_k, dtype=np.float64)
+        return obs
+
+
+class TracedObservation(NamedTuple):
+    """The tensor mirror of :class:`Observation` that the scanned online
+    horizon carries from round to round (``fl_engine._online_horizon_core``),
+    for S runs at once: every field is (S, M) on the run's device.
+
+    ``realized_rates`` is left out, as in the reference: no traced policy
+    reads it (the scores take the solo-rate proxy, not the realized SIC
+    rate).
+    """
+
+    update_norms: torch.Tensor   # (S, M) float32 last observed ||delta W_k||;
+                                 # seeded with the policy's COLD_START_NORM
+    participation: torch.Tensor  # (S, M) int32 rounds scheduled so far
+    last_round: torch.Tensor     # (S, M) int32 last round; -1 if never
+
+    @classmethod
+    def initial(cls, runs: int, num_devices: int,
+                cold_start_norm: float = 1.0, *,
+                device) -> "TracedObservation":
+        shape = (runs, num_devices)
+        return cls(
+            update_norms=torch.full(shape, cold_start_norm,
+                                    dtype=torch.float32, device=device),
+            participation=torch.zeros(shape, dtype=torch.int32,
+                                      device=device),
+            last_round=torch.full(shape, -1, dtype=torch.int32,
+                                  device=device),
+        )
+
+
+def _norm_estimates_traced(obs: TracedObservation, cold_start: float):
+    """The tensor mirror of the host norm-estimate convention
+    (``UpdateAwarePolicy._score`` / ``MatchingPursuitPolicy._norm_estimates``)
+    in float32, per run: devices never yet observed take the mean of the
+    observed norms (``cold_start`` before any observation) and observed
+    norms are floored at 1e-3 of it, so no device is starved forever.
+    The reference's op order; its two row sums are XLA reductions, which
+    sum in another order than ``torch.sum`` (tests/test_torch_online.py
+    holds the estimates to the reference's)."""
+    seen = obs.participation > 0
+    cnt = seen.to(torch.float32).sum(dim=-1, keepdim=True)
+    total = torch.where(seen, obs.update_norms, 0.0).sum(dim=-1,
+                                                         keepdim=True)
+    default = torch.where(cnt > 0.0, total / torch.clamp_min(cnt, 1.0),
+                          cold_start)
+    default = torch.clamp_min(default, 1e-12)
+    return torch.where(seen, torch.maximum(obs.update_norms, 1e-3 * default),
+                       default)
 
 
 _REGISTRY: "dict[str, type]" = {}
@@ -779,34 +870,67 @@ def available_policies() -> tuple:
     return tuple(sorted(_REGISTRY))
 
 
+def policy_is_online(name: str) -> bool:
+    """Whether the policy registered under ``name`` selects from live FL
+    state (``online = True``).  Under ``horizon="scan"`` such a policy
+    must implement the traced protocol (:func:`policy_is_traced`).
+    Raises ValueError for unregistered names (as :func:`get_policy`)."""
+    return bool(getattr(get_policy(name), "online", False))
+
+
+def policy_is_traced(name: str) -> bool:
+    """Whether the policy registered under ``name`` implements the traced
+    selection protocol (``traced_protocol = True`` + ``init_traced`` /
+    ``select_round_traced``): an online policy runs under
+    ``horizon="scan"`` iff this is True.  Raises ValueError for
+    unregistered names (as :func:`get_policy`)."""
+    return bool(getattr(get_policy(name), "traced_protocol", False))
+
+
 def build_schedule(
     policy, gains_tm, weights_m, cfg: PolicyConfig
 ) -> Schedule:
-    """Plan the whole horizon with a precomputed policy and finalize it.
+    """Drive any policy over the whole horizon and finalize the result.
 
     Precomputed policies run their one-shot plan in ``init_state``; this is
-    plan + shared finalization, as in the reference.  Online policies (the
-    reference drives them with rate feedback here) come with a later slice.
+    plan + shared finalization, as in the reference.  Online policies are
+    driven with realized rates and participation fed back between rounds,
+    but no update norms (FL state exists only inside
+    ``fl.run_federated_learning``'s live mode), each round finalized as it
+    is selected.
     """
     gains_tm = np.asarray(gains_tm)
     weights_m = np.asarray(weights_m)
     num_rounds, num_devices = gains_tm.shape
-    if getattr(policy, "online", False):
-        raise NotImplementedError(errors.ERR_NOT_PORTED.format(
-            feature=f"online policy {policy.name!r}", item=5,
-        ))
     power_fn = power_lib.make_power_allocator(
         cfg.power_mode, cfg.pmax, cfg.noise_power
     )
     state = policy.init_state(gains_tm, weights_m, cfg)
-    rounds = [
-        tuple(int(d) for d in policy.select_round(t, state, None)[0])
-        for t in range(num_rounds)
-    ]
-    sched = finalize_schedule(
-        rounds, gains_tm, weights_m, power_fn, cfg.noise_power, policy.name
-    )
-    sched.allow_revisits = not getattr(policy, "respects_c1", True)
+    obs = Observation.initial(num_devices)
+    online = getattr(policy, "online", False)
+    rounds, powers, rates, total = [], [], [], 0.0
+    for t in range(num_rounds):
+        group, state = policy.select_round(t, state, obs)
+        group = tuple(int(d) for d in group)
+        rounds.append(group)
+        if online:
+            # the policy reads the realized rates next round, so each round
+            # is finalized here and kept
+            p_k, r_k = finalize_round(
+                group, t, gains_tm, weights_m, power_fn, cfg.noise_power
+            )
+            obs = obs.record_round(t, group, r_k)
+            powers.append(p_k)
+            rates.append(r_k)
+            total += float(np.sum(weights_m[np.asarray(group, np.intp)] * r_k))
+    revisits = not getattr(policy, "respects_c1", True)
+    if online:
+        sched = Schedule(rounds, powers, rates, total, policy.name, revisits)
+    else:
+        sched = finalize_schedule(
+            rounds, gains_tm, weights_m, power_fn, cfg.noise_power, policy.name
+        )
+        sched.allow_revisits = revisits
     sched.validate(num_devices, cfg.group_size)
     return sched
 
@@ -887,3 +1011,240 @@ class ProportionalFairPolicy(_PrecomputedPolicy):
             gains_tm, weights_m, cfg.group_size, by_gain=self.by_gain,
             pmax=cfg.pmax, noise_power=cfg.noise_power,
         )
+
+
+class _ScoreTopKPolicy:
+    """Base for the top-K online policies: rank all devices by a per-round
+    score and take the top K (stable sort, ties to the lower device id).
+    Subclasses implement ``_score(t, solo, obs) -> (M,)``, where ``solo`` is
+    the weighted interference-free rate w_k log2(1 + p g_k^2 / sigma^2) at
+    round t, and ``_score_traced``, its float32 tensor mirror.  Online
+    policies revisit devices across rounds: long-horizon fairness is the
+    score's job, not C1's.
+    """
+
+    online = True
+    respects_c1 = False
+    needs_norms = False     # True: the FL loop computes ||delta W_k|| per
+                            # scheduled device and feeds it back via obs
+    traced_protocol = True
+
+    def init_state(self, gains_tm, weights_m, cfg: PolicyConfig):
+        return {
+            "gains": np.asarray(gains_tm),
+            "weights": np.asarray(weights_m),
+            "cfg": cfg,
+        }
+
+    def select_round(self, t, state, obs):
+        cfg = state["cfg"]
+        solo = _solo_proxy(
+            state["gains"][t], state["weights"], cfg.pmax, cfg.noise_power
+        )
+        score = np.asarray(self._score(t, solo, obs), dtype=np.float64)
+        k = min(cfg.group_size, len(score))
+        top = np.argsort(-score, kind="stable")[:k]
+        return tuple(int(d) for d in top), state
+
+    def init_traced(self, gains_tm, weights_m, cfg: PolicyConfig) -> dict:
+        """Host aux for the traced path: the (T, M) weighted solo-rate
+        table, computed in float64 and rounded once to float32."""
+        solo = _solo_proxy(
+            np.asarray(gains_tm, np.float64),
+            np.asarray(weights_m, np.float64),
+            cfg.pmax, cfg.noise_power,
+        )
+        return {"solo": np.asarray(solo, np.float32)}
+
+    def select_round_traced(self, t, solo_m, gains_m, weights_m, obs, cfg):
+        """Tensor mirror of ``select_round`` for S runs: ``solo_m`` and
+        ``gains_m`` (S, M) float32 rows of round ``t``, ``weights_m`` (M,)
+        float32, ``obs`` a :class:`TracedObservation`.  The top K of
+        ``_score_traced`` by a stable descending sort (``torch.topk`` does
+        not order ties on the card; the reference's ``lax.top_k`` gives
+        the lower id first, as the stable sort does).  Returns (S, K) int64
+        device ids and an all-True (S, K) mask: top-K fills every lane."""
+        score = self._score_traced(t, solo_m, obs)
+        k = min(int(cfg.group_size), int(score.shape[-1]))
+        top = torch.sort(score, dim=-1, descending=True,
+                         stable=True).indices[..., :k]
+        return top, torch.ones_like(top, dtype=torch.bool)
+
+
+@register_policy("update-aware")
+class UpdateAwarePolicy(_ScoreTopKPolicy):
+    """Update-aware scheduling (Amiri et al., arXiv:2001.10402).
+
+    Score = (estimated ||delta W_k||_2) * (weighted solo rate), the last
+    observed norm standing in for the current one.  Devices never yet
+    observed take the mean of the observed norms (1.0 before any
+    observation), so round 0 reduces to best-channel; observed-zero norms
+    are floored so a device is deprioritized, not starved forever.
+    """
+
+    needs_norms = True
+    COLD_START_NORM = 1.0   # stands in for ||delta W_k|| before any
+                            # observation; the traced carry starts with it
+
+    def _score(self, t, solo, obs):
+        norms = obs.update_norms.copy()
+        seen = obs.participation > 0
+        default = (
+            float(norms[seen].mean()) if seen.any() else self.COLD_START_NORM
+        )
+        default = max(default, 1e-12)
+        norms[~seen] = default
+        norms[seen] = np.maximum(norms[seen], 1e-3 * default)
+        return norms * solo
+
+    def _score_traced(self, t, solo_m, obs):
+        return _norm_estimates_traced(obs, self.COLD_START_NORM) * solo_m
+
+
+@register_policy("age-fair")
+class AgeFairPolicy(_ScoreTopKPolicy):
+    """Age-fair scheduling (Yang et al., arXiv:1908.06287).
+
+    Score = (1 + age_k) * (weighted solo rate), age_k = rounds since device
+    k last participated (never-scheduled devices age from round 0), so
+    every device is eventually rescheduled however weak its channel.
+    """
+
+    def _score(self, t, solo, obs):
+        age = (t - obs.last_round).astype(np.float64)
+        return (1.0 + age) * solo
+
+    def _score_traced(self, t, solo_m, obs):
+        age = (t - obs.last_round).to(torch.float32)
+        return (1.0 + age) * solo_m
+
+
+@register_policy("matching-pursuit")
+class MatchingPursuitPolicy:
+    """Greedy residual-error device selection for over-the-air aggregation.
+
+    The analog PS estimate misses the updates of unscheduled devices and
+    pays receiver noise amplified by the weakest admitted channel.  With
+    the round's aggregation error of a candidate set S modeled as
+
+        E(S) = sum_{k not in S} (w_k n_k)^2
+             + lambda * max_{k in S} (w_k n_k / h_k)^2,
+        lambda = ota_noise^2 / pmax,
+
+    the policy starts from S = {} and repeatedly admits the device giving
+    the largest *strict* decrease of E, stopping at K devices or when no
+    admission helps.  With ``ota_noise = 0`` it reduces to top-K by
+    w_k n_k.  Norm estimates follow ``update-aware``'s convention.
+    """
+
+    online = True
+    respects_c1 = False
+    needs_norms = True
+    traced_protocol = True
+    COLD_START_NORM = 1.0   # shared with update-aware
+
+    def init_state(self, gains_tm, weights_m, cfg: PolicyConfig):
+        return {
+            "gains": np.asarray(gains_tm),
+            "weights": np.asarray(weights_m),
+            "cfg": cfg,
+        }
+
+    @classmethod
+    def _norm_estimates(cls, obs: Observation) -> np.ndarray:
+        norms = obs.update_norms.copy()
+        seen = obs.participation > 0
+        default = (
+            float(norms[seen].mean()) if seen.any() else cls.COLD_START_NORM
+        )
+        default = max(default, 1e-12)
+        norms[~seen] = default
+        norms[seen] = np.maximum(norms[seen], 1e-3 * default)
+        return norms
+
+    def select_round(self, t, state, obs):
+        cfg = state["cfg"]
+        gains = np.asarray(state["gains"][t], dtype=np.float64)
+        weights = np.asarray(state["weights"], dtype=np.float64)
+        m = weights * self._norm_estimates(obs)        # w_k n_k
+        energy = m * m                                 # omission cost
+        lam = float(cfg.ota_noise) ** 2 / max(float(cfg.pmax), 1e-300)
+        if lam > 0.0:
+            with np.errstate(divide="ignore"):
+                pen = lam * np.where(gains > 0.0, (m / gains) ** 2, np.inf)
+        else:
+            pen = np.zeros_like(m)     # explicit: avoids 0 * inf = nan
+        k = min(cfg.group_size, len(m))
+        selected: "list[int]" = []
+        in_s = np.zeros(len(m), dtype=bool)
+        residual = float(energy.sum())     # sum over k not in S
+        noise_term = 0.0                   # lambda * max admitted penalty
+        cur = residual + noise_term
+        for _ in range(k):
+            cand_noise = np.maximum(noise_term, pen)
+            e = (residual - energy) + cand_noise
+            e[in_s] = np.inf
+            j = int(np.argmin(e))
+            if not e[j] < cur:     # admit only on strict decrease
+                break
+            selected.append(j)
+            in_s[j] = True
+            residual -= float(energy[j])
+            noise_term = max(noise_term, float(pen[j]))
+            cur = float(e[j])
+        return tuple(selected), state
+
+    def init_traced(self, gains_tm, weights_m, cfg: PolicyConfig) -> dict:
+        """The top-K policies' aux contract (the engine feeds every traced
+        policy the solo table); the admit loop reads only the channel row,
+        the weights and the norm estimates."""
+        return _ScoreTopKPolicy.init_traced(self, gains_tm, weights_m, cfg)
+
+    def select_round_traced(self, t, solo_m, gains_m, weights_m, obs, cfg):
+        """The matching-pursuit sweep on tensors, for S runs: K fixed
+        iterations, each masked by whether its run is still admitting (the
+        reference's ``lax.while_loop`` stops at the first candidate that
+        fails the strict-decrease test; here a run that has stopped
+        changes nothing in later iterations), with no branch on a tensor
+        value, so both paths admit the same devices in the same order.
+        ``torch.argmin`` takes the first minimum, as ``jnp.argmin`` does.
+        Returns (S, K) int64 ids and (S, K) masks; lanes past a run's
+        admit count are padding (id 0, mask False)."""
+        m_arr = weights_m * _norm_estimates_traced(obs, self.COLD_START_NORM)
+        energy = m_arr * m_arr
+        lam = float(cfg.ota_noise) ** 2 / max(float(cfg.pmax), 1e-300)
+        if lam > 0.0:
+            live = gains_m > 0.0
+            q = m_arr / torch.where(live, gains_m, 1.0)
+            pen = torch.where(live, lam * (q * q), float("inf"))
+        else:
+            pen = torch.zeros_like(m_arr)   # explicit: avoids 0 * inf = nan
+        runs, num_devices = m_arr.shape
+        k = min(int(cfg.group_size), num_devices)
+        lanes = torch.arange(num_devices, device=m_arr.device)
+        in_s = torch.zeros_like(m_arr, dtype=torch.bool)
+        residual = energy.sum(dim=-1)
+        noise_term = torch.zeros_like(residual)
+        cur = residual
+        admitting = torch.ones_like(residual, dtype=torch.bool)
+        count = torch.zeros(runs, dtype=torch.int64, device=m_arr.device)
+        sel = torch.zeros((runs, k), dtype=torch.int64, device=m_arr.device)
+        for step in range(k):
+            cand_noise = torch.maximum(noise_term[:, None], pen)
+            e = torch.where(in_s, float("inf"),
+                            (residual[:, None] - energy) + cand_noise)
+            j = torch.argmin(e, dim=-1, keepdim=True)
+            e_j = e.gather(-1, j)[:, 0]
+            admit = admitting & (e_j < cur)      # strict decrease only
+            sel[:, step] = torch.where(admit, j[:, 0], 0)
+            in_s = in_s | ((lanes == j) & admit[:, None])
+            residual = torch.where(
+                admit, residual - energy.gather(-1, j)[:, 0], residual)
+            noise_term = torch.where(
+                admit, torch.maximum(noise_term, pen.gather(-1, j)[:, 0]),
+                noise_term)
+            cur = torch.where(admit, e_j, cur)
+            count = count + admit.to(torch.int64)
+            admitting = admit
+        lane = torch.arange(k, device=m_arr.device)
+        return sel, lane < count[:, None]

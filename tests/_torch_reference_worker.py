@@ -271,6 +271,38 @@ def task_horizon_runs(spec, arrays):
     return out
 
 
+def task_online_runs(spec, arrays):
+    """task_horizon_runs for online-policy runs, each run in turn; a
+    per-round run also returns the update norms its policy was fed after
+    every round (``<key>/norms/<t>``, empty where the policy reads none):
+    ``scheduling.Observation.record_round`` is wrapped in this process to
+    keep them (the scanned drivers feed norms on the device and record
+    nothing)."""
+    import numpy as np
+
+    from repro.core import scheduling
+
+    record = scheduling.Observation.record_round
+    fed = []
+
+    def keep(self, t, group, rates_k, update_norms_k=None):
+        fed.append(np.zeros(0) if update_norms_k is None
+                   else np.asarray(update_norms_k, np.float64))
+        return record(self, t, group, rates_k, update_norms_k)
+
+    scheduling.Observation.record_round = keep
+    out = {}
+    try:
+        for run in spec["runs"]:
+            fed.clear()
+            out.update(task_horizon_runs({"runs": [run]}, arrays))
+            for t, norms in enumerate(fed):
+                out[f"{run['key']}/norms/{t}"] = norms
+    finally:
+        scheduling.Observation.record_round = record
+    return out
+
+
 def task_legacy_parts(spec, arrays):
     """The legacy round body's parts, and whole runs, in one process.
 
@@ -410,6 +442,7 @@ TASKS = {
     "lazy_greedy": task_lazy_greedy,
     "legacy_parts": task_legacy_parts,
     "horizon_runs": task_horizon_runs,
+    "online_runs": task_online_runs,
 }
 
 

@@ -996,3 +996,115 @@ def test_flash_decode_kernel_refuses_what_it_does_not_take(cuda):
         flash_decode.flash_decode(torch.zeros(1, 1, 2, 64, device=cuda),
                                   kv.new_zeros(1, 256, 1, 64).bfloat16(),
                                   kv.new_zeros(1, 256, 1, 64).bfloat16(), 1)
+
+
+def _synced_online_horizon(monkeypatch, seen):
+    """:func:`_synced_horizon` for the online policies' horizon."""
+    core = fl_engine._online_horizon_core
+
+    def checked(*args, **kwargs):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = core(*args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        seen.append(True)
+        return out
+
+    monkeypatch.setattr(fl_engine, "_online_horizon_core", checked)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(scheduler="update-aware"), dict(scheduler="age-fair"),
+    dict(scheduler="update-aware", uplink="tdma"),
+    dict(scheduler="matching-pursuit", uplink="ota"),
+], ids=["update-aware", "age-fair", "tdma", "matching-pursuit-ota"])
+def test_online_scan_on_the_card_equals_the_per_round_run(cuda, monkeypatch,
+                                                          kw):
+    """An online policy's scanned horizon selects on the card and syncs
+    nothing between its upload and its download, launches kernel #1 (or
+    the keyed OTA kernel) once per round, and gives the per-round run's
+    logs and final parameters to the bit."""
+    import dataclasses
+
+    from repro_torch.core import fl
+
+    ds, cell, shards = _scan_world(12)
+    cfg = _scan_config(num_rounds=4, **kw)
+    seen = []
+    _synced_online_horizon(monkeypatch, seen)
+    ota_run = cfg.uplink == "ota"
+    before = (aggregate.weighted_aggregate.launches,
+              ota_aggregate.ota_aggregate.launches)
+    scan = fl.run_federated_learning(ds, shards, cell, cfg, device=cuda)
+    assert seen == [True]
+    assert (aggregate.weighted_aggregate.launches - before[0],
+            ota_aggregate.ota_aggregate.launches - before[1]) == (
+        (0, 4) if ota_run else (4, 0))
+    per_round = fl.run_federated_learning(
+        ds, shards, cell, dataclasses.replace(cfg, horizon="per-round"),
+        device=cuda)
+    assert all(len(lg.devices) == 3 for lg in per_round.logs)
+    for a, b in zip(scan.logs, per_round.logs):
+        assert a.devices == b.devices and a.test_accuracy == b.test_accuracy
+        for field in ("bits", "rates", "compression_ratios"):
+            np.testing.assert_array_equal(getattr(a, field), getattr(b, field))
+    for a in per_round.final_params:
+        for c in per_round.final_params[a]:
+            _same_bits(scan.final_params[a][c], per_round.final_params[a][c])
+
+
+@pytest.mark.parametrize("name", ["update-aware", "age-fair"])
+def test_traced_top_k_orders_ties_by_device_id_on_the_card(cuda, name):
+    """Scores tied in blocks (equal solo rates, equal norms and ages): the
+    card's selection takes the lower ids first, as ``lax.top_k`` and the
+    host's stable argsort do, and equals the CPU's."""
+    policy = scheduling.get_policy(name)
+    cfg = scheduling.PolicyConfig(group_size=5, pmax=PMAX, noise_power=NOISE)
+    m = 300
+    solo = torch.repeat_interleave(torch.tensor([3.0, 1.0, 2.0]), m // 3)
+    solo = torch.stack([solo, solo.flip(0)])                  # S = 2 runs
+    obs = scheduling.TracedObservation.initial(2, m, device="cpu")
+    want, want_mask = policy.select_round_traced(
+        0, solo, torch.ones_like(solo), torch.full((m,), 1.0 / m), obs, cfg)
+    assert want.tolist() == [[0, 1, 2, 3, 4], [200, 201, 202, 203, 204]]
+    got, got_mask = policy.select_round_traced(
+        0, solo.to(cuda), torch.ones_like(solo, device=cuda),
+        torch.full((m,), 1.0 / m, device=cuda),
+        scheduling.TracedObservation(*(f.to(cuda) for f in obs)), cfg)
+    assert torch.equal(got.cpu(), want) and torch.equal(got_mask.cpu(),
+                                                        want_mask)
+
+
+@pytest.mark.parametrize("ota_noise", [0.0, 1e-9, 1e-7, 1e-3])
+def test_matching_pursuit_loop_on_the_card_equals_the_cpu(cuda, ota_noise):
+    """The masked fixed-K admit loop on CUDA tensors: the same ids, masks
+    and stop points as on CPU tensors, for runs that admit all K, stop
+    after the two strong channels (noise 1e-7) or admit nothing (1e-3),
+    beside a zero-gain device."""
+    policy = scheduling.get_policy("matching-pursuit")
+    cfg = scheduling.PolicyConfig(group_size=4, pmax=PMAX, noise_power=NOISE,
+                                  ota_noise=ota_noise)
+    gen = torch.Generator().manual_seed(3)
+    runs, m = 8, 300
+    gains = torch.rand(runs, m, generator=gen) * 2e-6 + 1e-8
+    gains[:, 7] = 0.0
+    gains[4:] = 1e-8                 # two strong channels in these runs
+    for run in range(4, runs):
+        gains[run, [run, 2 * run + 11]] = 2e-6
+    weights = torch.rand(m, generator=gen)
+    weights = weights / weights.sum()
+    obs = scheduling.TracedObservation(
+        torch.rand(runs, m, generator=gen) * 2.0,
+        torch.randint(0, 3, (runs, m), generator=gen, dtype=torch.int32),
+        torch.full((runs, m), -1, dtype=torch.int32))
+    want, want_mask = policy.select_round_traced(0, gains, gains, weights,
+                                                 obs, cfg)
+    got, got_mask = policy.select_round_traced(
+        0, gains.to(cuda), gains.to(cuda), weights.to(cuda),
+        scheduling.TracedObservation(*(f.to(cuda) for f in obs)), cfg)
+    assert torch.equal(got_mask.cpu(), want_mask)
+    assert torch.equal(got.cpu(), want)
+    if ota_noise == 1e-7:       # runs stop after 1 to K-1 admissions
+        admitted = want_mask.sum(dim=1)
+        assert bool(((admitted > 0) & (admitted < 4)).any())

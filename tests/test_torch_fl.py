@@ -403,13 +403,11 @@ def test_parameter_entry_points_default_to_cuda(monkeypatch):
 # The case ids are the ones these cases had before the scheduler_backend=
 # "jax" case (item 3), the uplink="tdma" case (item 2), the uplink="ota"
 # case (item 6), the topk and client_bank="bucketed" cases (item 7), the
-# default legacy engine and scheduler="random" cases (item 1) and the
-# horizon="scan" case (item 4) left the list as they were ported; the
-# tiny-transformer case keeps its id and now expects item 8, which brings
-# the LLM models.
+# default legacy engine and scheduler="random" cases (item 1), the
+# horizon="scan" case (item 4) and the scheduler="update-aware" case (item
+# 5) left the list as they were ported; the tiny-transformer case keeps its
+# id and now expects item 8, which brings the LLM models.
 @pytest.mark.parametrize("kwargs,item", [
-    pytest.param(dict(fl_engine="batched", scheduler="update-aware"), 5,
-                 id="kwargs5-5"),
     pytest.param(dict(fl_engine="batched", model="tiny-transformer"), 8,
                  id="kwargs9-7"),
     pytest.param(dict(fl_engine="batched", model="qwen2_0_5b"), 8,
@@ -468,13 +466,26 @@ def test_config_rejects_the_bucketed_bank_with_scan():
         FLConfig(fl_engine="batched", horizon="scan", client_bank="bucketed")
 
 
-@pytest.mark.parametrize("scheduler", ["update-aware", "age-fair"])
-def test_config_online_scheduler_with_scan_names_item_5(scheduler):
-    """An online policy raises item 5 under the scan as per round."""
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md queue 1 item 5 brings it"):
-        FLConfig(fl_engine="batched", horizon="scan", scheduler=scheduler,
-                 power_mode="max")
+@pytest.mark.parametrize("mode", ["legacy", "batched", "scan"])
+@pytest.mark.parametrize("scheduler", ["update-aware", "age-fair",
+                                       "matching-pursuit"])
+def test_config_accepts_online_schedulers(scheduler, mode):
+    """The online policies (item 5) construct and run on either engine per
+    round, and under the scan with max power: a T*K > M horizon that
+    revisits devices (tests/test_torch_online.py holds them to the
+    reference)."""
+    kw = dict(num_devices=4, group_size=2, num_rounds=3, scheduler=scheduler,
+              power_mode="max", use_pallas=True,
+              fl_engine="legacy" if mode == "legacy" else "batched",
+              horizon="scan" if mode == "scan" else "per-round")
+    cfg = FLConfig(**kw)
+    ds = make_mnist_like(num_samples=400, seed=0)
+    cell = channel.CellConfig(num_devices=4)
+    shards = dirichlet_partition(ds.y_train, 4, seed=0)
+    res = fl.run_federated_learning(ds, shards, cell, cfg, device="cpu")
+    seen = [d for lg in res.logs for d in lg.devices]
+    assert len(seen) > len(set(seen)) and np.all(np.isfinite(
+        res.accuracies()))
 
 
 @pytest.mark.parametrize("kwargs", [

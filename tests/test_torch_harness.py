@@ -49,6 +49,14 @@ PARAM_MAX_ATOL = 2e-2
 def run_reference(tmp_path, task, spec=None, arrays=None, *, timeout=600):
     """Run reference ``task`` in a shimmed subprocess; returns a dict of
     numpy arrays."""
+    return start_reference(tmp_path, task, spec, arrays, timeout=timeout)()
+
+
+def start_reference(tmp_path, task, spec=None, arrays=None, *, timeout=600):
+    """:func:`run_reference` started in the background, so the caller can
+    work meanwhile: returns a function that waits for the subprocess (at
+    most ``timeout`` seconds) and returns its arrays; its ``cancel()``
+    kills a subprocess still running."""
     tag = f"{task}_{len(os.listdir(tmp_path))}"
     spec_path = tmp_path / f"{tag}.json"
     in_path = tmp_path / f"{tag}_in.npz"
@@ -58,14 +66,30 @@ def run_reference(tmp_path, task, spec=None, arrays=None, *, timeout=600):
     env = dict(os.environ)
     env["PYTHONPATH"] = os.path.join(REPO, "src")
     env["JAX_PLATFORMS"] = "cpu"
-    proc = subprocess.run(
+    proc = subprocess.Popen(
         [sys.executable, WORKER, task, str(spec_path), str(in_path),
          str(out_path)],
-        capture_output=True, text=True, env=env, timeout=timeout,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
     )
-    assert proc.returncode == 0, proc.stderr[-4000:]
-    with np.load(out_path) as data:
-        return {k: data[k] for k in data.files}
+
+    def result():
+        try:
+            _, stderr = proc.communicate(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            raise
+        assert proc.returncode == 0, stderr[-4000:]
+        with np.load(out_path) as data:
+            return {k: data[k] for k in data.files}
+
+    def cancel():
+        if proc.poll() is None:
+            proc.kill()
+        proc.communicate()
+
+    result.cancel = cancel
+    return result
 
 
 def tree(arrays, prefix):

@@ -204,9 +204,11 @@ def test_grid_oracle_matches_reference(k, seed):
 # --------------------------------------------------------------------------
 
 def test_registry_holds_every_precomputed_policy_of_the_reference():
+    """The registry is the reference's, the online policies (item 5, held
+    by tests/test_torch_online.py) included."""
     ref_names = set(ref_sched.available_policies())
     online = {name for name in ref_names if ref_sched.policy_is_online(name)}
-    assert set(scheduling.available_policies()) == ref_names - online
+    assert set(scheduling.available_policies()) == ref_names
     assert set(PRECOMPUTED) == ref_names - online
     assert scheduling.RandomPolicy.SEED_OFFSET \
         == ref_sched.RandomPolicy.SEED_OFFSET == 17
