@@ -144,7 +144,24 @@ package, and exits non-zero on the first failure.  Phases:
      every row's logs equal to its single online scan's) and the M=30
      update-aware run on the CPU and on the card
      (``[cpu-vs-card:online]``: the contract of 7, or F1's shape where
-     the drift leaves it).
+     the drift leaves it);
+ 15. the token payloads, the dense transformer as the FL payload: kernel
+     #1 on the 14 Qwen2-0.5B leaves (494,147,456 int32 codes a client,
+     K=3) in one grouped launch and the keyed OTA kernel on its embedding
+     leaf (K=3 x 136,249,344), each bit-equal to its plain version and
+     timed (``[token-kernel]``); Qwen2-0.5B at full width through
+     ``run_federated_learning`` on the card, M=30, K=3, T=3, 600 rows of
+     16 tokens (``[main:tokens]``: NOMA, MAPEL, adaptive DoReFa, one #1
+     launch per non-empty round; ``[main:tokens-ota]``: ota-align, noise
+     1e-9, one keyed #2 launch per non-empty round; the initial draw's
+     time, each round's host time and the peak device memory printed);
+     ``tiny-transformer-1m`` with ``topk=0.01`` scanned against per round,
+     bit for bit, the horizon under the sync check
+     (``[main:tokens-scan]``); the SMOKE Qwen2 at M=12 on the CPU and on
+     the card (``[cpu-vs-card:tokens]``: logs exact, the drift inside the
+     contract or in F3's shape); and the card's full-width initial weights
+     and one batch's loss against tests/torch_reference/qwen2_0_5b.json,
+     written by the JAX package (``[ref:qwen2-0.5b]``).
 
 The last lines are the card's name and power limit as nvidia-smi reports
 them, one JSON object with every kernel's numbers, and the one-line result
@@ -1606,6 +1623,18 @@ def run_main_path(kernels, mode, m=300, t=5, samples=12_000):
     return res, launches
 
 
+def _paired_leaves(got, want, label):
+    """(path, got's leaf, want's leaf) for every leaf of two parameter
+    trees, matched by path; the two must hold the same paths."""
+    from repro_torch.utils.tree import tree_flatten_with_paths
+
+    a = dict(tree_flatten_with_paths(got))
+    b = dict(tree_flatten_with_paths(want))
+    check(a.keys() == b.keys(),
+          f"{label} leaves differ: {sorted(a.keys() ^ b.keys())}")
+    return [(path, a[path], b[path]) for path in a]
+
+
 def _check_equal_logs(got, want, label):
     """One engine's run against another's on the same draws: schedules,
     bits, rates, ratios and times exact, accuracy within ACC_ATOL; returns
@@ -1621,12 +1650,11 @@ def _check_equal_logs(got, want, label):
     acc_gap = float(np.max(np.abs(got.accuracies() - want.accuracies())))
     check(acc_gap <= ACC_ATOL, f"{label} accuracy gap {acc_gap}")
     worst_mean = worst_max = 0.0
-    for name, layer in want.final_params.items():
-        for leaf, v in layer.items():
-            d = (got.final_params[name][leaf].double().cpu()
-                 - v.double().cpu()).abs()
-            worst_mean = max(worst_mean, d.mean().item())
-            worst_max = max(worst_max, d.max().item())
+    for _, a, v in _paired_leaves(got.final_params, want.final_params,
+                                  label):
+        d = (a.double().cpu() - v.double().cpu()).abs()
+        worst_mean = max(worst_mean, d.mean().item())
+        worst_max = max(worst_max, d.max().item())
     log(f"{label} schedules/bits/rates/ratios/times equal, acc gap "
         f"{acc_gap!r}, param drift mean {worst_mean!r} max {worst_max!r}")
     return worst_mean, worst_max
@@ -1666,10 +1694,9 @@ def _check_identical_runs(got, want, label):
             check(np.array_equal(getattr(a, field), getattr(b, field)),
                   f"{label} round {a.round} {field} differ")
     check(len(got.logs) == len(want.logs), f"{label} round count")
-    for name, layer in want.final_params.items():
-        for leaf, v in layer.items():
-            check(torch.equal(got.final_params[name][leaf], v),
-                  f"{label} final {name}/{leaf} differs")
+    for path, a, v in _paired_leaves(got.final_params, want.final_params,
+                                     label):
+        check(torch.equal(a, v), f"{label} final {path} differs")
     log(f"{label} logs and final parameters equal the host run's to the bit")
 
 
@@ -1839,9 +1866,9 @@ def _scan_rounds(fn, run):
         fl_engine._train_quantize_aggregate = body
 
 
-def _params_equal(got, want):
-    return all(torch.equal(got.final_params[a][c], v)
-               for a, d in want.final_params.items() for c, v in d.items())
+def _params_equal(got, want, label):
+    return all(torch.equal(a, v) for _, a, v in _paired_leaves(
+        got.final_params, want.final_params, label))
 
 
 def run_seed_sweep(kernels, scan_run, m=300, t=5, samples=12_000):
@@ -1889,7 +1916,7 @@ def run_seed_sweep(kernels, scan_run, m=300, t=5, samples=12_000):
         label = f"[sweep:seeds] row {s} (seed {SWEEP_SEEDS[s]}) against its " \
                 f"single scan:"
         worst_mean, worst_max = _check_equal_logs(res, single, label)
-        if _params_equal(res, single):
+        if _params_equal(res, single, label):
             held.append("bit-equal")
         elif worst_mean < PARAM_MEAN_ATOL and worst_max < PARAM_MAX_ATOL:
             held.append("drift contract")
@@ -1984,7 +2011,8 @@ def run_online_phases(kernels):
                                                   per_round[twin], label)
         check(worst_mean < PARAM_MEAN_ATOL and worst_max < PARAM_MAX_ATOL,
               f"{label} param drift mean {worst_mean} max {worst_max}")
-        held = ("bit-equal" if _params_equal(scans[mode], per_round[twin])
+        held = ("bit-equal" if _params_equal(scans[mode], per_round[twin],
+                                             label)
                 else "inside the drift contract")
         log(f"{label} final parameters {held}; {RUN_SECONDS[mode]:.4f} s "
             f"after the set-up against {RUN_SECONDS[twin]:.4f} s per round")
@@ -2040,7 +2068,7 @@ def run_online_seed_sweep(kernels, scan_run, m=300, t=5, samples=12_000):
         label = (f"[sweep:online-seeds] row {s} (seed {SWEEP_SEEDS[s]}) "
                  f"against its single scan:")
         worst_mean, worst_max = _check_equal_logs(res, single, label)
-        if _params_equal(res, single):
+        if _params_equal(res, single, label):
             held.append("bit-equal")
         elif worst_mean < PARAM_MEAN_ATOL and worst_max < PARAM_MAX_ATOL:
             held.append("drift contract")
@@ -2393,6 +2421,433 @@ def check_draws(seed=0, m=300, t=35):
 
 # --------------------------------------------------------------------------
 
+# --------------------------------------------------------------------------
+# the token payloads: the dense transformer on the FL path
+# --------------------------------------------------------------------------
+
+QWEN2 = "qwen2_0_5b"
+QWEN2_PARAMS = 494_147_456
+QWEN2_LEAVES = 14
+QWEN2_WEIGHT_DRAWS = 8      # embed + wq, wk, wv, wo + wi_gate, wi_up, wo;
+                            # the zero biases and unit norm scales draw none
+QWEN2_REF = os.path.join(REPO, "tests", "torch_reference", "qwen2_0_5b.json")
+TOKEN_DATA = dict(vocab_size=151_936, num_samples=600, seq_len=16, seed=0)
+TOKEN_M, TOKEN_T = 30, 3
+ONE_M_DATA = dict(vocab_size=16_384, num_samples=600, seq_len=16, seed=0)
+SMOKE_DATA = dict(vocab_size=512, num_samples=400, seq_len=8, seed=0)
+TOKEN_LOSS_RTOL = 5e-4      # tests/test_torch_models.py's loss bound (F3)
+# F3's limits for the SMOKE Qwen2 (tests/test_torch_tokens.py:F3_LIMITS)
+F3_MEAN_ATOL, F3_MAX_ATOL = 1.6e-4, 5e-2
+
+
+def _token_world(m, data):
+    from repro_torch.core import channel
+    from repro_torch.data import dirichlet_partition, make_token_dataset
+
+    ds = make_token_dataset(**data)
+    return (ds, channel.CellConfig(num_devices=m),
+            dirichlet_partition(ds.class_train, m, seed=0))
+
+
+def _qwen2_sizes():
+    """(path, elements) of Qwen2-0.5B's full-width FL leaves, from the
+    schema (no allocation)."""
+    from repro_torch.models.fl_models import get_fl_model
+    from repro_torch.models.params import abstract_params
+    from repro_torch.utils.tree import tree_flatten_with_paths
+
+    return [(path, leaf.size) for path, leaf in tree_flatten_with_paths(
+        abstract_params(get_fl_model(QWEN2).schema()))]
+
+
+def compare_token_kernels():
+    """Kernels #1 and #2 at the token path's widest shapes.  #1: the 14
+    Qwen2-0.5B leaves (494,147,456 elements, the embedding 136,249,344) as
+    int32 codes at K=3, reduced in one grouped launch, bit-equal to the
+    plain version leaf by leaf, and timed (device and host-inclusive)
+    beside the plain version and 14 ``torch.einsum`` calls on the same
+    codes as float32.  #2: the keyed entry on the embedding leaf (K=3, the
+    path's 16-byte row layout), bit-equal to its plain version and to the
+    strip kernel fed the drawn noise, timed beside its plain version.
+    Returns the two kernels' max abs errors."""
+    from repro_torch.core import ota
+    from repro_torch.kernels import aggregate, ota_aggregate, threefry
+
+    sizes = _qwen2_sizes()
+    check(len(sizes) == QWEN2_LEAVES and sum(n for _, n in sizes)
+          == QWEN2_PARAMS, f"Qwen2-0.5B leaves {sizes}")
+    k = 3
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    codes, coeffs = [], []
+    for _, n in sizes:
+        codes.append(torch.randint(-15, 16, (k, n), dtype=torch.int32,
+                                   device="cuda", generator=gen))
+        scales = torch.rand(k, device="cuda", generator=gen) + 0.5
+        w = torch.rand(k, device="cuda", generator=gen)
+        coeffs.append(aggregate.coefficients(
+            scales, w / w.sum(), torch.full((k,), 15.0, device="cuda")))
+    counted = aggregate.weighted_aggregate.launches
+    got = aggregate.weighted_aggregate_group(codes, coeffs)
+    torch.cuda.synchronize()
+    check(aggregate.weighted_aggregate.launches == counted + 1,
+          "the 14 Qwen2 leaves took more than one grouped launch")
+    agg_err = 0.0
+    for (path, _), out, c, cf in zip(sizes, got, codes, coeffs):
+        try:
+            agg_err = max(agg_err, _bits_equal(
+                out, aggregate.weighted_aggregate_plain(c, cf)))
+        except SmokeFailure as exc:
+            raise SmokeFailure(f"grouped aggregate at Qwen2 {path}: {exc}")
+    del got
+    floats = [c.to(torch.float32) for c in codes]
+
+    def kern_fn():
+        return aggregate._launch_group(codes, coeffs)
+
+    def plain_fn():
+        return [aggregate.weighted_aggregate_plain(c, cf)
+                for c, cf in zip(codes, coeffs)]
+
+    def lib_fn():
+        return [torch.einsum("k,kn->n", cf, c) for c, cf in zip(floats, coeffs)]
+
+    host = {"kernel": _time_ms(kern_fn, iters=10, warmup=2),
+            "lib": _time_ms(lib_fn, iters=10, warmup=2)}
+    dev = {"kernel": _device_ms(kern_fn, iters=10),
+           "plain": _busy_ms(plain_fn, iters=1)[0],
+           "lib": _device_ms(lib_fn, iters=10),
+           "kernel2": _device_ms(kern_fn, iters=10)}
+    aggregate.weighted_aggregate.launches = counted   # checks don't count
+    nbytes = sum(k * n * 4 + n * 4 + k * 4 for _, n in sizes)
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = 2 * k * QWEN2_PARAMS / PEAK_F32_FLOPS * 1e3
+    bound = max(t_bytes, t_ops)
+    ms = 0.5 * (dev["kernel"] + dev["kernel2"])
+    log(f"[token-kernel] weighted_aggregate K={k}, the 14 Qwen2-0.5B leaves "
+        f"({QWEN2_PARAMS} int32 codes a client) in one grouped launch: "
+        f"bit-equal to the plain version, max abs err {agg_err!r}; device "
+        f"{ms:.4f} ms ({dev['kernel']:.4f} / {dev['kernel2']:.4f}), plain "
+        f"(device-busy) {dev['plain']:.4f} ms, 14 einsum on float32 codes "
+        f"{dev['lib']:.4f} ms; host-inclusive kernel {host['kernel']:.4f} ms,"
+        f" einsum {host['lib']:.4f} ms; bound {bound:.4f} ms "
+        f"({'bytes' if t_bytes >= t_ops else 'operations'}: {nbytes} B), "
+        f"{ms / bound:.2f}x; kernel/einsum {ms / dev['lib']:.3f}")
+    del codes, floats, coeffs
+
+    n = dict(sizes)["embed/tokens"]
+    x = ota_aggregate.row_buffer(k, n, device="cuda")
+    x.copy_(torch.randn(k, n, device="cuda", generator=gen) * 0.01)
+    coeff = torch.tensor([0.5, 0.0, 0.5], device="cuda")
+    key = ota.horizon_keys(0, 2)[1]
+    scale = torch.tensor(3e-3, dtype=torch.float32, device="cuda")
+    counted = ota_aggregate.ota_aggregate.launches
+    drawn = threefry.threefry_draw.launches
+    ota_err = _ota_keyed_errors(ota_aggregate, x, coeff, key, scale,
+                                f"the Qwen2 embedding leaf (K={k}, n={n})")
+
+    def keyed_fn():
+        return ota_aggregate._launch_keyed(x, coeff, key, scale)
+
+    def keyed_plain_fn():
+        return ota_aggregate.ota_aggregate_keyed_plain(x, coeff, key, scale)
+
+    host_keyed = _time_ms(keyed_fn, iters=10, warmup=2)
+    d_keyed = _device_ms(keyed_fn, iters=10)
+    d_plain = _busy_ms(keyed_plain_fn, iters=1)[0]
+    ota_aggregate.ota_aggregate.launches = counted
+    threefry.threefry_draw.launches = drawn
+    k_bytes = (k + 1) * n * 4 + k * 4 + 4
+    kb = k_bytes / PEAK_BYTES_PER_S * 1e3
+    ko = (THREEFRY_OPS + 2 * k) * n / PEAK_F32_FLOPS * 1e3
+    log(f"[token-kernel] ota_aggregate keyed on the Qwen2 embedding leaf "
+        f"K={k} n={n}: bit-equal to its plain version and to the strip "
+        f"kernel fed the drawn noise, max abs err {ota_err!r}; device "
+        f"{d_keyed:.4f} ms, plain (device-busy) {d_plain:.4f} ms, "
+        f"host-inclusive {host_keyed:.4f} ms; bound {max(kb, ko):.4f} ms "
+        f"({'bytes' if kb >= ko else 'operations'}), "
+        f"{d_keyed / max(kb, ko):.2f}x")
+    del x
+    torch.cuda.empty_cache()
+    return agg_err, ota_err
+
+
+def _profile_round(fn):
+    """fn() under torch.profiler, with ``fl_engine.sgd_epoch`` timed on the
+    host clock (the card synchronised around it).  Returns (fn(), kernels
+    launched, device-busy ms, wall ms, local-SGD wall ms, the six aten ops
+    whose kernels took the most device time as (name, ms, calls))."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import fl_engine
+
+    epoch = fl_engine.sgd_epoch
+    sgd_ms = []
+
+    def timed_epoch(*args, **kwargs):
+        out, sec = _timed(lambda: epoch(*args, **kwargs))
+        sgd_ms.append(sec * 1e3)
+        return out
+
+    fl_engine.sgd_epoch = timed_epoch
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            out, wall = _timed(fn)
+    finally:
+        fl_engine.sgd_epoch = epoch
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    # device time by the aten op that launched it
+    ops = [(e.key, e.self_device_time_total / 1e3, e.count)
+           for e in prof.key_averages()
+           if e.key.startswith("aten::") and e.self_device_time_total > 0]
+    top = sorted(ops, key=lambda op: -op[1])[:6]
+    return out, len(kernels), busy, wall * 1e3, sum(sgd_ms), top
+
+
+def run_token_main_path(kernels, mode, m=TOKEN_M, t=TOKEN_T):
+    """``[main:tokens]`` / ``[main:tokens-ota]``: Qwen2-0.5B at full width
+    (494,147,456 parameters, random weights from seed 0) as the FL payload
+    through ``run_federated_learning`` on the card, the batched engine with
+    the kernels, M=30 devices, K=3, T=3 (``[main:tokens]`` one round more,
+    traced by torch.profiler: ``[trace:tokens]``), on ``make_token_dataset(
+    vocab_size=151936, num_samples=600, seq_len=16)``; NOMA + MAPEL +
+    adaptive DoReFa (one grouped #1 launch per non-empty round for the 14
+    leaves) or OTA with ota-align powers and noise 1e-9 (one keyed #2
+    launch per non-empty round).  The initial draw (8 Threefry launches)
+    is timed alone first; the per-round host time and the peak device
+    memory of the run are printed.  Returns the result."""
+    from repro_torch.core import channel, fl, fl_engine
+    from repro_torch.models.fl_models import get_fl_model
+    from repro_torch.utils.tree import tree_count, tree_flatten_with_paths
+
+    ds, cell, shards = _token_world(m, TOKEN_DATA)
+    uplink = "ota" if mode == "tokens-ota" else "noma"
+    cfg = _config(m, t + (mode == "tokens"), "numpy", uplink, model=QWEN2)
+    model = get_fl_model(QWEN2)
+    params, t_init = _timed(lambda: model.init(cfg.seed, device="cuda"))
+    check(tree_count(params) == QWEN2_PARAMS
+          and len(tree_flatten_with_paths(params)) == QWEN2_LEAVES,
+          f"Qwen2-0.5B has {tree_count(params)} parameters")
+    del params
+    torch.cuda.empty_cache()
+    bundle = channel.sample_channels(cfg.seed, cell, cfg.num_rounds)
+    sizes = np.array([len(s) for s in shards], dtype=np.float64)
+    schedule, t_sched = _timed(lambda: fl.make_schedule(
+        bundle.gains, sizes / sizes.sum(), cell, cfg))
+    log(f"[main:{mode}] {QWEN2} at full width ({QWEN2_PARAMS} parameters, "
+        f"{QWEN2_LEAVES} leaves) M={m} K={cfg.group_size} "
+        f"T={cfg.num_rounds}, "
+        f"{TOKEN_DATA['num_samples']} rows of {TOKEN_DATA['seq_len']} tokens"
+        f" (vocab {TOKEN_DATA['vocab_size']}), uplink {uplink}, "
+        f"{cfg.power_mode}, {cfg.compression}: initial draw on the card "
+        f"{t_init:.3f} s, schedule {t_sched:.3f} s")
+    stamps = []
+
+    def progress(lg):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        log(f"[main:{mode}] round {lg.round}: devices {list(lg.devices)} "
+            f"bits {lg.bits.tolist()} acc {lg.test_accuracy:.4f} host "
+            f"{stamps[-1] - stamps[-2]:.3f} s")
+
+    # [main:tokens] runs one round more and traces it: the rounds before
+    # are timed untraced
+    body = fl_engine._train_quantize_aggregate
+    traced = []
+
+    def trace_last(*args, **kwargs):
+        if len(traced) < t:
+            traced.append(None)
+            return body(*args, **kwargs)
+        out, *trace = _profile_round(lambda: body(*args, **kwargs))
+        traced.append(trace)
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(kernels)
+    torch.cuda.synchronize()
+    stamps.append(time.perf_counter())
+    if mode == "tokens":
+        fl_engine._train_quantize_aggregate = trace_last
+    try:
+        res = fl.run_federated_learning(
+            ds, shards, cell, cfg, channels=bundle, schedule=schedule,
+            progress=progress, device="cuda")
+    finally:
+        fl_engine._train_quantize_aggregate = body
+    torch.cuda.synchronize()
+    total = time.perf_counter() - stamps[0]
+    launches = read_launches(kernels)
+    peak = torch.cuda.max_memory_allocated()
+    nonempty = sum(1 for lg in res.logs if lg.devices)
+    want = {name: 0 for name in launches}
+    want["weighted_aggregate"] = nonempty if uplink == "noma" else 0
+    want["ota_aggregate"] = nonempty if uplink == "ota" else 0
+    want["threefry_draw"] = QWEN2_WEIGHT_DRAWS
+    for name, n in want.items():
+        check(launches[name] == n,
+              f"{name} launched {launches[name]} times on [main:{mode}], "
+              f"expected {n} ({nonempty} non-empty rounds)")
+    acc = res.accuracies()
+    check(bool(np.all(np.isfinite(acc))) and bool(np.all((acc >= 0)
+                                                          & (acc <= 1))),
+          f"[main:{mode}] accuracy {acc}")
+    check(tree_count(res.final_params) == QWEN2_PARAMS,
+          "final parameters lost leaves")
+    for path, leaf in tree_flatten_with_paths(res.final_params):
+        check(leaf.device.type == "cuda" and bool(torch.isfinite(leaf).all()),
+              f"[main:{mode}] final {path} not finite on the card")
+    steps = np.diff(stamps)
+    log(f"[main:{mode}] run {total:.3f} s after the schedule, rounds "
+        f"{[float(f'{s:.3f}') for s in steps]} s; peak device memory "
+        f"{peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated); "
+        f"launches {launches}")
+    if mode == "tokens":
+        check(len(traced) == t + 1 and traced[-1] is not None,
+              f"[main:tokens] traced {len(traced)} rounds")
+        n_launch, busy, wall, sgd, top = traced[-1]
+        log(f"[trace:tokens] round {t} (traced by torch.profiler, which "
+            f"slows the host): {n_launch} kernels, device busy {busy:.1f} ms "
+            f"of {wall:.1f} ms wall (idle share {1 - busy / wall:.3f}); "
+            f"local SGD {sgd:.1f} ms of it; the aten ops with the most "
+            f"device time: " + "; ".join(f"{name} {ms:.2f} ms ({n} calls)"
+                                         for name, ms, n in top))
+    return res
+
+
+def run_token_scan(kernels, m=TOKEN_M, t=5):
+    """``[main:tokens-scan]``: ``tiny-transformer-1m`` (>= 10^6 parameters)
+    with ``topk=0.01`` per round and with ``horizon="scan"`` (its device
+    part under the sync check), M=30, K=3, T=5: logs and final parameters
+    equal to the bit, one #1 launch per round each."""
+    from repro_torch.core import fl
+
+    ds, cell, shards = _token_world(m, ONE_M_DATA)
+    cfg = _config(m, t, "numpy", model="tiny-transformer-1m", topk=0.01,
+                  power_mode="max")
+    reset_launches(kernels)
+    per_round, t_round = _timed(lambda: fl.run_federated_learning(
+        ds, shards, cell, cfg, device="cuda"))
+    round_launches = read_launches(kernels)
+    seen = []
+    reset_launches(kernels)
+    scanned, t_scan = _timed(lambda: _with_checked_horizon(
+        lambda: fl.run_federated_learning(
+            ds, shards, cell, dataclasses.replace(cfg, horizon="scan"),
+            device="cuda"), seen))
+    scan_launches = read_launches(kernels)
+    check(len(seen) == 1, f"[main:tokens-scan] ran {len(seen)} horizons")
+    nonempty = sum(1 for lg in per_round.logs if lg.devices)
+    check(round_launches["weighted_aggregate"] == nonempty
+          and scan_launches["weighted_aggregate"] == t,
+          f"[main:tokens-scan] aggregation launches {round_launches} / "
+          f"{scan_launches}")
+    _check_identical_runs(scanned, per_round,
+                          "[main:tokens-scan] scan against per round:")
+    log(f"[main:tokens-scan] tiny-transformer-1m topk=0.01 M={m} T={t}: per "
+        f"round {t_round:.3f} s, scanned {t_scan:.3f} s (device part "
+        f"{seen[0]:.3f} s under set_sync_debug_mode('error')); ratios "
+        f"{[lg.compression_ratios.round(1).tolist() for lg in scanned.logs]}")
+
+
+def compare_tokens_cpu_and_card(kernels, m=12, t=3):
+    """``[cpu-vs-card:tokens]``: the SMOKE Qwen2 (QKV bias, GQA, tied
+    embeddings) on the batched engine with the kernels, M=12, T=3, on the
+    CPU and on the card: logs exact, accuracy within 0.02, and the drift
+    inside the contract or in F3's shape (ROADMAP.md queue 3: bf16 rounding
+    in other places; every leaf's mean drift below 1.6e-4, max below
+    5e-2)."""
+    from repro_torch.core import fl
+
+    ds, cell, shards = _token_world(m, SMOKE_DATA)
+    cfg = _config(m, t, "numpy", model=f"{QWEN2}:smoke")
+    cpu = fl.run_federated_learning(ds, shards, cell, cfg, device="cpu")
+    reset_launches(kernels)
+    card = fl.run_federated_learning(ds, shards, cell, cfg, device="cuda")
+    launches = read_launches(kernels)
+    label = f"[cpu-vs-card:tokens] M={m} {QWEN2}:smoke"
+    worst_mean, worst_max = _check_equal_logs(card, cpu, label + " CPU vs card:")
+    if worst_mean < PARAM_MEAN_ATOL and worst_max < PARAM_MAX_ATOL:
+        log(f"{label}: inside the drift contract")
+    else:
+        check(worst_mean < F3_MEAN_ATOL and worst_max < F3_MAX_ATOL,
+              f"{label} drift mean {worst_mean} max {worst_max} beyond F3's "
+              f"shape")
+        log(f"{label}: the drift leaves the contract in F3's shape (bf16 "
+            f"rounding in other places; ROADMAP.md queue 3)")
+    nonempty = sum(1 for lg in card.logs if lg.devices)
+    check(launches["weighted_aggregate"] == nonempty,
+          f"{label}: aggregation launches {launches}")
+
+
+def check_qwen2_reference():
+    """``[ref:qwen2-0.5b]``: the card's full-width initial parameters and
+    one fixed batch's loss against tests/torch_reference/qwen2_0_5b.json
+    (written by the JAX package; its command is in the file): every leaf's
+    recorded elements exactly, its float64 sum and sum of squares within
+    float64 summation error (n * 2^-53 * sum |x|), and the loss within
+    TOKEN_LOSS_RTOL."""
+    from repro_torch.core import tree as tree_lib
+    from repro_torch.models.fl_models import get_fl_model
+    from repro_torch.utils.tree import tree_flatten_with_paths
+
+    with open(QWEN2_REF, encoding="utf-8") as fh:
+        record = json.load(fh)
+    model = get_fl_model(record["model"])
+    params = model.init(record["seed"], device="cuda")
+    worst = 0.0
+    for path, leaf in tree_flatten_with_paths(params):
+        want = record["leaves"][path]
+        check(list(leaf.shape) == want["shape"], f"[ref] {path} shape")
+        flat = leaf.reshape(-1)
+        idx = torch.tensor(want["index"], dtype=torch.int64).to("cuda")
+        got = flat[idx].cpu().numpy()
+        check(np.array_equal(got, np.asarray(want["values"], np.float32)),
+              f"[ref] {path} elements {got} != {want['values']}")
+        x = flat.double()
+        bound = x.numel() * 2.0 ** -53
+        for name, val, mag in (("sum", x.sum(), x.abs().sum()),
+                               ("sumsq", (x * x).sum(), (x * x).sum())):
+            err = abs(val.item() - want[name])
+            check(err <= bound * mag.item(),
+                  f"[ref] {path} {name} {val.item()!r} != {want[name]!r}")
+            worst = max(worst, err / max(mag.item(), 1e-300))
+    tokens = torch.tensor(record["tokens"], dtype=torch.int32).to("cuda")
+    labels = torch.tensor(record["labels"], dtype=torch.int32).to("cuda")
+    with torch.no_grad():
+        stacked = tree_lib.tree_map(lambda w: w.unsqueeze(0), params)
+        loss = float(model.batch_loss(stacked, tokens[None], labels[None],
+                                      None)[0])
+    rel = abs(loss - record["loss"]) / abs(record["loss"])
+    check(rel <= TOKEN_LOSS_RTOL,
+          f"[ref] loss {loss!r} against {record['loss']!r} (rel {rel})")
+    log(f"[ref:qwen2-0.5b] {len(record['leaves'])} leaves "
+        f"({record['param_count']} parameters) drawn on the card: the "
+        f"recorded elements equal the reference's, sums within float64 "
+        f"summation error (worst {worst:.3g} of sum |x|); the loss of the "
+        f"fixed 2 x 16 batch {loss!r} against the reference's "
+        f"{record['loss']!r}: relative {rel:.3g} (bound {TOKEN_LOSS_RTOL})")
+    del params, stacked
+    torch.cuda.empty_cache()
+
+
+def run_token_phases(kernels):
+    """The token slice's phases, in order; returns #1's and #2's max abs
+    errors at the Qwen2 shapes."""
+    errs = compare_token_kernels()
+    run_token_main_path(kernels, "tokens")
+    torch.cuda.empty_cache()
+    run_token_main_path(kernels, "tokens-ota")
+    torch.cuda.empty_cache()
+    run_token_scan(kernels)
+    compare_tokens_cpu_and_card(kernels)
+    check_qwen2_reference()
+    return errs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -2505,6 +2960,10 @@ def main() -> int:
     errs["flash_decode"] = max(max(flash_err.values()), path_err)
     launches["flash_decode"] = flash_launches["flash_decode"]
     check_draws()
+
+    agg_err, ota_err = run_token_phases(kernels)
+    errs["weighted_aggregate"] = max(errs["weighted_aggregate"], agg_err)
+    errs["ota_aggregate"] = max(errs["ota_aggregate"], ota_err)
 
     rows = []
     for kern in kernels:

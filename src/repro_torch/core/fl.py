@@ -77,6 +77,7 @@ from repro_torch.core import tree as tree_lib
 from repro_torch.data.client_bank import ClientBank, EvalBank, eval_sample_plan
 from repro_torch.device import resolve_device
 from repro_torch.models.fl_models import get_fl_model
+from repro_torch.utils.tree import tree_count
 
 
 @dataclasses.dataclass
@@ -277,11 +278,6 @@ def _agg_weights(sizes, devs) -> np.ndarray:
     return np.asarray(raw_w) / max(sum(raw_w), 1.0)
 
 
-def _param_count(params) -> int:
-    return sum(int(leaf.numel()) for layer in params.values()
-               for leaf in layer.values())
-
-
 def _setup(shards, cell, cfg: FLConfig, *, schedule, channels, init_params,
            device, model):
     """What every driver computes before round 0: the initial parameters
@@ -294,7 +290,7 @@ def _setup(shards, cell, cfg: FLConfig, *, schedule, channels, init_params,
         params = model.init(cfg.seed, device=device)
     else:
         params = params_from_jax(init_params, device=device)
-    payload = _param_count(params) * 32  # I: full-precision payload bits
+    payload = tree_count(params) * 32  # I: full-precision payload bits
     sizes = np.array([len(s) for s in shards], dtype=np.float64)
     if channels is None:
         channels = chan.sample_channels(cfg.seed, cell, cfg.num_rounds)

@@ -1,6 +1,7 @@
 """Reference side of the PyTorch-port parity tests, run as a subprocess.
 
     python tests/_torch_reference_worker.py <task> <spec.json> <in.npz> <out.npz>
+    python tests/_torch_reference_worker.py --write-qwen2-reference <out.json>
 
 The JAX package cannot import ``repro.models`` (and hence ``repro.core.fl``)
 under JAX 0.9.0: ``models/layers.py`` asks ``x not in
@@ -114,20 +115,25 @@ def task_init_params(spec, arrays):
 
 
 def _perturbed_init(init, perturb):
-    """LenetFLModel.init with one initial weight moved by ``ulps`` float32
-    ulps: ``perturb = {"leaf": "fc2/w", "index": [i, j], "ulps": n}``."""
+    """A model's ``init`` with one initial weight moved by ``ulps`` float32
+    ulps: ``perturb = {"leaf": "fc2/w", "index": [i, j], "ulps": n}``, the
+    leaf named by its '/'-joined dict keys at any depth
+    (``layers/attn/wq``)."""
     import jax.numpy as jnp
     import numpy as np
 
     def perturbed(self, key):
         params = init(self, key)
-        layer, leaf = perturb["leaf"].split("/")
-        w = np.array(params[layer][leaf])
+        *parents, leaf = perturb["leaf"].split("/")
+        node = params
+        for name in parents:
+            node = node[name]
+        w = np.array(node[leaf])
         idx = tuple(perturb["index"])
         for _ in range(abs(int(perturb["ulps"]))):
             w[idx] = np.nextafter(w[idx], np.float32(
                 np.inf if perturb["ulps"] > 0 else -np.inf))
-        params[layer][leaf] = jnp.asarray(w)
+        node[leaf] = jnp.asarray(w)
         return params
 
     return perturbed
@@ -432,6 +438,243 @@ def task_draws(spec, arrays):
     return out
 
 
+def _tree_to_arrays(tree, prefix):
+    """Any nested dict of arrays -> flat numpy dict, keys ``prefix`` plus
+    the '/'-joined dict keys (``layers/attn/wq``)."""
+    import numpy as np
+
+    from repro.utils.tree import tree_flatten_with_paths
+
+    return {prefix + path: np.asarray(leaf)
+            for path, leaf in tree_flatten_with_paths(tree)}
+
+
+def task_token_parts(spec, arrays):
+    """The token payload's parts in one process.
+
+    ``spec["models"]``: for each FL model name, its initial parameters
+    (``<name>/init/<path>``) from ``PRNGKey(spec["seed"])``, and on each
+    batch ``<i>/<name>/bx``, ``<i>/<name>/by`` (i < ``spec["batches"]``)
+    the logits, ``batch_loss``, its gradient (``<i>/<name>/grad/<path>``)
+    and ``accuracy``, all under ``<i>/<name>/``.
+    ``spec["schemas"]``: each arch id's full-width FL schema, shapes only
+    (``<id>/shape/<path>``).  ``spec["attention"]``: ``chunked_attention``
+    on ``q/<key>``, ``k/<key>``, ``v/<key>`` with each case's mask spec,
+    ``kv_chunk`` and ``q_offset``.  ``spec["datasets"]``: the arrays of
+    ``make_token_dataset`` for each keyword set."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from repro.data.tokens import make_token_dataset
+    from repro.models import layers as L
+    from repro.models.fl_models import get_fl_model
+    from repro.models.params import abstract_params
+    from repro.utils.tree import tree_flatten_with_paths
+
+    out = {}
+    for name in spec.get("models", []):
+        model = get_fl_model(name)
+        params = model.init(jax.random.PRNGKey(int(spec["seed"])))
+        out.update(_tree_to_arrays(params, f"{name}/init/"))
+        for i in range(int(spec.get("batches", 1))):
+            pre = f"{i}/{name}"
+            bx = jnp.asarray(arrays[f"{pre}/bx"])
+            by = jnp.asarray(arrays[f"{pre}/by"])
+            valid = (by >= 0).astype(jnp.float32)
+            logits, _ = model._module().forward(params, bx, model.cfg)
+            loss, grads = jax.value_and_grad(model.batch_loss)(
+                params, bx, by, valid)
+            out[f"{pre}/logits"] = np.asarray(logits)
+            out[f"{pre}/loss"] = np.asarray(loss)
+            out[f"{pre}/acc"] = np.asarray(model.accuracy(params, bx, by))
+            out.update(_tree_to_arrays(grads, f"{pre}/grad/"))
+    for name in spec.get("schemas", []):
+        shapes = abstract_params(get_fl_model(name).schema())
+        for path, leaf in tree_flatten_with_paths(shapes):
+            out[f"{name}/shape/{path}"] = np.asarray(leaf.shape, np.int64)
+    for case in spec.get("attention", []):
+        key = case["key"]
+        got = L.chunked_attention(
+            jnp.asarray(arrays[f"q/{key}"]), jnp.asarray(arrays[f"k/{key}"]),
+            jnp.asarray(arrays[f"v/{key}"]),
+            mask_spec=L.AttnMaskSpec(causal=case.get("causal", True),
+                                     window=case.get("window"),
+                                     block_local=case.get("block_local")),
+            q_offset=int(case.get("q_offset", 0)),
+            kv_chunk=int(case.get("kv_chunk", 1024)),
+        )
+        out[f"attn/{key}"] = np.asarray(got.astype(jnp.float32))
+    for i, kw in enumerate(spec.get("datasets", [])):
+        ds = make_token_dataset(**kw)
+        for field in ("x_train", "y_train", "x_test", "y_test",
+                      "class_train", "class_test"):
+            out[f"ds/{i}/{field}"] = np.asarray(getattr(ds, field))
+    return out
+
+
+def task_token_runs(spec, arrays):
+    """Reference FL runs on token shards, each run of ``spec["runs"]`` in
+    this one process: the world is ``make_token_dataset`` with the run's
+    ``data`` keywords, ``num_devices`` devices and Dirichlet shards by the
+    pseudo-class, and the run ``run_federated_learning`` with the run's
+    FLConfig fields ``cfg``; a run's ``perturb`` (optional, see
+    :func:`_perturbed_init`) moves one of its initial weights by a few
+    ulps.  A run's logs, final parameters and the norms its online policy
+    was fed (``<key>/norms/<t>``, empty where it reads none) come back
+    prefixed ``<key>/``, its initial parameters (the unperturbed draw)
+    ``<key>/init/``."""
+    import contextlib
+
+    import jax
+    import numpy as np
+
+    from repro.config import FLConfig
+    from repro.core import channel, fl, scheduling
+    from repro.data import dirichlet_partition
+    from repro.data.tokens import make_token_dataset
+    from repro.models.fl_models import TokenFLModel, get_fl_model
+
+    record = scheduling.Observation.record_round
+    init = TokenFLModel.init
+    fed = []
+
+    def keep(self, t, group, rates_k, update_norms_k=None):
+        fed.append(np.zeros(0) if update_norms_k is None
+                   else np.asarray(update_norms_k, np.float64))
+        return record(self, t, group, rates_k, update_norms_k)
+
+    out = {}
+    scheduling.Observation.record_round = keep
+    try:
+        for run in spec["runs"]:
+            m = int(run["num_devices"])
+            ds = make_token_dataset(**run["data"])
+            cell = channel.CellConfig(num_devices=m)
+            shards = dirichlet_partition(ds.class_train, m, seed=0)
+            cfg = FLConfig(**run["cfg"])
+            key = run["key"]
+            fed.clear()
+            if run.get("perturb"):
+                TokenFLModel.init = _perturbed_init(init, run["perturb"])
+            try:
+                with (jax.disable_jit() if run.get("eager")
+                      else contextlib.nullcontext()):
+                    res = fl.run_federated_learning(ds, shards, cell, cfg)
+            finally:
+                TokenFLModel.init = init
+            out.update(_token_run_arrays(res, f"{key}/"))
+            for t, norms in enumerate(fed):
+                out[f"{key}/norms/{t}"] = norms
+            out.update(_tree_to_arrays(
+                get_fl_model(cfg.model).init(jax.random.PRNGKey(cfg.seed)),
+                f"{key}/init/"))
+    finally:
+        scheduling.Observation.record_round = record
+    return out
+
+
+def _token_run_arrays(res, prefix):
+    """One FLResult's logs and final parameters (any tree), ``prefix``-
+    named."""
+    import numpy as np
+
+    out = _tree_to_arrays(res.final_params, prefix + "final/")
+    out[prefix + "acc"] = res.accuracies()
+    out[prefix + "times"] = res.times()
+    for log in res.logs:
+        t = log.round
+        out[f"{prefix}devices/{t}"] = np.asarray(log.devices, np.int64)
+        out[f"{prefix}bits/{t}"] = np.asarray(log.bits)
+        out[f"{prefix}rates/{t}"] = np.asarray(log.rates)
+        out[f"{prefix}ratios/{t}"] = np.asarray(log.compression_ratios)
+    return out
+
+
+def sample_indices(n: int):
+    """The flat indices of the elements recorded per leaf of n elements:
+    both ends and six points between them (repeats removed)."""
+    pts = [0, 1, n // 7, n // 3, n // 2, (2 * n) // 3, n - 2, n - 1]
+    return sorted({min(max(i, 0), n - 1) for i in pts})
+
+
+def task_qwen2_reference(spec, arrays):
+    """Qwen2-0.5B at full width (``get_fl_model("qwen2_0_5b")``, shards=1)
+    from ``PRNGKey(seed)``: each leaf's float64 sum and sum of squares and
+    its elements at :func:`sample_indices`, and ``batch_loss`` of the
+    fixed token batch ``bx``, ``by``."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from repro.models.fl_models import get_fl_model
+    from repro.utils.tree import tree_flatten_with_paths
+
+    model = get_fl_model("qwen2_0_5b")
+    params = model.init(jax.random.PRNGKey(int(spec["seed"])))
+    out = {}
+    for path, leaf in tree_flatten_with_paths(params):
+        x = np.asarray(leaf).reshape(-1).astype(np.float64)
+        idx = sample_indices(x.size)
+        out[f"{path}/shape"] = np.asarray(leaf.shape, np.int64)
+        out[f"{path}/sum"] = np.asarray(x.sum())
+        out[f"{path}/sumsq"] = np.asarray(np.square(x).sum())
+        out[f"{path}/index"] = np.asarray(idx, np.int64)
+        out[f"{path}/values"] = np.asarray(leaf).reshape(-1)[idx]
+    bx, by = jnp.asarray(arrays["bx"]), jnp.asarray(arrays["by"])
+    out["loss"] = np.asarray(model.batch_loss(
+        params, bx, by, (by >= 0).astype(jnp.float32)))
+    return out
+
+
+def write_qwen2_reference(path: str) -> None:
+    """Run :func:`task_qwen2_reference` at seed 0 on the first two rows of
+    ``make_token_dataset(vocab_size=151936, num_samples=600, seq_len=16,
+    seed=0)`` and write the record as JSON to ``path``."""
+    import numpy as np
+
+    from repro.data.tokens import make_token_dataset
+
+    ds = make_token_dataset(vocab_size=151_936, num_samples=600, seq_len=16,
+                            seed=0)
+    arrays = {"bx": ds.x_train[:2], "by": ds.y_train[:2]}
+    out = task_qwen2_reference({"seed": 0}, arrays)
+    leaves = {}
+    for key in out:
+        if key.endswith("/shape"):
+            leaf = key[:-len("/shape")]
+            leaves[leaf] = {
+                "shape": [int(d) for d in out[key]],
+                "sum": float(out[f"{leaf}/sum"]),
+                "sumsq": float(out[f"{leaf}/sumsq"]),
+                "index": [int(i) for i in out[f"{leaf}/index"]],
+                "values": [float(v) for v in out[f"{leaf}/values"]],
+            }
+    record = {
+        "_command": ("PYTHONPATH=src JAX_PLATFORMS=cpu python "
+                     "tests/_torch_reference_worker.py "
+                     "--write-qwen2-reference "
+                     "tests/torch_reference/qwen2_0_5b.json"),
+        "_what": ("repro.models.fl_models.get_fl_model('qwen2_0_5b') at "
+                  "full width (shards=1), init(PRNGKey(0)): per leaf the "
+                  "float64 sum and sum of squares and the float32 elements "
+                  "at the flat indices 'index'; 'loss' is batch_loss of "
+                  "'tokens' / 'labels', the first two rows of "
+                  "make_token_dataset(vocab_size=151936, num_samples=600, "
+                  "seq_len=16, seed=0)"),
+        "model": "qwen2_0_5b",
+        "seed": 0,
+        "param_count": int(sum(np.prod(v["shape"]) for v in leaves.values())),
+        "tokens": np.asarray(arrays["bx"]).tolist(),
+        "labels": np.asarray(arrays["by"]).tolist(),
+        "loss": float(out["loss"]),
+        "leaves": leaves,
+    }
+    with open(path, "w", encoding="utf-8") as fh:
+        json.dump(record, fh, indent=1, sort_keys=True)
+        fh.write("\n")
+
+
 TASKS = {
     "lenet_grad": task_lenet_grad,
     "sgd_epoch": task_sgd_epoch,
@@ -443,12 +686,19 @@ TASKS = {
     "legacy_parts": task_legacy_parts,
     "horizon_runs": task_horizon_runs,
     "online_runs": task_online_runs,
+    "token_parts": task_token_parts,
+    "token_runs": task_token_runs,
+    "qwen2_reference": task_qwen2_reference,
 }
 
 
 def main(argv) -> int:
     import numpy as np
 
+    if argv[1] == "--write-qwen2-reference":
+        apply_shim()
+        write_qwen2_reference(argv[2])
+        return 0
     task, spec_path, in_path, out_path = argv[1:5]
     apply_shim()
     with open(spec_path, encoding="utf-8") as fh:

@@ -35,7 +35,10 @@ reduces every leaf in that one launch gives the same update and bits on
 the card as on the CPU.  A scanned horizon syncs nothing between its one
 upload and its one download (``torch.cuda.set_sync_debug_mode("error")``)
 and equals the per-round run on the card to the bit; a seed sweep groups
-its (seed, leaf) sums, 16 to a launch.
+its (seed, leaf) sums, 16 to a launch.  At the token path's widest
+shapes, the grouped aggregation kernel on the 14 Qwen2-0.5B leaves (K=3,
+int32 codes) and the keyed OTA kernel on its embedding leaf equal their
+plain versions to the bit.
 """
 import math
 
@@ -1108,3 +1111,58 @@ def test_matching_pursuit_loop_on_the_card_equals_the_cpu(cuda, ota_noise):
     if ota_noise == 1e-7:       # runs stop after 1 to K-1 admissions
         admitted = want_mask.sum(dim=1)
         assert bool(((admitted > 0) & (admitted < 4)).any())
+
+
+def _qwen2_leaf_sizes():
+    """The element counts of Qwen2-0.5B's 14 full-width FL leaves (shapes
+    only, no allocation)."""
+    from repro_torch.models.fl_models import get_fl_model
+    from repro_torch.models.params import abstract_params
+    from repro_torch.utils.tree import tree_flatten_with_paths
+
+    shapes = abstract_params(get_fl_model("qwen2_0_5b").schema())
+    return [leaf.size for _, leaf in tree_flatten_with_paths(shapes)]
+
+
+def test_grouped_aggregate_kernel_at_the_qwen2_leaves(cuda):
+    """Kernel #1 at the token path's widest round: the 14 Qwen2-0.5B
+    leaves (494,147,456 elements, the embedding 136,249,344) as int32
+    codes at K=3 in one grouped launch, bit-equal to the plain version
+    leaf by leaf."""
+    sizes = _qwen2_leaf_sizes()
+    assert len(sizes) == 14 and sum(sizes) == 494_147_456
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    codes, coeffs = [], []
+    for n in sizes:
+        codes.append(torch.randint(-15, 16, (3, n), dtype=torch.int32,
+                                   device=cuda, generator=gen))
+        levels = torch.full((3,), 15.0, device=cuda)
+        scales = torch.rand(3, device=cuda, generator=gen) + 0.5
+        w = torch.rand(3, device=cuda, generator=gen)
+        coeffs.append(aggregate.coefficients(scales, w / w.sum(), levels))
+    before = aggregate.weighted_aggregate.launches
+    got = aggregate.weighted_aggregate_group(codes, coeffs)
+    torch.cuda.synchronize()
+    assert aggregate.weighted_aggregate.launches == before + 1
+    for out, c, cf in zip(got, codes, coeffs):
+        want = aggregate.weighted_aggregate_plain(c, cf)
+        assert out.shape == want.shape
+        assert torch.equal(out, want)
+        del want
+
+
+def test_keyed_ota_kernel_at_the_qwen2_embedding(cuda):
+    """Kernel #2's keyed entry on the Qwen2-0.5B embedding leaf (K=3,
+    136,249,344 elements, the path's 16-byte row layout): bit-equal to its
+    plain version, whose normals the Threefry kernel draws."""
+    n = 152_064 * 896
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    x = ota_aggregate.row_buffer(3, n, device=cuda)
+    x.copy_(torch.randn(3, n, device=cuda, generator=gen) * 0.01)
+    coeff = torch.tensor([0.5, 0.0, 0.5], device=cuda)
+    key = ota.horizon_keys(0, 2)[1]
+    scale = torch.tensor(3e-3, dtype=torch.float32, device=cuda)
+    got = ota_aggregate.ota_aggregate_keyed(x, coeff, key, scale)
+    want = ota_aggregate.ota_aggregate_keyed_plain(x, coeff, key, scale)
+    torch.cuda.synchronize()
+    assert got.shape == (n,) and torch.equal(got, want)

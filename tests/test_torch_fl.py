@@ -382,22 +382,31 @@ def test_entry_points_default_to_cuda(monkeypatch):
 
 
 def test_parameter_entry_points_default_to_cuda(monkeypatch):
-    """params_from_jax, LenetFLModel.init and init_lenet put their tensors
-    on cuda unless given device='cpu', and raise without CUDA."""
+    """params_from_jax, LenetFLModel.init, init_lenet, TokenFLModel.init and
+    the decode caches (Model.init_cache, transformer.init_cache) put their
+    tensors on cuda unless given device='cpu', and raise without CUDA."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.core.tree import tree_flatten
+    from repro_torch.models import transformer
+    from repro_torch.models.fl_models import get_fl_model
     from repro_torch.models.params import init_lenet
+    from repro_torch.models.registry import build_model
 
+    smoke = get_smoke("qwen2_0_5b")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for make in (
         lambda **kw: convert.params_from_jax(tree(_numpy_params(0), "p/"),
                                              **kw),
         lambda **kw: LenetFLModel().init(0, **kw),
         lambda **kw: init_lenet(0, **kw),
+        lambda **kw: get_fl_model("tiny-transformer").init(0, **kw),
+        lambda **kw: build_model(smoke).init_cache(2, 8, **kw),
+        lambda **kw: transformer.init_cache(smoke, 2, 8, shards=1, **kw),
     ):
         with pytest.raises(RuntimeError, match="pass device='cpu'"):
             make()
-        params = make(device="cpu")
-        assert all(leaf.device.type == "cpu"
-                   for layer in params.values() for leaf in layer.values())
+        leaves, _ = tree_flatten(make(device="cpu"))
+        assert leaves and all(leaf.device.type == "cpu" for leaf in leaves)
 
 
 # The case ids are the ones these cases had before the scheduler_backend=
@@ -405,12 +414,13 @@ def test_parameter_entry_points_default_to_cuda(monkeypatch):
 # case (item 6), the topk and client_bank="bucketed" cases (item 7), the
 # default legacy engine and scheduler="random" cases (item 1), the
 # horizon="scan" case (item 4) and the scheduler="update-aware" case (item
-# 5) left the list as they were ported; the tiny-transformer case keeps its
-# id and now expects item 8, which brings the LLM models.
+# 5) left the list as they were ported; the two model cases keep their ids
+# and, since the dense transformers came with item 8's first part, name
+# model families that still wait for item 8 (moe and hybrid).
 @pytest.mark.parametrize("kwargs,item", [
-    pytest.param(dict(fl_engine="batched", model="tiny-transformer"), 8,
+    pytest.param(dict(fl_engine="batched", model="mixtral_8x22b"), 8,
                  id="kwargs9-7"),
-    pytest.param(dict(fl_engine="batched", model="qwen2_0_5b"), 8,
+    pytest.param(dict(fl_engine="batched", model="zamba2_7b"), 8,
                  id="kwargs10-8"),
 ])
 def test_config_names_the_roadmap_item_for_unported_settings(kwargs, item):
@@ -419,17 +429,32 @@ def test_config_names_the_roadmap_item_for_unported_settings(kwargs, item):
         FLConfig(**kwargs)
 
 
-@pytest.mark.parametrize("name", ["tiny-transformer", "tiny-transformer-1m",
-                                  "qwen2_0_5b"])
-def test_get_fl_model_names_item_8_for_every_unported_model(name):
-    """The reference's tiny transformers and its architecture ids all come
-    with item 8 (the LLM substrate and the token payloads), called
-    directly as through ``FLConfig``."""
+# The ids are the names these cases had while every non-LeNet model waited
+# for item 8; the dense ones run now (tests/test_torch_models.py), so the
+# cases name families still waiting (moe, ssm, hybrid), and the enc-dec id
+# raises the reference's ValueError as it does there.
+@pytest.mark.parametrize("name,exc,match", [
+    pytest.param("mixtral_8x22b", NotImplementedError,
+                 "ROADMAP.md queue 1 item 8 brings it", id="tiny-transformer"),
+    pytest.param("mamba2_130m", NotImplementedError,
+                 "ROADMAP.md queue 1 item 8 brings it",
+                 id="tiny-transformer-1m"),
+    pytest.param("zamba2_7b", NotImplementedError,
+                 "ROADMAP.md queue 1 item 8 brings it", id="qwen2_0_5b"),
+    pytest.param("seamless_m4t_medium", ValueError,
+                 "vlm/encdec forwards need modality features",
+                 id="seamless_m4t_medium"),
+])
+def test_get_fl_model_names_item_8_for_every_unported_model(name, exc, match):
+    """Model families that are not ported name item 8, called directly as
+    through ``FLConfig``; vlm and encdec raise the reference's
+    ``ValueError`` (the client bank carries no modality features)."""
     from repro_torch.models.fl_models import get_fl_model
 
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md queue 1 item 8 brings it"):
+    with pytest.raises(exc, match=match):
         get_fl_model(name)
+    with pytest.raises(exc, match=match):
+        FLConfig(model=name)
 
 
 @pytest.mark.parametrize("engine", ["legacy", "batched"])

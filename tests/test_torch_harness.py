@@ -176,3 +176,43 @@ def test_reference_runner_returns_reference_init(tmp_path):
         assert w.shape == (fan_in, fan_out) and w.dtype == np.float32
         assert np.all(b == 0.0) and b.shape == (fan_out,)
         assert np.abs(w).max() <= 3.0 / np.sqrt(fan_in) * (1 + 1e-6)
+
+
+# --------------------------------------------------------------------------
+# token payloads (tests/test_torch_tokens*.py)
+# --------------------------------------------------------------------------
+
+# the reference's token world (tests/test_fl_engine.py:token_world)
+TOKEN_DATA = dict(vocab_size=64, num_samples=400, seq_len=8, seed=0)
+TOKEN_M = 12
+
+
+def token_world(m=TOKEN_M, **data):
+    """(dataset, cell, shards) of the port on the reference's token world:
+    Dirichlet shards by the rows' pseudo-class."""
+    from repro_torch.core import channel
+    from repro_torch.data import dirichlet_partition, make_token_dataset
+
+    ds = make_token_dataset(**(data or TOKEN_DATA))
+    return (ds, channel.CellConfig(num_devices=m),
+            dirichlet_partition(ds.class_train, m, seed=0))
+
+
+def tree_arrays(params, prefix=""):
+    """Any nested port parameter tree -> flat numpy dict keyed ``prefix``
+    + '/'-joined path, as the worker's ``_tree_to_arrays`` names them."""
+    from repro_torch.utils.tree import tree_flatten_with_paths
+
+    return {prefix + path: leaf.detach().cpu().numpy()
+            for path, leaf in tree_flatten_with_paths(params)}
+
+
+def param_drift(got, want, prefix):
+    """Per leaf (mean, max) |got - want| of the port's final parameters
+    against the reference arrays under ``prefix``."""
+    out = {}
+    for path, leaf in tree_arrays(got).items():
+        d = np.abs(np.asarray(leaf, np.float64)
+                   - np.asarray(want[prefix + path], np.float64))
+        out[path] = (d.mean(), d.max())
+    return out
