@@ -161,7 +161,25 @@ package, and exits non-zero on the first failure.  Phases:
      the card (``[cpu-vs-card:tokens]``: logs exact, the drift inside the
      contract or in F3's shape); and the card's full-width initial weights
      and one batch's loss against tests/torch_reference/qwen2_0_5b.json,
-     written by the JAX package (``[ref:qwen2-0.5b]``).
+     written by the JAX package (``[ref:qwen2-0.5b]``);
+ 16. the moe, ssm and hybrid families: Mamba2-130M at full width as the FL
+     payload on the card, M=30, K=3, T=3, 600 rows of 16 tokens
+     (``[main:tokens-ssm]``: NOMA, MAPEL, adaptive DoReFa, one #1 launch
+     per non-empty round, one round more traced by torch.profiler:
+     ``[trace:tokens-ssm]``; ``[main:tokens-ssm-ota]``: one keyed #2
+     launch per non-empty round; the Threefry kernel once per drawn
+     leaf); the
+     SMOKE Mamba2 and Zamba2 at M=12 on the CPU and on the card, and the
+     SMOKE Mixtral payload raising the reference's ValueError
+     (``[cpu-vs-card:families]``); the card's full-width Mamba2 weights
+     and one batch's loss against tests/torch_reference/mamba2_130m.json
+     (``[ref:mamba2-130m]``); ``launch.serve`` at the published widths
+     on Mamba2-130M, Zamba2-7B cut to 6 layers and Mixtral-8x22B cut to 2
+     (``[serve:*]``: initial weights held to the reference's recorded
+     elements, tokens to the plain per-token forward); ``launch.train`` at
+     full width on Qwen2-0.5B (also with error feedback) and Mamba2-130M
+     (each step's loss held to the reference's record), a save / resume
+     round trip, and the SMOKE Mixtral (``[train:*]``).
 
 The last lines are the card's name and power limit as nvidia-smi reports
 them, one JSON object with every kernel's numbers, and the one-line result
@@ -2656,15 +2674,7 @@ def run_token_main_path(kernels, mode, m=TOKEN_M, t=TOKEN_T):
     # [main:tokens] runs one round more and traces it: the rounds before
     # are timed untraced
     body = fl_engine._train_quantize_aggregate
-    traced = []
-
-    def trace_last(*args, **kwargs):
-        if len(traced) < t:
-            traced.append(None)
-            return body(*args, **kwargs)
-        out, *trace = _profile_round(lambda: body(*args, **kwargs))
-        traced.append(trace)
-        return out
+    trace_last, traced = _tracing_last_round(t)
 
     torch.cuda.reset_peak_memory_stats()
     reset_launches(kernels)
@@ -2706,16 +2716,40 @@ def run_token_main_path(kernels, mode, m=TOKEN_M, t=TOKEN_T):
         f"{peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated); "
         f"launches {launches}")
     if mode == "tokens":
-        check(len(traced) == t + 1 and traced[-1] is not None,
-              f"[main:tokens] traced {len(traced)} rounds")
-        n_launch, busy, wall, sgd, top = traced[-1]
-        log(f"[trace:tokens] round {t} (traced by torch.profiler, which "
-            f"slows the host): {n_launch} kernels, device busy {busy:.1f} ms "
-            f"of {wall:.1f} ms wall (idle share {1 - busy / wall:.3f}); "
-            f"local SGD {sgd:.1f} ms of it; the aten ops with the most "
-            f"device time: " + "; ".join(f"{name} {ms:.2f} ms ({n} calls)"
-                                         for name, ms, n in top))
+        _log_traced_round("tokens", t, traced)
     return res
+
+
+def _tracing_last_round(t):
+    """(a stand-in for ``fl_engine._train_quantize_aggregate`` that runs
+    rounds 0..t-1 as they are and round t under torch.profiler, the list
+    its traces land in)."""
+    from repro_torch.core import fl_engine
+
+    body = fl_engine._train_quantize_aggregate
+    traced = []
+
+    def trace_last(*args, **kwargs):
+        if len(traced) < t:
+            traced.append(None)
+            return body(*args, **kwargs)
+        out, *trace = _profile_round(lambda: body(*args, **kwargs))
+        traced.append(trace)
+        return out
+
+    return trace_last, traced
+
+
+def _log_traced_round(label, t, traced):
+    check(len(traced) == t + 1 and traced[-1] is not None,
+          f"[trace:{label}] traced {len(traced)} rounds")
+    n_launch, busy, wall, sgd, top = traced[-1]
+    log(f"[trace:{label}] round {t} (traced by torch.profiler, which slows "
+        f"the host): {n_launch} kernels, device busy {busy:.1f} ms of "
+        f"{wall:.1f} ms wall (idle share {1 - busy / wall:.3f}); local SGD "
+        f"{sgd:.1f} ms of it; the aten ops with the most device time: "
+        + "; ".join(f"{name} {ms:.2f} ms ({n} calls)"
+                    for name, ms, n in top) + f" ({CARD})")
 
 
 def run_token_scan(kernels, m=TOKEN_M, t=5):
@@ -2848,6 +2882,413 @@ def run_token_phases(kernels):
     return errs
 
 
+# --------------------------------------------------------------------------
+# the moe, ssm and hybrid families: FL payload, server and trainer
+# --------------------------------------------------------------------------
+
+MAMBA2 = "mamba2_130m"
+MAMBA2_PARAMS = 129_100_224     # the FL schema's leaves (padded vocab)
+MAMBA2_DATA = dict(vocab_size=50_280, num_samples=600, seq_len=16, seed=0)
+FAMILY_SMOKE_DATA = dict(vocab_size=512, num_samples=400, seq_len=8, seed=0)
+# tests/test_torch_families_fl.py:FAMILY_LIMITS; the SMOKE zamba2's drift
+# is not held (F4, ROADMAP.md queue 3)
+MAMBA2_MEAN_ATOL, MAMBA2_MAX_ATOL = 2e-4, 4e-2
+FAMILY_LOSS_RTOL = 5e-4     # tests/test_torch_families.py's loss bound
+SERVE_RUNS = (("mamba2-130m", None), ("zamba2-7b", 6), ("mixtral-8x22b", 2))
+SERVE_TIE_ULPS = 4          # tests/test_torch_launch.py's near-tie bound
+CARD = ""                   # the card's name and power limit (nvidia-smi)
+
+
+def _record(arch):
+    with open(os.path.join(REPO, "tests", "torch_reference", f"{arch}.json"),
+              encoding="utf-8") as fh:
+        return json.load(fh)
+
+
+def _weight_draws(schema):
+    """The leaves of a schema that draw from the Threefry kernel (all but
+    the zero and one initializers)."""
+    from repro_torch.utils.tree import tree_flatten_with_paths
+
+    return sum(1 for _, spec in tree_flatten_with_paths(schema)
+               if spec.init not in ("zeros", "ones"))
+
+
+def _check_record_elements(params, record, label):
+    """The card's initial weights at the record's flat indices equal the
+    reference's elements exactly; where the record has sums, each leaf's
+    float64 sum and sum of squares within float64 summation error.
+    Returns the worst relative sum error (0 for a sampled record)."""
+    from repro_torch.utils.tree import tree_flatten_with_paths
+
+    worst = 0.0
+    leaves = dict(tree_flatten_with_paths(params))
+    check(leaves.keys() == record["leaves"].keys(),
+          f"{label} leaves {sorted(leaves.keys() ^ record['leaves'].keys())}")
+    for path, want in record["leaves"].items():
+        leaf = leaves[path]
+        check(list(leaf.shape) == want["shape"], f"{label} {path} shape")
+        flat = leaf.reshape(-1)
+        idx = torch.tensor(want["index"], dtype=torch.int64).to(leaf.device)
+        got = flat[idx].cpu().numpy()
+        check(np.array_equal(got, np.asarray(want["values"], np.float32)),
+              f"{label} {path} elements {got} != {want['values']}")
+        if "sum" not in want:
+            continue
+        x = flat.double()
+        bound = x.numel() * 2.0 ** -53
+        for name, val, mag in (("sum", x.sum(), x.abs().sum()),
+                               ("sumsq", (x * x).sum(), (x * x).sum())):
+            err = abs(val.item() - want[name])
+            check(err <= bound * mag.item(),
+                  f"{label} {path} {name} {val.item()!r} != {want[name]!r}")
+            worst = max(worst, err / max(mag.item(), 1e-300))
+    return worst
+
+
+def check_mamba2_reference():
+    """``[ref:mamba2-130m]``: the card's full-width initial parameters and
+    one fixed batch's loss against tests/torch_reference/mamba2_130m.json
+    (written by the JAX package; its command is in the file)."""
+    from repro_torch.core import tree as tree_lib
+    from repro_torch.models.fl_models import get_fl_model
+
+    record = _record(MAMBA2)
+    model = get_fl_model(record["model"])
+    params = model.init(record["seed"], device="cuda")
+    worst = _check_record_elements(params, record, "[ref:mamba2-130m]")
+    tokens = torch.tensor(record["tokens"], dtype=torch.int32).to("cuda")
+    labels = torch.tensor(record["labels"], dtype=torch.int32).to("cuda")
+    with torch.no_grad():
+        stacked = tree_lib.tree_map(lambda w: w.unsqueeze(0), params)
+        loss = float(model.batch_loss(stacked, tokens[None], labels[None],
+                                      None)[0])
+    rel = abs(loss - record["loss"]) / abs(record["loss"])
+    check(rel <= FAMILY_LOSS_RTOL,
+          f"[ref:mamba2-130m] loss {loss!r} against {record['loss']!r}")
+    log(f"[ref:mamba2-130m] {len(record['leaves'])} leaves "
+        f"({record['param_count']} parameters) drawn on the card: the "
+        f"recorded elements equal the reference's, sums within float64 "
+        f"summation error (worst {worst:.3g} of sum |x|); the loss of the "
+        f"fixed 2 x 16 batch {loss!r} against the reference's "
+        f"{record['loss']!r}: relative {rel:.3g} (bound {FAMILY_LOSS_RTOL})")
+    del params, stacked
+    torch.cuda.empty_cache()
+
+
+def run_family_main_path(kernels, mode, m=TOKEN_M, t=TOKEN_T):
+    """``[main:tokens-ssm]`` / ``[main:tokens-ssm-ota]``: Mamba2-130M at
+    full width (129,100,224 parameters in the FL schema, random weights
+    from seed 0) as the FL payload through ``run_federated_learning`` on
+    the card, the batched engine with the kernels, M=30 devices, K=3, T=3,
+    on ``make_token_dataset(vocab_size=50280, num_samples=600,
+    seq_len=16)``; NOMA + MAPEL + adaptive DoReFa (one grouped #1 launch
+    per non-empty round) or OTA with ota-align powers and noise 1e-9 (one
+    keyed #2 launch per non-empty round).  The initial draw is timed alone
+    first; the per-round host time and the peak device memory are
+    printed; ``[main:tokens-ssm]`` runs one round more, traced by
+    torch.profiler (``[trace:tokens-ssm]``)."""
+    from repro_torch.core import channel, fl, fl_engine
+    from repro_torch.models.fl_models import get_fl_model
+    from repro_torch.utils.tree import tree_count, tree_flatten_with_paths
+
+    ds, cell, shards = _token_world(m, MAMBA2_DATA)
+    uplink = "ota" if mode.endswith("-ota") else "noma"
+    traced_mode = mode == "tokens-ssm"
+    cfg = _config(m, t + traced_mode, "numpy", uplink, model=MAMBA2)
+    model = get_fl_model(MAMBA2)
+    draws = _weight_draws(model.schema())
+    params, t_init = _timed(lambda: model.init(cfg.seed, device="cuda"))
+    check(tree_count(params) == MAMBA2_PARAMS,
+          f"Mamba2-130M has {tree_count(params)} parameters")
+    n_leaves = len(tree_flatten_with_paths(params))
+    del params
+    torch.cuda.empty_cache()
+    bundle = channel.sample_channels(cfg.seed, cell, cfg.num_rounds)
+    sizes = np.array([len(s) for s in shards], dtype=np.float64)
+    schedule, t_sched = _timed(lambda: fl.make_schedule(
+        bundle.gains, sizes / sizes.sum(), cell, cfg))
+    log(f"[main:{mode}] {MAMBA2} at full width ({MAMBA2_PARAMS} parameters, "
+        f"{n_leaves} leaves, {draws} drawn) M={m} K={cfg.group_size} "
+        f"T={cfg.num_rounds}, {MAMBA2_DATA['num_samples']} rows of "
+        f"{MAMBA2_DATA['seq_len']} tokens (vocab {MAMBA2_DATA['vocab_size']})"
+        f", uplink {uplink}, {cfg.power_mode}, {cfg.compression}: initial "
+        f"draw on the card {t_init:.3f} s, schedule {t_sched:.3f} s ({CARD})")
+    stamps = []
+
+    def progress(lg):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        log(f"[main:{mode}] round {lg.round}: devices {list(lg.devices)} "
+            f"bits {lg.bits.tolist()} acc {lg.test_accuracy:.4f} host "
+            f"{stamps[-1] - stamps[-2]:.3f} s")
+
+    # [main:tokens-ssm] runs one round more and traces it
+    body = fl_engine._train_quantize_aggregate
+    trace_last, traced = _tracing_last_round(t)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(kernels)
+    torch.cuda.synchronize()
+    stamps.append(time.perf_counter())
+    if traced_mode:
+        fl_engine._train_quantize_aggregate = trace_last
+    try:
+        res = fl.run_federated_learning(
+            ds, shards, cell, cfg, channels=bundle, schedule=schedule,
+            progress=progress, device="cuda")
+    finally:
+        fl_engine._train_quantize_aggregate = body
+    torch.cuda.synchronize()
+    total = time.perf_counter() - stamps[0]
+    launches = read_launches(kernels)
+    peak = torch.cuda.max_memory_allocated()
+    nonempty = sum(1 for lg in res.logs if lg.devices)
+    want = {name: 0 for name in launches}
+    want["weighted_aggregate"] = nonempty if uplink == "noma" else 0
+    want["ota_aggregate"] = nonempty if uplink == "ota" else 0
+    want["threefry_draw"] = draws
+    for name, n in want.items():
+        check(launches[name] == n,
+              f"{name} launched {launches[name]} times on [main:{mode}], "
+              f"expected {n} ({nonempty} non-empty rounds)")
+    acc = res.accuracies()
+    check(bool(np.all(np.isfinite(acc))) and bool(np.all((acc >= 0)
+                                                          & (acc <= 1))),
+          f"[main:{mode}] accuracy {acc}")
+    check(tree_count(res.final_params) == MAMBA2_PARAMS,
+          "final parameters lost leaves")
+    for path, leaf in tree_flatten_with_paths(res.final_params):
+        check(leaf.device.type == "cuda" and bool(torch.isfinite(leaf).all()),
+              f"[main:{mode}] final {path} not finite on the card")
+    log(f"[main:{mode}] run {total:.3f} s after the schedule, rounds "
+        f"{[float(f'{s:.3f}') for s in np.diff(stamps)]} s; peak device "
+        f"memory {peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated); "
+        f"launches {launches} ({CARD})")
+    if traced_mode:
+        _log_traced_round("tokens-ssm", t, traced)
+    return launches
+
+
+def compare_families_cpu_and_card(kernels, m=12, t=3):
+    """``[cpu-vs-card:families]``: the SMOKE Mamba2 and Zamba2 on the
+    batched engine with the kernels, M=12, T=3, lr 0.05, batch 8, max
+    power (tests/test_torch_families_fl.py's world), on the CPU and on the
+    card: logs exact, accuracy within 0.02; Mamba2's drift inside its
+    limits, Zamba2's printed (F4: not held); #1 in ceil(leaves / 16)
+    grouped launches a non-empty round (Zamba2's 40 leaves take 3); and
+    the SMOKE Mixtral run raising the reference's ValueError at its first
+    loss on the card."""
+    from repro_torch.core import fl
+    from repro_torch.kernels import aggregate
+
+    ds, cell, shards = _token_world(m, FAMILY_SMOKE_DATA)
+    for arch in ("mamba2_130m", "zamba2_7b"):
+        cfg = _config(m, t, "numpy", model=f"{arch}:smoke",
+                      learning_rate=0.05, batch_size=8, power_mode="max")
+        cpu = fl.run_federated_learning(ds, shards, cell, cfg, device="cpu")
+        reset_launches(kernels)
+        card = fl.run_federated_learning(ds, shards, cell, cfg,
+                                         device="cuda")
+        launches = read_launches(kernels)
+        label = f"[cpu-vs-card:families] M={m} {arch}:smoke"
+        worst_mean, worst_max = _check_equal_logs(card, cpu,
+                                                  label + " CPU vs card:")
+        nonempty = sum(1 for lg in card.logs if lg.devices)
+        # one grouped launch reduces up to MAX_SEGMENTS leaves
+        per_round = -(-len(_leaves(card.final_params))
+                      // aggregate.MAX_SEGMENTS)
+        check(launches["weighted_aggregate"] == nonempty * per_round,
+              f"{label}: aggregation launches {launches}, expected "
+              f"{per_round} a non-empty round")
+        if arch == "mamba2_130m":
+            check(worst_mean < MAMBA2_MEAN_ATOL and worst_max < MAMBA2_MAX_ATOL,
+                  f"{label} drift mean {worst_mean} max {worst_max} beyond "
+                  f"its limits")
+            log(f"{label}: the drift inside its limits ({MAMBA2_MEAN_ATOL}, "
+                f"{MAMBA2_MAX_ATOL})")
+        else:
+            log(f"{label}: the drift is not held (F4: the reference against "
+                f"itself drifts as far as untrained weights)")
+    cfg = _config(m, 2, "numpy", model="mixtral_8x22b:smoke")
+    try:
+        fl.run_federated_learning(ds, shards, cell, cfg, device="cuda")
+    except ValueError as exc:
+        check("too many values to unpack" in str(exc),
+              f"[cpu-vs-card:families] mixtral raised {exc}")
+        log(f"[cpu-vs-card:families] mixtral_8x22b:smoke on the card raises "
+            f"the reference's ValueError at its first loss: {exc}")
+    else:
+        raise SmokeFailure("[cpu-vs-card:families] the moe payload trained")
+
+
+def _bf16_ulp(x):
+    x = max(float(abs(x)), float(np.finfo(np.float32).tiny))
+    return 2.0 ** (math.floor(math.log2(x)) - 7)
+
+
+def run_serve_phase(arch, num_layers, gen=16):
+    """``[serve:<arch>]``: ``launch.serve`` at the published widths (depth
+    cut to ``num_layers`` where given), batch 4, prompt 32, 16 tokens, on
+    the card.  The initial weights at the record's indices equal the
+    reference's; the greedy tokens are held against the plain per-token
+    forward on the card (each step's full forward over the sequence so
+    far, no cache): every token is that forward's best logit within 4
+    bf16 ulps (a near-tie may flip a choice, as in the CPU tests).  Prints
+    the prefill seconds and the decode tokens per second."""
+    from repro_torch.launch import serve
+
+    argv = ["--arch", arch, "--batch", "4", "--prompt-len", "32", "--gen",
+            str(gen), "--device", "cuda"]
+    if num_layers:
+        argv += ["--num-layers", str(num_layers)]
+    label = f"[serve:{arch}]"
+    torch.cuda.reset_peak_memory_stats()
+    out, wall = _timed(lambda: serve.run(argv))
+    peak = torch.cuda.max_memory_allocated()
+    model, params, tokens = out["model"], out["params"], out["tokens"]
+    cfg = model.cfg
+    record = _record(arch.replace("-", "_").replace(".", "_"))
+    check(record["num_layers"] == cfg.num_layers,
+          f"{label} record has {record['num_layers']} layers")
+    _check_record_elements(params, record, label)
+    seq = torch.cat([out["prompts"], tokens[:, :-1]], dim=1)
+    flips, worst = 0, 0.0
+    with torch.no_grad():
+        for i in range(gen):
+            logits = model.forward(params, {"tokens": seq[:, :32 + i]})[0]
+            last = logits[:, -1, : cfg.vocab_size]
+            best = last.max(-1).values
+            chosen = torch.gather(last, -1, tokens[:, i:i + 1].long())[:, 0]
+            gap = float((best - chosen).max())
+            tol = SERVE_TIE_ULPS * _bf16_ulp(float(last.abs().max()))
+            check(gap <= tol, f"{label} token {i}: {gap} below the best "
+                              f"logit (tolerance {tol})")
+            flips += int((last.argmax(-1).to(torch.int32)
+                          != tokens[:, i]).sum())
+            worst = max(worst, gap)
+    n_params = sum(leaf.numel() for leaf in _leaves(params))
+    log(f"{label} {cfg.name} at full width, {cfg.num_layers} layers "
+        f"({n_params} parameters), batch 4, prompt 32, {gen} tokens: prefill "
+        f"{out['prefill_s']:.3f} s, decode {out['decode_s']:.3f} s "
+        f"({gen * 4 / out['decode_s']:.1f} tok/s), whole run {wall:.1f} s "
+        f"(the initial draw included), peak {peak / 2**30:.2f} GiB; the "
+        f"record's initial elements equal the reference's; tokens against "
+        f"the plain per-token forward: {flips} near-tie flips, worst gap "
+        f"{worst:.3g} ({CARD})")
+    del out, model, params, tokens, seq
+    torch.cuda.empty_cache()
+
+
+def _leaves(tree):
+    from repro_torch.core import tree as tree_lib
+
+    return tree_lib.tree_flatten(tree)[0]
+
+
+def run_train_phase(label, argv):
+    """``[train:<label>]``: ``launch.train.main(argv)`` on the card: its
+    losses finite and falling (the last below the first), seconds per step
+    and the peak device memory printed.  Returns the losses."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import train
+
+    torch.cuda.reset_peak_memory_stats()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        losses, wall = _timed(lambda: train.main(argv + ["--device", "cuda"]))
+    peak = torch.cuda.max_memory_allocated()
+    check(len(losses) > 0 and all(math.isfinite(x) for x in losses),
+          f"[train:{label}] losses {losses}")
+    bits = [line for line in buf.getvalue().splitlines()
+            if line.startswith("adaptive fl bits")]
+    log(f"[train:{label}] {' '.join(argv)}: {len(losses)} steps, "
+        f"{wall / len(losses):.3f} s / step (the first step and the initial "
+        f"draw included), loss {losses[0]:.4f} -> {losses[-1]:.4f}, peak "
+        f"{peak / 2**30:.2f} GiB; {bits[0] if bits else 'fixed bits'} "
+        f"({CARD})")
+    torch.cuda.empty_cache()
+    return losses
+
+
+def run_train_phases(tmpdir):
+    """The trainer at full width, batch 8, seq 128, adaptive NOMA bits:
+    Qwen2-0.5B (the reference's default arch) 10 steps and with ``--ef
+    --fl-bits 4``, the loss falling; Mamba2-130M 20 steps (the reference's
+    default count: at 1-bit codes its loss does not fall within 10, the
+    reference's neither), each step's loss held to the reference's
+    (tests/torch_reference/train_losses.json) within the trainer's 5e-4,
+    falling; a ``--save`` / ``--resume`` round trip on Mamba2-130M (10
+    steps, a checkpoint at 5, the other 5 resumed: the same losses as the
+    uninterrupted run, to the bit); the SMOKE Mixtral (the moe family) in
+    one short run."""
+    import repro_torch.checkpoint as ck
+
+    base = ["--batch", "8", "--seq", "128"]
+    for label, argv in (
+            ("qwen2-0.5b", ["--arch", "qwen2-0.5b", "--steps", "10"] + base),
+            ("qwen2-0.5b-ef", ["--arch", "qwen2-0.5b", "--steps", "10",
+                               "--ef", "--fl-bits", "4"] + base)):
+        losses = run_train_phase(label, argv)
+        check(losses[-1] < losses[0],
+              f"[train:{label}] the loss did not fall: {losses}")
+    with open(os.path.join(REPO, "tests", "torch_reference",
+                           "train_losses.json"), encoding="utf-8") as fh:
+        want = json.load(fh)["runs"]["mamba2-130m"]
+    losses = run_train_phase("mamba2-130m", want["argv"])
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, want["losses"]))
+    check(len(losses) == len(want["losses"]) and rel <= FAMILY_LOSS_RTOL,
+          f"[train:mamba2-130m] losses {losses} against the reference's "
+          f"{want['losses']}")
+    check(losses[-1] < losses[0],
+          f"[train:mamba2-130m] the loss did not fall: {losses}")
+    log(f"[train:mamba2-130m] each step's loss within {rel:.3g} relative of "
+        f"the reference's (bound {FAMILY_LOSS_RTOL}); the reference's "
+        f"{want['losses'][0]:.4f} -> {want['losses'][-1]:.4f}")
+    # the step-5 checkpoint is the one the resume reads; the run's other
+    # saves (1.5 GB each through zlib on a host without zstandard, ~40 s)
+    # are skipped
+    five = os.path.join(tmpdir, "five.ckpt")
+    save = ck.save_checkpoint
+    ck.save_checkpoint = lambda path, tree: (
+        save(five, tree) if tree["step"] == 5 else None)
+    argv = ["--arch", "mamba2-130m", "--steps", "10"] + base
+    try:
+        losses = run_train_phase(
+            "mamba2-130m-save",
+            argv + ["--save", os.path.join(tmpdir, "whole.ckpt"),
+                    "--save-every", "5"])
+    finally:
+        ck.save_checkpoint = save
+    rest = run_train_phase("mamba2-130m-resume", argv + ["--resume", five])
+    check(rest == losses[5:], f"[train:mamba2-130m-resume] {rest} != "
+                              f"{losses[5:]}")
+    log("[train:mamba2-130m-resume] resumed at step 5 from the checkpoint: "
+        "the same losses as the uninterrupted run, to the bit")
+    run_train_phase("mixtral-8x22b-smoke",
+                    ["--arch", "mixtral-8x22b", "--smoke", "--steps", "4",
+                     "--batch", "4", "--seq", "32"])
+
+
+def run_family_phases(kernels):
+    """The moe, ssm and hybrid slice's phases, in order; returns the
+    launches of ``[main:tokens-ssm]``."""
+    import tempfile
+
+    launches = run_family_main_path(kernels, "tokens-ssm")
+    torch.cuda.empty_cache()
+    run_family_main_path(kernels, "tokens-ssm-ota")
+    torch.cuda.empty_cache()
+    compare_families_cpu_and_card(kernels)
+    check_mamba2_reference()
+    for arch, num_layers in SERVE_RUNS:
+        run_serve_phase(arch, num_layers)
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as tmp:
+        run_train_phases(tmp)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -2864,6 +3305,8 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     log(f"[env] torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]} card {kind}")
+    global CARD
+    CARD = smi
 
     kernels = kernels_of_main_path()
     build_kernels(kernels)
@@ -2964,6 +3407,7 @@ def main() -> int:
     agg_err, ota_err = run_token_phases(kernels)
     errs["weighted_aggregate"] = max(errs["weighted_aggregate"], agg_err)
     errs["ota_aggregate"] = max(errs["ota_aggregate"], ota_err)
+    run_family_phases(kernels)
 
     rows = []
     for kern in kernels:

@@ -12,9 +12,11 @@ and ``SMOKE`` (a reduced same-family variant for CPU tests).
 rules, so ``FLConfig()`` is the reference's default run (the legacy round
 body).  ``FLConfig.model`` resolves through
 :func:`repro_torch.models.fl_models.get_fl_model`, which raises the
-reference's ``ValueError`` for unknown names and ``NotImplementedError``
-naming the ``ROADMAP.md`` queue 1 item for model families a later slice of
-the port brings, so a run is never quietly a different simulation.
+reference's ``ValueError`` for unknown names and for the vlm / encdec
+ids, as the reference does, so a run is never quietly a different
+simulation.  ``ShapeConfig`` and ``INPUT_SHAPES`` are the reference's
+assigned input shapes, which the LLM step functions
+(:mod:`repro_torch.launch.steps`) take.
 """
 from __future__ import annotations
 
@@ -148,6 +150,24 @@ class ModelConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One of the four assigned input shapes."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+INPUT_SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+
+@dataclasses.dataclass(frozen=True)
 class FLConfig:
     """Paper §IV system settings (Table I + text)."""
 
@@ -181,10 +201,11 @@ class FLConfig:
     eval_sample: float = 1.0         # fraction of the test set evaluated per
                                      # round; 1.0 = full test set
     model: str = "lenet"             # lenet | tiny-transformer |
-                                     # tiny-transformer-1m | a dense
-                                     # repro_torch.configs arch id or
-                                     # "<id>:smoke" (ported); the other
-                                     # families raise NotImplementedError
+                                     # tiny-transformer-1m | a dense, moe,
+                                     # ssm or hybrid repro_torch.configs
+                                     # arch id or "<id>:smoke" (ported; a
+                                     # moe payload fails at its first loss
+                                     # as the reference's does)
     topk: float = 1.0                # kept fraction; 1.0 = dense, < 1 runs
                                      # top-k before DoReFa (both ported)
     client_bank: str = "padded"      # padded | bucketed (ported)
@@ -254,7 +275,7 @@ class FLConfig:
             )
         from repro_torch.models import fl_models
 
-        fl_models.get_fl_model(self.model)  # raises on unknown / unported
+        fl_models.get_fl_model(self.model)  # raises on unknown names
         if not 0.0 < self.topk <= 1.0:
             raise ValueError(f"topk must be in (0, 1], got {self.topk}")
         if (

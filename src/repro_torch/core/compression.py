@@ -1,13 +1,15 @@
 """Gradient-tree codec on the DoReFa quantizer (paper Algorithm 1 uplink).
 
-The port of ``repro.core.compression`` (its ``error_feedback_optimizer``
-comes with the optimizers, ROADMAP.md queue 1 item 8).  It measures the
+The port of ``repro.core.compression``.  It measures the
 payload, derives the adaptive bit width from a device's bit budget, packs
 a tree into integer codes for honest byte accounting (:func:`encode_tree`
 / :func:`decode_tree`, through the DoReFa kernels of
 :mod:`repro_torch.kernels.ops` under ``use_pallas``), and prices the top-k
 sparse stage that may run before DoReFa (:func:`topk_plan`,
-:func:`topk_mask`, :func:`sparse_payload_bits`).
+:func:`topk_mask`, :func:`sparse_payload_bits`).  The trainer's uplink
+(``launch/steps.py``) quantizes its gradient tree with
+:func:`encode_decode_tree`, optionally under
+:func:`error_feedback_optimizer`.
 
 Trees are nested dicts of tensors, flattened in JAX's sorted-key order
 (:mod:`repro_torch.core.tree`), so an :class:`EncodedTree` lines up with
@@ -154,3 +156,31 @@ def encode_decode_tree(tree, bits, *, paper_exact: bool = False):
 def adaptive_bits_for_budget(tree, budget_bits) -> torch.Tensor:
     """Paper §II-B: b = floor(32 / r), r = max(I / c, 1)."""
     return q.adaptive_bits(payload_bits(tree), budget_bits)
+
+
+def error_feedback_optimizer(optimizer, bits: int, *,
+                             paper_exact: bool = False):
+    """Error-feedback (EF) wrapper around any optimizer (beyond the paper):
+    the previous round's rounding residual is added back before
+    quantizing, ``adj_t = g_t + r_{t-1}; q_t = Q_b(adj_t); r_t = adj_t -
+    q_t``, with the residual kept in float32 (the reference's
+    ``compression.error_feedback_optimizer``)."""
+    from repro_torch.optim.optimizers import Optimizer
+
+    def init(params):
+        return {
+            "inner": optimizer.init(params),
+            "residual": tree_lib.tree_map(
+                lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                      device=p.device), params),
+        }
+
+    def update(grads, state, params):
+        adj = tree_lib.tree_map(lambda g, r: g.to(torch.float32) + r,
+                                grads, state["residual"])
+        qd = encode_decode_tree(adj, bits, paper_exact=paper_exact)
+        residual = tree_lib.tree_map(lambda a, qq: a - qq, adj, qd)
+        new_params, inner = optimizer.update(qd, state["inner"], params)
+        return new_params, {"inner": inner, "residual": residual}
+
+    return Optimizer(init, update)

@@ -277,3 +277,23 @@ def truncated_normal(key, lower: float, upper: float, n: int, *,
     clip = (float(np.nextafter(F32(lower), F32(np.inf))),
             float(np.nextafter(F32(upper), F32(-np.inf))))
     return draw(key, n, a, b, normal=True, clip=clip, device=device)
+
+
+def randint(key, shape, minval: int, maxval: int, *, device) -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval)`` (int32): two
+    32-bit draws per value under the two keys of ``split(key)``, reduced
+    modulo the span as jax.random reduces them (``2^32 mod span`` formed
+    as ``(2^16 mod span)^2 mod span``, every product wrapping at 2^32, as
+    jax.random's uint32 products do).
+    An int32 tensor of ``shape`` on ``device``."""
+    shape = tuple(int(d) for d in shape)
+    n = int(np.prod(shape)) if shape else 1
+    lo, hi = int(minval), int(maxval)
+    span = (hi - lo) & MASK32 if hi > lo else 1
+    k1, k2 = split(key)
+    higher = random_bits(k1, n, device=device)
+    lower = random_bits(k2, n, device=device)
+    multiplier = ((((1 << 16) % span) ** 2) & MASK32) % span
+    offset = (((higher % span) * multiplier) & MASK32) + (lower % span)
+    offset = (offset & MASK32) % span
+    return (lo + offset).to(torch.int32).reshape(shape)

@@ -17,11 +17,13 @@ Names, as the reference resolves them (:func:`get_fl_model`):
     :mod:`repro_torch.configs` id, its CONFIG or SMOKE variant.
 
 Token models wrap a :mod:`repro_torch.models.registry` family with the
-masked next-token cross-entropy.  The dense family is ported; moe, ssm and
-hybrid configurations raise ``NotImplementedError`` naming the
-``ROADMAP.md`` item that brings them, and vlm / encdec raise the
-reference's ``ValueError`` (their forwards need modality features the
-client bank does not carry).
+masked next-token cross-entropy, over the reference's four token
+families (dense, moe, ssm, hybrid); vlm / encdec raise the reference's
+``ValueError`` (their forwards need modality features the client bank
+does not carry).  ``batch_loss`` and ``accuracy`` unpack two values from
+the family's forward, as the reference's adapter does, so a moe payload
+(whose forward returns three) raises the reference's ``ValueError`` at its
+first loss: the reference accepts such a configuration and fails there.
 """
 from __future__ import annotations
 
@@ -97,7 +99,6 @@ class TokenFLModel:
                 f"{self.cfg.family!r} ({self.cfg.name}): vlm/encdec forwards "
                 f"need modality features the client bank does not carry"
             )
-        self._module()     # raises for a family not ported yet
 
     def _module(self):
         from repro_torch.models.registry import family_module
@@ -180,9 +181,8 @@ def get_fl_model(name: str):
 
     Registered names win; otherwise ``name`` (or ``name:smoke``) resolves
     through the :mod:`repro_torch.configs` architecture registry.  Raises
-    ``ValueError`` on unknown names and variants, as the reference does,
-    and ``NotImplementedError`` for an architecture whose family is not
-    ported yet.
+    ``ValueError`` on unknown names and variants and on the vlm / encdec
+    ids, as the reference does.
     """
     if name in _REGISTRY:
         return _REGISTRY[name]()

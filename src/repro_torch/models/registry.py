@@ -1,7 +1,7 @@
 """Model registry: one uniform :class:`Model` facade per architecture
 family, the port of ``repro/models/registry.py``.
 
-Only the dense family is ported; the moe, ssm, hybrid, encdec and vlm
+The dense, moe, ssm and hybrid families are ported; the encdec and vlm
 families raise ``NotImplementedError`` naming the ``ROADMAP.md`` queue 1
 item that brings them.
 """
@@ -12,17 +12,20 @@ from typing import Any
 
 from repro_torch.config import ModelConfig
 from repro_torch.core import errors
-from repro_torch.models import transformer
+from repro_torch.models import hybrid, mamba2, moe, transformer
 from repro_torch.models.params import (
     abstract_params, init_params,
 )
 
 _FAMILIES = {
     "dense": transformer,
+    "moe": moe,
+    "ssm": mamba2,
+    "hybrid": hybrid,
 }
 
 # the families of the reference's registry that a later slice brings
-UNPORTED_FAMILIES = ("moe", "ssm", "hybrid", "encdec", "vlm")
+UNPORTED_FAMILIES = ("encdec", "vlm")
 
 
 def family_module(family: str):
@@ -64,7 +67,10 @@ class Model:
         return self.module.init_cache(self.cfg, batch, max_len,
                                       shards=self.shards, device=device)
 
-    def decode_step(self, params, caches, tokens, **kw):
+    def decode_step(self, params, caches, tokens, *, batch=None, **kw):
+        """One decode step; ``batch`` carries the modality inputs of the
+        encdec and vlm families (none for the ported ones)."""
+        del batch
         return self.module.decode_step(params, caches, tokens, self.cfg, **kw)
 
 

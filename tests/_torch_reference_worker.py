@@ -2,6 +2,8 @@
 
     python tests/_torch_reference_worker.py <task> <spec.json> <in.npz> <out.npz>
     python tests/_torch_reference_worker.py --write-qwen2-reference <out.json>
+    python tests/_torch_reference_worker.py --write-family-reference <dir>
+    python tests/_torch_reference_worker.py --write-train-reference <out.json>
 
 The JAX package cannot import ``repro.models`` (and hence ``repro.core.fl``)
 under JAX 0.9.0: ``models/layers.py`` asks ``x not in
@@ -513,6 +515,240 @@ def task_token_parts(spec, arrays):
     return out
 
 
+def _record_moe_routing(moe_mod, rec):
+    """Wrap ``moe_mod.jnp`` so that ``moe_block``'s dispatch and combine
+    operands (the one-hot einsums' second operands) land in ``rec``."""
+    real = moe_mod.jnp
+
+    class Recording:
+        def __getattr__(self, name):
+            return getattr(real, name)
+
+        def einsum(self, spec, *ops, **kw):
+            if spec == "gtd,gtec->gecd":
+                rec["dispatch"] = ops[1]
+            if spec == "gecd,gtec->gtd":
+                rec["combine"] = ops[1]
+            return real.einsum(spec, *ops, **kw)
+
+    moe_mod.jnp = Recording()
+    return real
+
+
+def task_family_parts(spec, arrays):
+    """The moe, ssm and hybrid families' parts in one process.
+
+    ``spec["models"]``: for each FL model name (a ``<id>:smoke``), the
+    registry model (``build_model(cfg)``, shards=1): its initial parameters
+    from ``PRNGKey(spec["seed"])`` (``<name>/init/<path>``) and on each
+    batch ``<i>/<name>/bx``, ``by`` the forward's logits (and the moe aux),
+    ``model.loss`` and its gradient.  ``spec["decode"]``: prefill all but
+    the last of ``dec/<name>/tokens`` into a cache, decode the last
+    (``dec/<name>/step``) beside the full forward (``dec/<name>/full``);
+    with ``f32`` under ``COMPUTE_DTYPE = float32`` and capacity factor 8
+    (the reference's test_moe_decode_exact_without_drops).
+    ``spec["moe_blocks"]``: ``moe_block`` of a model's config on the
+    arrays ``moe/<key>/x`` and ``moe/<key>/p/<path>``: its output, aux,
+    and the dispatch and combine operands it built.  ``spec["ssd"]``:
+    ``ssd_chunked`` (and ``ssd_step`` on the first position) on
+    ``ssd/<key>/{x,dt,a_log,b,c[,init]}``.  ``spec["fl_errors"]``: the
+    batched FL run of each name on the token world, whose error message
+    comes back as ``err/<name>``.  ``spec["schemas"]``: each arch id's
+    full-width FL schema, shapes only (``<id>/shape/<path>``).
+    ``spec["runs"]``: :func:`task_token_runs`'s runs."""
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from repro.models import layers as L
+    from repro.models import mamba2, moe
+    from repro.models.fl_models import get_fl_model
+    from repro.models.registry import build_model
+
+    out = {}
+    key = jax.random.PRNGKey(int(spec.get("seed", 0)))
+    for name in spec.get("models", []):
+        cfg = get_fl_model(name).cfg
+        model = build_model(cfg)
+        params = model.init(key)
+        out.update(_tree_to_arrays(params, f"{name}/init/"))
+        for i in range(int(spec.get("batches", 1))):
+            pre = f"{i}/{name}"
+            batch = {"tokens": jnp.asarray(arrays[f"{pre}/bx"]),
+                     "labels": jnp.asarray(arrays[f"{pre}/by"])}
+            res = model.module.forward(params, batch["tokens"], cfg)
+            out[f"{pre}/logits"] = np.asarray(res[0])
+            if cfg.family == "moe":
+                out[f"{pre}/aux"] = np.asarray(res[2])
+            loss, grads = jax.value_and_grad(model.loss)(params, batch)
+            out[f"{pre}/loss"] = np.asarray(loss)
+            out.update(_tree_to_arrays(grads, f"{pre}/grad/"))
+    for case in spec.get("decode", []):
+        name = case["name"]
+        cfg = get_fl_model(name).cfg
+        saved = L.COMPUTE_DTYPE
+        if case.get("f32"):
+            L.COMPUTE_DTYPE = jnp.float32
+            cfg = dataclasses.replace(cfg, capacity_factor=8.0)
+        try:
+            model = build_model(cfg)
+            params = model.init(key)
+            toks = jnp.asarray(arrays[f"dec/{case['key']}/tokens"])
+            b, s = toks.shape
+            full = model.forward(params, {"tokens": toks}, remat=False)[0]
+            caches = model.init_cache(b, s + 4)
+            res = model.module.forward(params, toks[:, :s - 1], cfg,
+                                       caches=caches, remat=False)
+            step, _ = model.decode_step(params, res[1], toks[:, s - 1:])
+        finally:
+            L.COMPUTE_DTYPE = saved
+        out[f"dec/{case['key']}/full"] = np.asarray(full, np.float32)
+        out[f"dec/{case['key']}/step"] = np.asarray(step, np.float32)
+    for case in spec.get("moe_blocks", []):
+        pre = f"moe/{case['key']}"
+        cfg = get_fl_model(case["model"]).cfg
+        p = {}
+        for k, v in arrays.items():
+            if k.startswith(pre + "/p/"):
+                node = p
+                *head, leaf = k[len(pre) + 3:].split("/")
+                for h in head:
+                    node = node.setdefault(h, {})
+                node[leaf] = jnp.asarray(v)
+        rec = {}
+        real = _record_moe_routing(moe, rec)
+        try:
+            y, aux = moe.moe_block(p, jnp.asarray(arrays[pre + "/x"]), cfg)
+        finally:
+            moe.jnp = real
+        out[pre + "/out"] = np.asarray(y, np.float32)
+        out[pre + "/aux"] = np.asarray(aux)
+        out[pre + "/dispatch"] = np.asarray(rec["dispatch"], np.float32)
+        out[pre + "/combine"] = np.asarray(rec["combine"], np.float32)
+    for case in spec.get("ssd", []):
+        pre = f"ssd/{case['key']}"
+        a = {n: jnp.asarray(arrays[f"{pre}/{n}"])
+             for n in ("x", "dt", "a_log", "b", "c")}
+        init = (jnp.asarray(arrays[pre + "/init"]) if case.get("init")
+                else None)
+        ed = jnp.bfloat16 if case.get("bf16") else jnp.float32
+        y, final = mamba2.ssd_chunked(a["x"], a["dt"], a["a_log"], a["b"],
+                                      a["c"], chunk=int(case["chunk"]),
+                                      init_state=init, einsum_dtype=ed)
+        out[pre + "/y"] = np.asarray(y)
+        out[pre + "/final"] = np.asarray(final)
+        state = (init if init is not None else jnp.zeros_like(final))
+        y1, s1 = mamba2.ssd_step(state, a["x"][:, 0], a["dt"][:, 0],
+                                 a["a_log"], a["b"][:, 0], a["c"][:, 0])
+        out[pre + "/step_y"] = np.asarray(y1)
+        out[pre + "/step_state"] = np.asarray(s1)
+    if spec.get("fl_errors"):
+        from repro.config import FLConfig
+        from repro.core import channel, fl
+        from repro.data import dirichlet_partition
+        from repro.data.tokens import make_token_dataset
+
+        ds = make_token_dataset(**spec["fl_data"])
+        m = int(spec["fl_devices"])
+        shards = dirichlet_partition(ds.class_train, m, seed=0)
+        for name in spec["fl_errors"]:
+            cfg = FLConfig(num_devices=m, num_rounds=2, fl_engine="batched",
+                           model=name)
+            try:
+                fl.run_federated_learning(ds, shards,
+                                          channel.CellConfig(num_devices=m),
+                                          cfg)
+                msg = "no error"
+            except ValueError as exc:
+                msg = f"ValueError: {exc}"
+            out[f"err/{name}"] = np.asarray(msg)
+    for name in spec.get("schemas", []):
+        from repro.models.params import abstract_params
+        from repro.utils.tree import tree_flatten_with_paths
+
+        shapes = abstract_params(get_fl_model(name).schema())
+        for path, leaf in tree_flatten_with_paths(shapes):
+            out[f"{name}/shape/{path}"] = np.asarray(leaf.shape, np.int64)
+    if spec.get("runs"):
+        out.update(task_token_runs(spec, arrays))
+    return out
+
+
+def task_launch_parts(spec, arrays):
+    """The LLM trainer's and server's parts in one process.
+
+    ``spec["bits"]``: ``train.fl_bits_schedule(fold_in(PRNGKey(seed), 99),
+    payload, rounds, CellConfig())`` (``bits/<i>``).  ``spec["randint"]``:
+    ``randint(fold_in(PRNGKey(seed), 1), shape, lo, hi)``
+    (``randint/<i>``).  ``spec["train_steps"]``: ``steps.make_train_step``
+    (jitted, AdamW under ``linear_warmup_cosine(3e-4, 10, 20)``, with the
+    case's ``fl_bits`` and ``grad_accum``) from the model's
+    ``init(PRNGKey(0))``, one step per batch ``step/<key>/<i>/tokens``,
+    ``labels``: each step's loss and the final parameters
+    (``step/<key>/loss/<i>``, ``step/<key>/final/<path>``).
+    ``spec["train_main"]`` / ``spec["serve_main"]``: ``train.main(argv)``'s
+    losses (``train/<key>``) and ``serve.main(argv)``'s tokens
+    (``serve/<key>``).  ``spec["abstract"]``: for each arch id at full
+    width, ``steps.input_specs`` of every input shape
+    (``spec/<id>/<shape>/<input>``) and ``steps.abstract_cache`` at
+    decode_32k (``cache/<id>/<path>``, ``cache_dtype/<id>/<path>``)."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from repro.core import channel
+    from repro.launch import serve, steps, train
+    from repro.models.fl_models import get_fl_model
+    from repro.models.registry import build_model
+    from repro.optim import adamw, linear_warmup_cosine
+
+    out = {}
+    for i, case in enumerate(spec.get("bits", [])):
+        key = jax.random.fold_in(jax.random.PRNGKey(int(case["seed"])), 99)
+        out[f"bits/{i}"] = np.asarray(train.fl_bits_schedule(
+            key, case["payload"], int(case["rounds"]), channel.CellConfig()))
+    for i, case in enumerate(spec.get("randint", [])):
+        key = jax.random.fold_in(jax.random.PRNGKey(int(case["seed"])), 1)
+        out[f"randint/{i}"] = np.asarray(jax.random.randint(
+            key, tuple(case["shape"]), case["lo"], case["hi"]))
+    for case in spec.get("train_steps", []):
+        pre = f"step/{case['key']}"
+        model = build_model(get_fl_model(case["model"]).cfg)
+        params = model.init(jax.random.PRNGKey(0))
+        opt = adamw(linear_warmup_cosine(3e-4, 10, 20))
+        state = opt.init(params)
+        step = jax.jit(steps.make_train_step(
+            model, opt, fl_bits=case.get("fl_bits"),
+            grad_accum=int(case.get("grad_accum", 1))))
+        for i in range(int(case["steps"])):
+            batch = {"tokens": jnp.asarray(arrays[f"{pre}/{i}/tokens"]),
+                     "labels": jnp.asarray(arrays[f"{pre}/{i}/labels"])}
+            params, state, loss = step(params, state, batch)
+            out[f"{pre}/loss/{i}"] = np.asarray(loss)
+        out.update(_tree_to_arrays(params, f"{pre}/final/"))
+    for case in spec.get("train_main", []):
+        out[f"train/{case['key']}"] = np.asarray(train.main(case["argv"]),
+                                                 np.float64)
+    for case in spec.get("serve_main", []):
+        out[f"serve/{case['key']}"] = np.asarray(serve.main(case["argv"]))
+    from repro.config import INPUT_SHAPES
+    from repro.configs import get_config
+    from repro.utils.tree import tree_flatten_with_paths
+
+    for arch in spec.get("abstract", []):
+        model = build_model(get_config(arch))
+        for name, shape in INPUT_SHAPES.items():
+            for k, v in steps.input_specs(model.cfg, shape).items():
+                out[f"spec/{arch}/{name}/{k}"] = np.asarray(v.shape, np.int64)
+        caches = steps.abstract_cache(model, INPUT_SHAPES["decode_32k"])
+        for path, leaf in tree_flatten_with_paths(caches):
+            out[f"cache/{arch}/{path}"] = np.asarray(leaf.shape, np.int64)
+            out[f"cache_dtype/{arch}/{path}"] = np.asarray(str(leaf.dtype))
+    return out
+
+
 def task_token_runs(spec, arrays):
     """Reference FL runs on token shards, each run of ``spec["runs"]`` in
     this one process: the world is ``make_token_dataset`` with the run's
@@ -675,6 +911,188 @@ def write_qwen2_reference(path: str) -> None:
         fh.write("\n")
 
 
+# the full-width records of the moe, ssm and hybrid slice: Mamba2-130M in
+# full (its FL payload), and the depth-cut serving models by sampled
+# elements only (their leaves reach 1.6e9 elements)
+FAMILY_RECORDS = {
+    "mamba2_130m": dict(num_layers=None, full=True),
+    "zamba2_7b": dict(num_layers=6, full=False),
+    "mixtral_8x22b": dict(num_layers=2, full=False),
+}
+
+
+def sampled_materialize(spec, key, idx):
+    """The reference's ``params._materialize(spec, key)`` at the flat
+    indices ``idx`` only: a (len(idx),) leaf with ``spec``'s own scale,
+    drawn with jax.random's counters replaced by ``idx`` (partitionable
+    Threefry draws element i from the counter pair (i >> 32, i & 0xFFFFFFFF)
+    alone).  Run as the full draw runs (jax.random's own jitted draw, then
+    the eager scale), with JAX's caches cleared around it so no earlier
+    trace's counters are reused."""
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    from jax._src import prng as jprng
+
+    from repro.models import params as P
+
+    idx = np.asarray(idx, np.int64)
+    n = len(idx)
+    scale = spec.scale
+    if spec.init == "normal" and scale is None:
+        scale = 1.0 / np.sqrt(max(P._fan_in(spec.shape), 1))
+    small = dataclasses.replace(spec, shape=(n,), axes=(None,), scale=scale)
+    real = jprng.iota_2x32_shape
+
+    def iota(shape):
+        if tuple(shape) != (n,):
+            return real(shape)
+        return (jnp.asarray((idx >> 32).astype(np.uint32)),
+                jnp.asarray((idx & 0xFFFFFFFF).astype(np.uint32)))
+
+    jax.clear_caches()
+    jprng.iota_2x32_shape = iota
+    try:
+        return np.asarray(P._materialize(small, key))
+    finally:
+        jprng.iota_2x32_shape = real
+        jax.clear_caches()
+
+
+def write_family_reference(directory: str) -> None:
+    """The full-width records of ``FAMILY_RECORDS`` at seed 0, one JSON
+    file per model in ``directory``: per leaf its shape and the float32
+    elements at :func:`sample_indices`; for a full record also each leaf's
+    float64 sum and sum of squares and ``batch_loss`` of the first two rows
+    of ``make_token_dataset(vocab_size, num_samples=600, seq_len=16,
+    seed=0)``.  Sampled records draw only the recorded elements
+    (:func:`sampled_materialize`, checked here against a full draw of a
+    small leaf)."""
+    import dataclasses
+    import os
+    import zlib
+
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from repro.configs import get_config
+    from repro.data.tokens import make_token_dataset
+    from repro.models import params as P
+    from repro.models.fl_models import TokenFLModel
+    from repro.utils.tree import tree_flatten_with_paths
+
+    key = jax.random.PRNGKey(0)
+    for probe in (P.ParamSpec((3, 50, 7), (None, None, None)),
+                  P.ParamSpec((2, 1000, 999), (None, None, None)),
+                  P.ParamSpec((5000, 64), (None, None), init="embed"),
+                  P.ParamSpec((24,), (None,), init="ssm_a")):
+        full = np.asarray(P._materialize(probe, key)).reshape(-1)
+        idx = sample_indices(full.size)
+        assert np.array_equal(sampled_materialize(probe, key, idx),
+                              full[idx]), probe
+    for arch, how in FAMILY_RECORDS.items():
+        cfg = get_config(arch)
+        if how["num_layers"]:
+            cfg = dataclasses.replace(cfg, num_layers=how["num_layers"])
+        model = TokenFLModel(cfg=cfg, name=arch)
+        schema = model.schema()
+        specs = tree_flatten_with_paths(schema)
+        leaves, record = {}, {}
+        if how["full"]:
+            params = model.init(key)
+            for path, leaf in tree_flatten_with_paths(params):
+                x = np.asarray(leaf).reshape(-1).astype(np.float64)
+                ix = sample_indices(x.size)
+                leaves[path] = {
+                    "shape": [int(d) for d in leaf.shape],
+                    "sum": float(x.sum()), "sumsq": float(np.square(x).sum()),
+                    "index": [int(i) for i in ix],
+                    "values": [float(v) for v in
+                               np.asarray(leaf).reshape(-1)[ix]],
+                }
+            ds = make_token_dataset(vocab_size=cfg.vocab_size,
+                                    num_samples=600, seq_len=16, seed=0)
+            bx, by = jnp.asarray(ds.x_train[:2]), jnp.asarray(ds.y_train[:2])
+            record["tokens"] = np.asarray(bx).tolist()
+            record["labels"] = np.asarray(by).tolist()
+            record["loss"] = float(model.batch_loss(
+                params, bx, by, (by >= 0).astype(jnp.float32)))
+        else:
+            for path, spec in specs:
+                n = int(np.prod(spec.shape))
+                ix = sample_indices(n)
+                h = zlib.crc32(("".join(f"[{k!r}]" for k in path.split("/")))
+                               .encode()) % (2 ** 31)
+                vals = sampled_materialize(spec, jax.random.fold_in(key, h),
+                                           ix)
+                leaves[path] = {"shape": [int(d) for d in spec.shape],
+                                "index": [int(i) for i in ix],
+                                "values": [float(v) for v in vals]}
+        record.update({
+            "_command": ("PYTHONPATH=src JAX_PLATFORMS=cpu python "
+                         "tests/_torch_reference_worker.py "
+                         "--write-family-reference tests/torch_reference"),
+            "_what": (f"repro.configs.get_config({arch!r})"
+                      + (f" cut to num_layers={how['num_layers']}"
+                         if how["num_layers"] else "")
+                      + " as the FL payload (TokenFLModel, shards=1), "
+                      "init(PRNGKey(0)): per leaf the float32 elements at "
+                      "the flat indices 'index'"
+                      + ("; the float64 sum and sum of squares; 'loss' is "
+                         "batch_loss of 'tokens' / 'labels', the first two "
+                         "rows of make_token_dataset(vocab_size, "
+                         "num_samples=600, seq_len=16, seed=0)"
+                         if how["full"] else
+                         ", drawn alone with jax.random's counters set to "
+                         "those indices (sampled_materialize)")),
+            "model": arch, "seed": 0, "num_layers": cfg.num_layers,
+            "param_count": int(sum(np.prod(v["shape"])
+                                   for v in leaves.values())),
+            "leaves": leaves,
+        })
+        with open(os.path.join(directory, f"{arch}.json"), "w",
+                  encoding="utf-8") as fh:
+            json.dump(record, fh, indent=1, sort_keys=True)
+            fh.write("\n")
+
+
+# the full-width trainer runs of chip_smoke.py's [train:*] phases whose
+# losses are held to the reference's
+TRAIN_RECORDS = {
+    "mamba2-130m": ["--arch", "mamba2-130m", "--steps", "20", "--batch",
+                    "8", "--seq", "128"],
+}
+
+
+def write_train_reference(path: str) -> None:
+    """The reference's ``launch.train.main`` losses for each run of
+    ``TRAIN_RECORDS`` (full width, seed 0, adaptive NOMA bits), written as
+    JSON to ``path``."""
+    import numpy as np
+
+    from repro.launch import train
+
+    runs = {name: {"argv": argv,
+                   "losses": [float(x) for x in np.asarray(
+                       train.main(list(argv)), np.float64)]}
+            for name, argv in TRAIN_RECORDS.items()}
+    record = {
+        "_command": ("PYTHONPATH=src JAX_PLATFORMS=cpu python "
+                     "tests/_torch_reference_worker.py "
+                     "--write-train-reference "
+                     "tests/torch_reference/train_losses.json"),
+        "_what": ("repro.launch.train.main(argv) at full width on the CPU: "
+                  "each step's loss"),
+        "runs": runs,
+    }
+    with open(path, "w", encoding="utf-8") as fh:
+        json.dump(record, fh, indent=1, sort_keys=True)
+        fh.write("\n")
+
+
 TASKS = {
     "lenet_grad": task_lenet_grad,
     "sgd_epoch": task_sgd_epoch,
@@ -688,6 +1106,8 @@ TASKS = {
     "online_runs": task_online_runs,
     "token_parts": task_token_parts,
     "token_runs": task_token_runs,
+    "family_parts": task_family_parts,
+    "launch_parts": task_launch_parts,
     "qwen2_reference": task_qwen2_reference,
 }
 
@@ -695,6 +1115,14 @@ TASKS = {
 def main(argv) -> int:
     import numpy as np
 
+    if argv[1] == "--write-train-reference":
+        apply_shim()
+        write_train_reference(argv[2])
+        return 0
+    if argv[1] == "--write-family-reference":
+        apply_shim()
+        write_family_reference(argv[2])
+        return 0
     if argv[1] == "--write-qwen2-reference":
         apply_shim()
         write_qwen2_reference(argv[2])

@@ -348,7 +348,11 @@ def test_port_imports_neither_jax_nor_reference():
                  "kernels.ops", "kernels.ref", "kernels.fma",
                  "core.compression", "core.tree", "kernels.flash_decode",
                  "core.channel", "models.params", "kernels.threefry",
-                 "core.scheduling", "core.fl_engine", "data.client_bank"):
+                 "core.scheduling", "core.fl_engine", "data.client_bank",
+                 "models.moe", "models.mamba2", "models.hybrid",
+                 "optim.optimizers", "optim.schedules",
+                 "checkpoint.msgpack_ckpt", "launch.steps", "launch.train",
+                 "launch.serve"):
         assert "repro_torch." + name in out["modules"]
     assert out["bad"] == []
 
@@ -414,47 +418,71 @@ def test_parameter_entry_points_default_to_cuda(monkeypatch):
 # case (item 6), the topk and client_bank="bucketed" cases (item 7), the
 # default legacy engine and scheduler="random" cases (item 1), the
 # horizon="scan" case (item 4) and the scheduler="update-aware" case (item
-# 5) left the list as they were ported; the two model cases keep their ids
-# and, since the dense transformers came with item 8's first part, name
-# model families that still wait for item 8 (moe and hybrid).
-@pytest.mark.parametrize("kwargs,item", [
-    pytest.param(dict(fl_engine="batched", model="mixtral_8x22b"), 8,
-                 id="kwargs9-7"),
-    pytest.param(dict(fl_engine="batched", model="zamba2_7b"), 8,
+# 5) left the list as they were ported; the two model cases keep their ids.
+# Since item 8c ported the moe and hybrid families they hold what the
+# reference does: FLConfig accepts both; the hybrid payload builds, and the
+# moe payload fails at its first loss with the reference's ValueError (its
+# forward returns three values where the adapter unpacks two).
+@pytest.mark.parametrize("kwargs,expect", [
+    pytest.param(dict(fl_engine="batched", model="mixtral_8x22b"),
+                 "moe-loss-error", id="kwargs9-7"),
+    pytest.param(dict(fl_engine="batched", model="zamba2_7b"), "builds",
                  id="kwargs10-8"),
 ])
-def test_config_names_the_roadmap_item_for_unported_settings(kwargs, item):
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP.md queue 1 item {item} brings it"):
-        FLConfig(**kwargs)
+def test_config_names_the_roadmap_item_for_unported_settings(kwargs, expect):
+    cfg = FLConfig(**kwargs)
+    assert cfg.model == kwargs["model"]
+    _assert_payload(cfg.model, expect)
+
+
+def _assert_payload(name, expect):
+    """``builds``: the payload's schema is the family's; ``moe-loss-error``:
+    its SMOKE variant's first loss raises the reference's ValueError."""
+    from repro_torch.core import prng, tree as tree_lib
+    from repro_torch.models.fl_models import get_fl_model
+
+    model = get_fl_model(name)
+    if expect == "builds":
+        assert model.cfg.family in ("ssm", "hybrid")
+        assert "embed" in model.schema()
+        return
+    assert model.cfg.family == "moe"
+    smoke = get_fl_model(name + ":smoke")
+    params = tree_lib.tree_map(lambda w: w[None], smoke.init(0, device="cpu"))
+    tokens = torch.zeros((1, 2, 4), dtype=torch.int32)
+    with pytest.raises(ValueError, match="too many values to unpack"):
+        smoke.batch_loss(params, tokens, tokens, None)
 
 
 # The ids are the names these cases had while every non-LeNet model waited
-# for item 8; the dense ones run now (tests/test_torch_models.py), so the
-# cases name families still waiting (moe, ssm, hybrid), and the enc-dec id
-# raises the reference's ValueError as it does there.
-@pytest.mark.parametrize("name,exc,match", [
-    pytest.param("mixtral_8x22b", NotImplementedError,
-                 "ROADMAP.md queue 1 item 8 brings it", id="tiny-transformer"),
-    pytest.param("mamba2_130m", NotImplementedError,
-                 "ROADMAP.md queue 1 item 8 brings it",
-                 id="tiny-transformer-1m"),
-    pytest.param("zamba2_7b", NotImplementedError,
-                 "ROADMAP.md queue 1 item 8 brings it", id="qwen2_0_5b"),
-    pytest.param("seamless_m4t_medium", ValueError,
-                 "vlm/encdec forwards need modality features",
+# for item 8.  Since items 8b and 8c ported the dense, moe, ssm and hybrid
+# families, the cases hold what the reference does with each name: the ssm
+# and hybrid payloads build and FLConfig accepts them, the moe payload is
+# accepted and fails at its first loss with the reference's ValueError,
+# and the enc-dec id raises the reference's ValueError at once (the client
+# bank carries no modality features).
+@pytest.mark.parametrize("name,expect", [
+    pytest.param("mixtral_8x22b", "moe-loss-error", id="tiny-transformer"),
+    pytest.param("mamba2_130m", "builds", id="tiny-transformer-1m"),
+    pytest.param("zamba2_7b", "builds", id="qwen2_0_5b"),
+    pytest.param("seamless_m4t_medium",
+                 (ValueError, "vlm/encdec forwards need modality features"),
                  id="seamless_m4t_medium"),
 ])
-def test_get_fl_model_names_item_8_for_every_unported_model(name, exc, match):
-    """Model families that are not ported name item 8, called directly as
-    through ``FLConfig``; vlm and encdec raise the reference's
-    ``ValueError`` (the client bank carries no modality features)."""
+def test_get_fl_model_names_item_8_for_every_unported_model(name, expect):
+    """Called directly as through ``FLConfig``: each name does what the
+    reference's does."""
     from repro_torch.models.fl_models import get_fl_model
 
-    with pytest.raises(exc, match=match):
-        get_fl_model(name)
-    with pytest.raises(exc, match=match):
-        FLConfig(model=name)
+    if isinstance(expect, tuple):
+        exc, match = expect
+        with pytest.raises(exc, match=match):
+            get_fl_model(name)
+        with pytest.raises(exc, match=match):
+            FLConfig(model=name)
+        return
+    assert FLConfig(model=name).model == name
+    _assert_payload(name, expect)
 
 
 @pytest.mark.parametrize("engine", ["legacy", "batched"])

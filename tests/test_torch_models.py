@@ -326,10 +326,11 @@ def test_registry_resolves_names_as_the_reference():
         get_fl_model("no-such-model")
     with pytest.raises(ValueError, match="vlm/encdec"):
         get_fl_model("llama_3_2_vision_90b:smoke")
-    for arch in ("mixtral_8x22b", "llama4_scout_17b_a16e", "mamba2_130m",
-                 "zamba2_7b"):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            get_fl_model(arch)
+    for arch, family in (("mixtral_8x22b", "moe"),
+                         ("llama4_scout_17b_a16e", "moe"),
+                         ("mamba2_130m", "ssm"), ("zamba2_7b", "hybrid")):
+        # ported by item 8c: resolved as the reference resolves them
+        assert get_fl_model(arch).cfg.family == family
     register_fl_model("tiny-alias", lambda: get_fl_model("tiny-transformer"))
     try:
         assert "tiny-alias" in available_fl_models()
@@ -362,8 +363,9 @@ def test_model_facade_and_tree_utilities(port_params):
     assert torch.isclose(norm, torch.sqrt(sum(
         (w.double() ** 2).sum() for w in tree_lib.tree_flatten(params)[0]
     )).float(), rtol=1e-5)
+    assert build_model(get_config("mixtral_8x22b")).cfg.family == "moe"
     with pytest.raises(NotImplementedError, match="item 8"):
-        build_model(get_config("mixtral_8x22b"))
+        build_model(get_config("seamless_m4t_medium"))
 
 
 def test_full_width_reference_record_matches_the_port_schema():
