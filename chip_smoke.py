@@ -2467,33 +2467,36 @@ def _token_world(m, data):
             dirichlet_partition(ds.class_train, m, seed=0))
 
 
-def _qwen2_sizes():
-    """(path, elements) of Qwen2-0.5B's full-width FL leaves, from the
-    schema (no allocation)."""
+def _fl_sizes(name):
+    """(path, elements) of an FL model's full-width leaves, from the schema
+    (no allocation)."""
     from repro_torch.models.fl_models import get_fl_model
     from repro_torch.models.params import abstract_params
     from repro_torch.utils.tree import tree_flatten_with_paths
 
     return [(path, leaf.size) for path, leaf in tree_flatten_with_paths(
-        abstract_params(get_fl_model(QWEN2).schema()))]
+        abstract_params(get_fl_model(name).schema()))]
 
 
-def compare_token_kernels():
-    """Kernels #1 and #2 at the token path's widest shapes.  #1: the 14
-    Qwen2-0.5B leaves (494,147,456 elements, the embedding 136,249,344) as
-    int32 codes at K=3, reduced in one grouped launch, bit-equal to the
-    plain version leaf by leaf, and timed (device and host-inclusive)
-    beside the plain version and 14 ``torch.einsum`` calls on the same
-    codes as float32.  #2: the keyed entry on the embedding leaf (K=3, the
-    path's 16-byte row layout), bit-equal to its plain version and to the
-    strip kernel fed the drawn noise, timed beside its plain version.
-    Returns the two kernels' max abs errors."""
+def compare_token_kernels(name=QWEN2, label="Qwen2-0.5B",
+                          phase="token-kernel", n_leaves=QWEN2_LEAVES,
+                          n_params=QWEN2_PARAMS):
+    """Kernels #1 and #2 at a token payload's full-width shapes (by
+    default the 14 Qwen2-0.5B leaves, 494,147,456 elements, the embedding
+    136,249,344).  #1: every leaf as int32 codes at K=3, reduced in one
+    grouped launch, bit-equal to the plain version leaf by leaf, and timed
+    (device and host-inclusive) beside the plain version and one
+    ``torch.einsum`` a leaf on the same codes as float32.  #2: the keyed
+    entry on the embedding leaf (K=3, the path's 16-byte row layout),
+    bit-equal to its plain version and to the strip kernel fed the drawn
+    noise, timed beside its plain version.  The launch counters are
+    restored afterwards.  Returns the two kernels' max abs errors."""
     from repro_torch.core import ota
     from repro_torch.kernels import aggregate, ota_aggregate, threefry
 
-    sizes = _qwen2_sizes()
-    check(len(sizes) == QWEN2_LEAVES and sum(n for _, n in sizes)
-          == QWEN2_PARAMS, f"Qwen2-0.5B leaves {sizes}")
+    sizes = _fl_sizes(name)
+    check(len(sizes) == n_leaves and sum(n for _, n in sizes) == n_params,
+          f"{label} leaves {sizes}")
     k = 3
     gen = torch.Generator(device="cuda").manual_seed(7)
     codes, coeffs = [], []
@@ -2508,14 +2511,14 @@ def compare_token_kernels():
     got = aggregate.weighted_aggregate_group(codes, coeffs)
     torch.cuda.synchronize()
     check(aggregate.weighted_aggregate.launches == counted + 1,
-          "the 14 Qwen2 leaves took more than one grouped launch")
+          f"the {n_leaves} {label} leaves took more than one grouped launch")
     agg_err = 0.0
     for (path, _), out, c, cf in zip(sizes, got, codes, coeffs):
         try:
             agg_err = max(agg_err, _bits_equal(
                 out, aggregate.weighted_aggregate_plain(c, cf)))
         except SmokeFailure as exc:
-            raise SmokeFailure(f"grouped aggregate at Qwen2 {path}: {exc}")
+            raise SmokeFailure(f"grouped aggregate at {label} {path}: {exc}")
     del got
     floats = [c.to(torch.float32) for c in codes]
 
@@ -2538,15 +2541,15 @@ def compare_token_kernels():
     aggregate.weighted_aggregate.launches = counted   # checks don't count
     nbytes = sum(k * n * 4 + n * 4 + k * 4 for _, n in sizes)
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = 2 * k * QWEN2_PARAMS / PEAK_F32_FLOPS * 1e3
+    t_ops = 2 * k * n_params / PEAK_F32_FLOPS * 1e3
     bound = max(t_bytes, t_ops)
     ms = 0.5 * (dev["kernel"] + dev["kernel2"])
-    log(f"[token-kernel] weighted_aggregate K={k}, the 14 Qwen2-0.5B leaves "
-        f"({QWEN2_PARAMS} int32 codes a client) in one grouped launch: "
+    log(f"[{phase}] weighted_aggregate K={k}, the {n_leaves} {label} leaves "
+        f"({n_params} int32 codes a client) in one grouped launch: "
         f"bit-equal to the plain version, max abs err {agg_err!r}; device "
         f"{ms:.4f} ms ({dev['kernel']:.4f} / {dev['kernel2']:.4f}), plain "
-        f"(device-busy) {dev['plain']:.4f} ms, 14 einsum on float32 codes "
-        f"{dev['lib']:.4f} ms; host-inclusive kernel {host['kernel']:.4f} ms,"
+        f"(device-busy) {dev['plain']:.4f} ms, {n_leaves} einsum on float32 "
+        f"codes {dev['lib']:.4f} ms; host-inclusive kernel {host['kernel']:.4f} ms,"
         f" einsum {host['lib']:.4f} ms; bound {bound:.4f} ms "
         f"({'bytes' if t_bytes >= t_ops else 'operations'}: {nbytes} B), "
         f"{ms / bound:.2f}x; kernel/einsum {ms / dev['lib']:.3f}")
@@ -2561,7 +2564,7 @@ def compare_token_kernels():
     counted = ota_aggregate.ota_aggregate.launches
     drawn = threefry.threefry_draw.launches
     ota_err = _ota_keyed_errors(ota_aggregate, x, coeff, key, scale,
-                                f"the Qwen2 embedding leaf (K={k}, n={n})")
+                                f"the {label} embedding leaf (K={k}, n={n})")
 
     def keyed_fn():
         return ota_aggregate._launch_keyed(x, coeff, key, scale)
@@ -2577,7 +2580,7 @@ def compare_token_kernels():
     k_bytes = (k + 1) * n * 4 + k * 4 + 4
     kb = k_bytes / PEAK_BYTES_PER_S * 1e3
     ko = (THREEFRY_OPS + 2 * k) * n / PEAK_F32_FLOPS * 1e3
-    log(f"[token-kernel] ota_aggregate keyed on the Qwen2 embedding leaf "
+    log(f"[{phase}] ota_aggregate keyed on the {label} embedding leaf "
         f"K={k} n={n}: bit-equal to its plain version and to the strip "
         f"kernel fed the drawn noise, max abs err {ota_err!r}; device "
         f"{d_keyed:.4f} ms, plain (device-busy) {d_plain:.4f} ms, "
@@ -2888,12 +2891,28 @@ def run_token_phases(kernels):
 
 MAMBA2 = "mamba2_130m"
 MAMBA2_PARAMS = 129_100_224     # the FL schema's leaves (padded vocab)
+MAMBA2_LEAVES = 15
 MAMBA2_DATA = dict(vocab_size=50_280, num_samples=600, seq_len=16, seed=0)
 FAMILY_SMOKE_DATA = dict(vocab_size=512, num_samples=400, seq_len=8, seed=0)
-# tests/test_torch_families_fl.py:FAMILY_LIMITS; the SMOKE zamba2's drift
-# is not held (F4, ROADMAP.md queue 3)
-MAMBA2_MEAN_ATOL, MAMBA2_MAX_ATOL = 2e-4, 4e-2
+# tests/test_torch_families_fl.py's worlds (data, FLConfig fields: one
+# local batch a client; the SMOKE Zamba2 with no codes, F4 in ROADMAP.md
+# queue 3) and FAMILY_LIMITS
+FAMILY_WORLDS = {
+    "mamba2_130m": (FAMILY_SMOKE_DATA, dict(batch_size=80)),
+    "zamba2_7b": (dict(FAMILY_SMOKE_DATA, num_samples=200),
+                  dict(compression="none", batch_size=24)),
+}
+FAMILY_LIMITS = {"mamba2_130m": (5e-5, 1.5e-2), "zamba2_7b": (1.5e-4, 4e-3)}
 FAMILY_LOSS_RTOL = 5e-4     # tests/test_torch_families.py's loss bound
+# [train:*] against the reference's record (tests/torch_reference/
+# train_losses.json): each step's loss, relative; Mamba2's final
+# parameters' worst leaf mean drift over the sampled elements.  Each limit
+# lies between the card's sound run and the record's dropped-step run
+# (Mixtral's losses 1.1e-4 / 7.9e-4; Mamba2's drift 2.2e-5 / 3.7e-5), but
+# Mamba2's losses, whose wrong run's 1.3e-4 is inside the card's 2.2e-4
+TRAIN_LOSS_LIMITS = {"mamba2-130m": FAMILY_LOSS_RTOL,
+                     "mixtral-8x22b-smoke": 4e-4}
+TRAIN_DRIFT_LIMITS = {"mamba2-130m": 3e-5}
 SERVE_RUNS = (("mamba2-130m", None), ("zamba2-7b", 6), ("mixtral-8x22b", 2))
 SERVE_TIE_ULPS = 4          # tests/test_torch_launch.py's near-tie bound
 CARD = ""                   # the card's name and power limit (nvidia-smi)
@@ -3002,6 +3021,7 @@ def run_family_main_path(kernels, mode, m=TOKEN_M, t=TOKEN_T):
     check(tree_count(params) == MAMBA2_PARAMS,
           f"Mamba2-130M has {tree_count(params)} parameters")
     n_leaves = len(tree_flatten_with_paths(params))
+    check(n_leaves == MAMBA2_LEAVES, f"Mamba2-130M has {n_leaves} leaves")
     del params
     torch.cuda.empty_cache()
     bundle = channel.sample_channels(cfg.seed, cell, cfg.num_rounds)
@@ -3071,26 +3091,30 @@ def run_family_main_path(kernels, mode, m=TOKEN_M, t=TOKEN_T):
 
 def compare_families_cpu_and_card(kernels, m=12, t=3):
     """``[cpu-vs-card:families]``: the SMOKE Mamba2 and Zamba2 on the
-    batched engine with the kernels, M=12, T=3, lr 0.05, batch 8, max
-    power (tests/test_torch_families_fl.py's world), on the CPU and on the
-    card: logs exact, accuracy within 0.02; Mamba2's drift inside its
-    limits, Zamba2's printed (F4: not held); #1 in ceil(leaves / 16)
-    grouped launches a non-empty round (Zamba2's 40 leaves take 3); and
-    the SMOKE Mixtral run raising the reference's ValueError at its first
-    loss on the card."""
+    batched engine with the kernels, M=12, T=3, lr 0.05, max power, in
+    tests/test_torch_families_fl.py's worlds (Mamba2: 400 rows, batch 80,
+    adaptive DoReFa; Zamba2: 200 rows, no codes, batch 24), on the CPU and
+    on the card: logs exact, accuracy within 0.02, the drift inside the
+    model's limits; #1
+    in ceil(leaves / 16) grouped launches a non-empty round (Zamba2's 40
+    leaves take 3); and the SMOKE Mixtral run raising the reference's
+    ValueError at its first loss on the card."""
     from repro_torch.core import fl
     from repro_torch.kernels import aggregate
 
-    ds, cell, shards = _token_world(m, FAMILY_SMOKE_DATA)
-    for arch in ("mamba2_130m", "zamba2_7b"):
+    for arch, (mean_atol, max_atol) in FAMILY_LIMITS.items():
+        data, fields = FAMILY_WORLDS[arch]
+        ds, cell, shards = _token_world(m, data)
         cfg = _config(m, t, "numpy", model=f"{arch}:smoke",
-                      learning_rate=0.05, batch_size=8, power_mode="max")
+                      learning_rate=0.05, power_mode="max", **fields)
         cpu = fl.run_federated_learning(ds, shards, cell, cfg, device="cpu")
         reset_launches(kernels)
         card = fl.run_federated_learning(ds, shards, cell, cfg,
                                          device="cuda")
         launches = read_launches(kernels)
-        label = f"[cpu-vs-card:families] M={m} {arch}:smoke"
+        label = (f"[cpu-vs-card:families] M={m} {arch}:smoke "
+                 f"{data['num_samples']} rows, {cfg.compression}, batch "
+                 f"{cfg.batch_size}")
         worst_mean, worst_max = _check_equal_logs(card, cpu,
                                                   label + " CPU vs card:")
         nonempty = sum(1 for lg in card.logs if lg.devices)
@@ -3100,15 +3124,12 @@ def compare_families_cpu_and_card(kernels, m=12, t=3):
         check(launches["weighted_aggregate"] == nonempty * per_round,
               f"{label}: aggregation launches {launches}, expected "
               f"{per_round} a non-empty round")
-        if arch == "mamba2_130m":
-            check(worst_mean < MAMBA2_MEAN_ATOL and worst_max < MAMBA2_MAX_ATOL,
-                  f"{label} drift mean {worst_mean} max {worst_max} beyond "
-                  f"its limits")
-            log(f"{label}: the drift inside its limits ({MAMBA2_MEAN_ATOL}, "
-                f"{MAMBA2_MAX_ATOL})")
-        else:
-            log(f"{label}: the drift is not held (F4: the reference against "
-                f"itself drifts as far as untrained weights)")
+        check(worst_mean < mean_atol and worst_max < max_atol,
+              f"{label} drift mean {worst_mean} max {worst_max} beyond "
+              f"its limits")
+        log(f"{label}: the drift inside its limits ({mean_atol}, "
+            f"{max_atol})")
+    ds, cell, shards = _token_world(m, FAMILY_SMOKE_DATA)
     cfg = _config(m, 2, "numpy", model="mixtral_8x22b:smoke")
     try:
         fl.run_federated_learning(ds, shards, cell, cfg, device="cuda")
@@ -3185,19 +3206,38 @@ def _leaves(tree):
     return tree_lib.tree_flatten(tree)[0]
 
 
-def run_train_phase(label, argv):
+def run_train_phase(label, argv, final=None):
     """``[train:<label>]``: ``launch.train.main(argv)`` on the card: its
-    losses finite and falling (the last below the first), seconds per step
-    and the peak device memory printed.  Returns the losses."""
+    losses finite, seconds per step and the peak device memory printed.
+    Returns the losses; with a dict ``final``, the last step's parameters
+    land in ``final["params"]``."""
     import contextlib
     import io
 
-    from repro_torch.launch import train
+    from repro_torch.launch import steps, train
+
+    make = steps.make_train_step
+
+    def keeping(model, opt, **kwargs):
+        step = make(model, opt, **kwargs)
+
+        def kept(params, state, batch):
+            out = step(params, state, batch)
+            final["params"] = out[0]
+            return out
+
+        return kept
 
     torch.cuda.reset_peak_memory_stats()
     buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        losses, wall = _timed(lambda: train.main(argv + ["--device", "cuda"]))
+    if final is not None:
+        steps.make_train_step = keeping
+    try:
+        with contextlib.redirect_stdout(buf):
+            losses, wall = _timed(
+                lambda: train.main(argv + ["--device", "cuda"]))
+    finally:
+        steps.make_train_step = make
     peak = torch.cuda.max_memory_allocated()
     check(len(losses) > 0 and all(math.isfinite(x) for x in losses),
           f"[train:{label}] losses {losses}")
@@ -3212,17 +3252,79 @@ def run_train_phase(label, argv):
     return losses
 
 
+def _sampled_drift(values, record):
+    """The worst leaf's mean |values[path] - the reference's| over the
+    record's sampled elements (``record``: path -> index, values)."""
+    return max(float(np.abs(np.asarray(values[path], np.float64)
+                            - np.asarray(rec["values"], np.float64)).mean())
+               for path, rec in record.items())
+
+
+def check_train_record(name):
+    """``[train:<name>]``: the record's run (tests/torch_reference/
+    train_losses.json, written by the JAX package) on the card, held to
+    the reference's run by a limit that the record's wrong run (one step's
+    update thrown away) leaves: each step's loss within
+    ``TRAIN_LOSS_LIMITS[name]`` relative; where the record has the final
+    parameters (Mamba2-130M, whose wrong run moves no loss beyond the
+    sound run's bf16 spread), their worst leaf's mean drift over the
+    sampled elements within ``TRAIN_DRIFT_LIMITS[name]``; the loss
+    falling, as the reference's does."""
+    with open(os.path.join(REPO, "tests", "torch_reference",
+                           "train_losses.json"), encoding="utf-8") as fh:
+        record = json.load(fh)
+    want = record["runs"][name]
+
+    def worst(losses):
+        return max(abs(a - b) / abs(b) for a, b in zip(losses,
+                                                       want["losses"]))
+
+    final = {}
+    losses = run_train_phase(name, want["argv"], final)
+    rel, limit = worst(losses), TRAIN_LOSS_LIMITS[name]
+    check(len(losses) == len(want["losses"]) and rel <= limit,
+          f"[train:{name}] losses {losses} against the reference's "
+          f"{want['losses']} (limit {limit})")
+    check(losses[-1] < losses[0],
+          f"[train:{name}] the loss did not fall: {losses}")
+    wrong = worst(want["dropped_losses"])
+    line = (f"[train:{name}] each step's loss within {rel:.3g} relative of "
+            f"the reference's (limit {limit}; the run that threw away step "
+            f"{record['dropped_step']}'s update: {wrong:.3g})")
+    if "final" in want:
+        from repro_torch.utils.tree import tree_flatten_with_paths
+
+        params = dict(tree_flatten_with_paths(final["params"]))
+        check(params.keys() == want["final"].keys(),
+              f"[train:{name}] final leaves")
+        card = {path: params[path].reshape(-1)[torch.tensor(
+            rec["index"], device=params[path].device)].double().cpu()
+            for path, rec in want["final"].items()}
+        drift = _sampled_drift(card, want["final"])
+        wrong = _sampled_drift({path: rec["dropped"] for path, rec
+                                in want["final"].items()}, want["final"])
+        limit = TRAIN_DRIFT_LIMITS[name]
+        check(drift < limit,
+              f"[train:{name}] final drift {drift} beyond {limit}")
+        line += (f"; final parameters' worst leaf mean drift {drift:.3g} "
+                 f"over the sampled elements (limit {limit}; the wrong "
+                 f"run: {wrong:.3g})")
+    check(wrong > limit, f"[train:{name}] the wrong run's {wrong} does not "
+                         f"leave the limit {limit}")
+    log(f"{line}; the reference's {want['losses'][0]:.4f} -> "
+        f"{want['losses'][-1]:.4f}")
+
+
 def run_train_phases(tmpdir):
     """The trainer at full width, batch 8, seq 128, adaptive NOMA bits:
     Qwen2-0.5B (the reference's default arch) 10 steps and with ``--ef
     --fl-bits 4``, the loss falling; Mamba2-130M 20 steps (the reference's
     default count: at 1-bit codes its loss does not fall within 10, the
-    reference's neither), each step's loss held to the reference's
-    (tests/torch_reference/train_losses.json) within the trainer's 5e-4,
-    falling; a ``--save`` / ``--resume`` round trip on Mamba2-130M (10
-    steps, a checkpoint at 5, the other 5 resumed: the same losses as the
-    uninterrupted run, to the bit); the SMOKE Mixtral (the moe family) in
-    one short run."""
+    reference's neither) held to the reference's record
+    (:func:`check_train_record`); a ``--save`` / ``--resume`` round trip
+    on Mamba2-130M (10 steps, a checkpoint at 5, the other 5 resumed: the
+    same losses as the uninterrupted run, to the bit); the SMOKE Mixtral
+    (the moe family) 12 steps, held to its record likewise."""
     import repro_torch.checkpoint as ck
 
     base = ["--batch", "8", "--seq", "128"]
@@ -3233,19 +3335,7 @@ def run_train_phases(tmpdir):
         losses = run_train_phase(label, argv)
         check(losses[-1] < losses[0],
               f"[train:{label}] the loss did not fall: {losses}")
-    with open(os.path.join(REPO, "tests", "torch_reference",
-                           "train_losses.json"), encoding="utf-8") as fh:
-        want = json.load(fh)["runs"]["mamba2-130m"]
-    losses = run_train_phase("mamba2-130m", want["argv"])
-    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, want["losses"]))
-    check(len(losses) == len(want["losses"]) and rel <= FAMILY_LOSS_RTOL,
-          f"[train:mamba2-130m] losses {losses} against the reference's "
-          f"{want['losses']}")
-    check(losses[-1] < losses[0],
-          f"[train:mamba2-130m] the loss did not fall: {losses}")
-    log(f"[train:mamba2-130m] each step's loss within {rel:.3g} relative of "
-        f"the reference's (bound {FAMILY_LOSS_RTOL}); the reference's "
-        f"{want['losses'][0]:.4f} -> {want['losses'][-1]:.4f}")
+    check_train_record("mamba2-130m")
     # the step-5 checkpoint is the one the resume reads; the run's other
     # saves (1.5 GB each through zlib on a host without zstandard, ~40 s)
     # are skipped
@@ -3266,17 +3356,18 @@ def run_train_phases(tmpdir):
                               f"{losses[5:]}")
     log("[train:mamba2-130m-resume] resumed at step 5 from the checkpoint: "
         "the same losses as the uninterrupted run, to the bit")
-    run_train_phase("mixtral-8x22b-smoke",
-                    ["--arch", "mixtral-8x22b", "--smoke", "--steps", "4",
-                     "--batch", "4", "--seq", "32"])
+    check_train_record("mixtral-8x22b-smoke")
 
 
 def run_family_phases(kernels):
-    """The moe, ssm and hybrid slice's phases, in order; returns the
-    launches of ``[main:tokens-ssm]``."""
+    """The moe, ssm and hybrid slice's phases, in order; returns #1's and
+    #2's max abs errors at the Mamba2-130M shapes (``[family-kernel]``)."""
     import tempfile
 
-    launches = run_family_main_path(kernels, "tokens-ssm")
+    errs = compare_token_kernels(MAMBA2, "Mamba2-130M", "family-kernel",
+                                 MAMBA2_LEAVES, MAMBA2_PARAMS)
+    torch.cuda.empty_cache()
+    run_family_main_path(kernels, "tokens-ssm")
     torch.cuda.empty_cache()
     run_family_main_path(kernels, "tokens-ssm-ota")
     torch.cuda.empty_cache()
@@ -3286,7 +3377,7 @@ def run_family_phases(kernels):
         run_serve_phase(arch, num_layers)
     with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as tmp:
         run_train_phases(tmp)
-    return launches
+    return errs
 
 
 def main() -> int:
@@ -3407,7 +3498,9 @@ def main() -> int:
     agg_err, ota_err = run_token_phases(kernels)
     errs["weighted_aggregate"] = max(errs["weighted_aggregate"], agg_err)
     errs["ota_aggregate"] = max(errs["ota_aggregate"], ota_err)
-    run_family_phases(kernels)
+    agg_err, ota_err = run_family_phases(kernels)
+    errs["weighted_aggregate"] = max(errs["weighted_aggregate"], agg_err)
+    errs["ota_aggregate"] = max(errs["ota_aggregate"], ota_err)
 
     rows = []
     for kern in kernels:

@@ -14,10 +14,7 @@ body).  ``FLConfig.model`` resolves through
 :func:`repro_torch.models.fl_models.get_fl_model`, which raises the
 reference's ``ValueError`` for unknown names and for the vlm / encdec
 ids, as the reference does, so a run is never quietly a different
-simulation.  ``ShapeConfig`` and ``INPUT_SHAPES`` are the reference's
-assigned input shapes, which the LLM step functions
-(:mod:`repro_torch.launch.steps`) take.
-"""
+simulation."""
 from __future__ import annotations
 
 import dataclasses
@@ -147,24 +144,6 @@ class ModelConfig:
         shared = 3 * d * self.d_ff if self.moe_shared_expert else 0
         # base already counts one dense FFN; replace it with active experts
         return int(base + self.num_layers * (active_ff + shared - 3 * d * self.d_ff))
-
-
-@dataclasses.dataclass(frozen=True)
-class ShapeConfig:
-    """One of the four assigned input shapes."""
-
-    name: str
-    seq_len: int
-    global_batch: int
-    kind: str  # "train" | "prefill" | "decode"
-
-
-INPUT_SHAPES = {
-    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
-    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
-    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
-    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
-}
 
 
 @dataclasses.dataclass(frozen=True)

@@ -4,11 +4,12 @@ the TDMA baseline rates (paper §IV, Fig. 5): each device alone in its slot.
 The port's copy of ``repro/core/noma.py``.  The PS decodes the K superposed
 signals strongest received power first; user k's SINR (Eq. 5) is
 ``p_k h_k^2 / (sum of the later-decoded users' p h^2 + sigma^2)`` and its
-rate ``log2(1 + SINR)`` (Eq. 6).  :func:`sic_order`, :func:`sinr`,
-:func:`rates`, :func:`bit_budget` and :func:`weighted_sum_rate` take
-float32 tensors and compute in float32, as the reference's jnp functions do
-without x64 (``launch/train.py`` reads :func:`bit_budget`); their logs follow
-the rule of :func:`tdma_rates` below.
+rate ``log2(1 + SINR)`` (Eq. 6).  :func:`sinr`, :func:`rates` and
+:func:`bit_budget` take float32 tensors and compute in float32, as the
+reference's jnp functions do without x64 (``launch/train.py`` reads
+:func:`bit_budget`); their logs follow the rule of :func:`tdma_rates`
+below.  The reference's ``sic_order`` and ``weighted_sum_rate`` have no
+caller in the port yet.
 
 ``tdma_rates`` is the port's copy of ``repro.core.noma.tdma_rates``.  The
 reference computes it with jnp ops outside any jit and without x64, so in
@@ -41,14 +42,6 @@ def _f32(x, like=None) -> torch.Tensor:
     return t if like is None else t.to(like.device)
 
 
-def sic_order(powers, gains) -> torch.Tensor:
-    """Decode order (indices into the group, strongest received power
-    first; a stable sort, as ``jnp.argsort``)."""
-    powers, gains = _f32(powers), _f32(gains)
-    rx = powers * (gains * gains)
-    return torch.argsort(-rx, stable=True)
-
-
 def sinr(powers, gains, noise_power: float) -> torch.Tensor:
     """Per-user SINR under SIC decoding, in the input user order, float32
     (K,): each user is interfered only by the users decoded after it."""
@@ -78,13 +71,6 @@ def bit_budget(powers, gains, noise_power: float, bandwidth_hz: float,
     r = rates(powers, gains, noise_power)
     return r * float(np.float32(bandwidth_hz)) * float(np.float32(
         slot_seconds))
-
-
-def weighted_sum_rate(powers, gains, weights, noise_power: float):
-    """The objective's inner term sum_k w_k R_k for one NOMA group
-    (Eq. 8a), float32."""
-    r = rates(powers, gains, noise_power)
-    return torch.sum(_f32(weights, r) * r)
 
 
 def tdma_rates(powers, gains, noise_power: float):

@@ -1,5 +1,6 @@
-"""Step functions (train / prefill / serve) and their input specs: the port
-of ``repro/launch/steps.py``.
+"""Step functions (train / serve): the port of ``repro/launch/steps.py``
+(the prefill step and the input specs wait for ``launch/dryrun.py``,
+ROADMAP.md item 8d).
 
 The FL-NOMA integration at LLM scale: :func:`make_train_step` puts the
 paper's DoReFa quantize -> dequantize on the gradient tree between the
@@ -17,77 +18,12 @@ from __future__ import annotations
 
 from typing import Optional
 
-import numpy as np
 import torch
 
-from repro_torch.config import ModelConfig, ShapeConfig
 from repro_torch.core import compression
 from repro_torch.core import tree as tree_lib
-from repro_torch.models.params import AbstractParam
 from repro_torch.models.registry import Model
 
-# --------------------------------------------------------------------------
-# Abstract inputs (shape-and-dtype stand-ins; no allocation)
-# --------------------------------------------------------------------------
-
-_I32 = np.dtype(np.int32)
-_BF16 = "bfloat16"          # numpy has no bfloat16: the stand-in names it
-
-
-def enc_frames(shape: ShapeConfig) -> int:
-    """The audio frontend stub's length: 4 tokens per frame."""
-    return max(shape.seq_len // 4, 64)
-
-
-def _modal(cfg: ModelConfig, shape: ShapeConfig, b: int, enc_key: str):
-    out = {}
-    if cfg.family == "vlm":
-        out["img_feats"] = AbstractParam((b, cfg.num_image_tokens,
-                                          cfg.d_model), _BF16)
-    if cfg.family == "encdec":
-        out[enc_key] = AbstractParam((b, enc_frames(shape), cfg.d_model),
-                                     _BF16)
-    return out
-
-
-def input_specs(cfg: ModelConfig, shape: ShapeConfig):
-    """:class:`AbstractParam` stand-ins for every model input of this
-    shape."""
-    b, s = shape.global_batch, shape.seq_len
-    if shape.kind == "train":
-        return {"tokens": AbstractParam((b, s), _I32),
-                "labels": AbstractParam((b, s), _I32),
-                **_modal(cfg, shape, b, "enc_feats")}
-    if shape.kind == "prefill":
-        return {"tokens": AbstractParam((b, s), _I32),
-                **_modal(cfg, shape, b, "enc_feats")}
-    # decode: one new token against a seq_len-deep cache
-    return {"tokens": AbstractParam((b, 1), _I32),
-            **_modal(cfg, shape, b, "enc_out")}
-
-
-def abstract_cache(model: Model, shape: ShapeConfig):
-    """The cache tree of ``model.init_cache(batch, seq_len)`` as
-    :class:`AbstractParam` leaves, built under torch's fake-tensor mode
-    (shapes and dtypes only, no allocation)."""
-    from torch._subclasses.fake_tensor import FakeTensorMode
-
-    with FakeTensorMode():
-        caches = model.init_cache(shape.global_batch, shape.seq_len,
-                                  device="cpu")
-    return tree_lib.tree_map(
-        lambda x: AbstractParam(tuple(x.shape), _torch_dtype_name(x.dtype)),
-        caches)
-
-
-def _torch_dtype_name(dtype: torch.dtype):
-    return _BF16 if dtype == torch.bfloat16 else np.dtype(
-        str(dtype).replace("torch.", ""))
-
-
-# --------------------------------------------------------------------------
-# Steps
-# --------------------------------------------------------------------------
 
 def _value_and_grad(model: Model, params, batch, kv_chunk: int):
     """(loss, grads) of ``model.loss`` at ``params`` (a tree of float32
@@ -142,24 +78,6 @@ def make_train_step(model: Model, optimizer, *, fl_bits: Optional[int] = None,
         return new_params, new_state, loss
 
     return train_step
-
-
-def make_prefill_step(model: Model, shape: ShapeConfig, *,
-                      kv_chunk: int = 1024):
-    """(params, batch) -> (last logits, caches); the caches are built
-    inside, on the tokens' device."""
-
-    def prefill_step(params, batch):
-        tokens = batch["tokens"]
-        caches = model.init_cache(shape.global_batch, shape.seq_len,
-                                  device=tokens.device)
-        with torch.no_grad():
-            out = model.module.forward(params, tokens, model.cfg,
-                                       caches=caches, kv_chunk=kv_chunk)
-        logits, caches = out[0], out[1]
-        return logits[:, -1:], caches
-
-    return prefill_step
 
 
 def make_serve_step(model: Model, *, kv_chunk: int = 4096):

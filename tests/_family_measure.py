@@ -1,14 +1,14 @@
 """Measure the moe, ssm and hybrid families' and the trainer's differences
 from the reference.
 
-    PYTHONPATH=src python tests/_family_measure.py
+    PYTHONPATH=src python tests/_family_measure.py [fl [PREFIX] | launch]
 
 Runs the reference sides of tests/test_torch_families.py,
 tests/test_torch_families_fl.py and tests/test_torch_launch.py (their
 worker subprocesses, plus the FL runs those files leave out: the
-reference's scanned Mamba2, Zamba2 on both engines and in the scan, and the
-reference's op-by-op runs, its witness) and the port's counterparts on the CPU, and prints what the tests
-bound: per model the logits' difference in bf16 ulps of the largest logit,
+reference's scanned Mamba2 and Zamba2, and the reference's op-by-op runs,
+its witness) and the port's counterparts on the CPU, and prints what the
+tests bound: per model the logits' difference in bf16 ulps of the largest logit,
 the loss's and the moe aux loss's relative difference and the gradients'
 in bf16 ulps of each leaf's largest entry; the SSD scan's error relative
 to each output's largest magnitude; per FL run whether its logs equal the
@@ -100,18 +100,7 @@ def _parts(tmp):
               f"(of the largest magnitude)")
 
 
-FL_EXTRA = {
-    "mamba2-scan": dict(model="mamba2_130m:smoke", fl_engine="batched",
-                        use_pallas=True, horizon="scan"),
-    "zamba2-batched": dict(model="zamba2_7b:smoke", fl_engine="batched",
-                           use_pallas=True),
-    "zamba2-legacy": dict(model="zamba2_7b:smoke", fl_engine="legacy"),
-    "zamba2-scan": dict(model="zamba2_7b:smoke", fl_engine="batched",
-                        use_pallas=True, horizon="scan"),
-}
-
-
-def _fl(tmp):
+def _fl(tmp, only=""):
     import pytest
 
     import test_torch_families_fl as ff
@@ -123,17 +112,18 @@ def _fl(tmp):
     from test_torch_tokens import dropped_client_run
 
     Path(tmp).mkdir(parents=True)
-    runs = {**ff.RUNS, **FL_EXTRA}
-    spec = [dict(key=k, num_devices=ff.TOKEN_M, data=ff.DATA,
+    runs = {k: v for k, v in ff.PORT_RUNS.items() if k.startswith(only)}
+    spec = [dict(key=k, num_devices=ff.TOKEN_M, data=ff.data_of(k),
                  cfg=dict(ff.BASE, **v)) for k, v in runs.items()]
-    spec += [dict(key=f"{k}-witness", num_devices=ff.TOKEN_M, data=ff.DATA,
-                  cfg=dict(ff.BASE, **runs[k]), eager=True)
-             for k in ("mamba2-batched", "zamba2-batched")]
+    spec += [dict(key=f"{k}-witness", num_devices=ff.TOKEN_M,
+                  data=ff.data_of(k), cfg=dict(ff.BASE, **runs[k]),
+                  eager=True)
+             for k in ("mamba2-batched", "zamba2-batched") if k in runs]
     ref = run_reference(Path(tmp), "token_runs", {"runs": spec},
                         timeout=3600)
-    ds, cell, shards = ff.token_world(**ff.DATA)
     for key, over in runs.items():
-        cfg = FLConfig(**ff.BASE, **over)
+        ds, cell, shards = ff.token_world(**ff.data_of(key))
+        cfg = FLConfig(**{**ff.BASE, **over})
         res = fl.run_federated_learning(ds, shards, cell, cfg, device="cpu")
         want = {k[len(key) + 1:]: v for k, v in ref.items()
                 if k.startswith(key + "/")}
@@ -255,9 +245,17 @@ def _launch(tmp):
         print(f"serve {arch:24s}: {same:.3f} of the greedy tokens equal")
 
 
-def main() -> int:
-    _in_process()
+def main(argv) -> int:
+    """With no argument every reading; ``fl [prefix]`` (the FL runs whose
+    key starts with ``prefix``) or ``launch`` alone."""
     with tempfile.TemporaryDirectory() as tmp:
+        if argv[:1] == ["fl"]:
+            _fl(Path(tmp) / "fl", *argv[1:2])
+            return 0
+        if argv[:1] == ["launch"]:
+            _launch(Path(tmp) / "launch")
+            return 0
+        _in_process()
         _parts(Path(tmp) / "parts")
         _launch(Path(tmp) / "launch")
         _fl(Path(tmp) / "fl")
@@ -266,4 +264,4 @@ def main() -> int:
 
 if __name__ == "__main__":
     sys.path.insert(0, str(Path(__file__).resolve().parent))
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -690,10 +690,7 @@ def task_launch_parts(spec, arrays):
     (``step/<key>/loss/<i>``, ``step/<key>/final/<path>``).
     ``spec["train_main"]`` / ``spec["serve_main"]``: ``train.main(argv)``'s
     losses (``train/<key>``) and ``serve.main(argv)``'s tokens
-    (``serve/<key>``).  ``spec["abstract"]``: for each arch id at full
-    width, ``steps.input_specs`` of every input shape
-    (``spec/<id>/<shape>/<input>``) and ``steps.abstract_cache`` at
-    decode_32k (``cache/<id>/<path>``, ``cache_dtype/<id>/<path>``)."""
+    (``serve/<key>``)."""
     import jax
     import jax.numpy as jnp
     import numpy as np
@@ -733,19 +730,6 @@ def task_launch_parts(spec, arrays):
                                                  np.float64)
     for case in spec.get("serve_main", []):
         out[f"serve/{case['key']}"] = np.asarray(serve.main(case["argv"]))
-    from repro.config import INPUT_SHAPES
-    from repro.configs import get_config
-    from repro.utils.tree import tree_flatten_with_paths
-
-    for arch in spec.get("abstract", []):
-        model = build_model(get_config(arch))
-        for name, shape in INPUT_SHAPES.items():
-            for k, v in steps.input_specs(model.cfg, shape).items():
-                out[f"spec/{arch}/{name}/{k}"] = np.asarray(v.shape, np.int64)
-        caches = steps.abstract_cache(model, INPUT_SHAPES["decode_32k"])
-        for path, leaf in tree_flatten_with_paths(caches):
-            out[f"cache/{arch}/{path}"] = np.asarray(leaf.shape, np.int64)
-            out[f"cache_dtype/{arch}/{path}"] = np.asarray(str(leaf.dtype))
     return out
 
 
@@ -1059,33 +1043,107 @@ def write_family_reference(directory: str) -> None:
             fh.write("\n")
 
 
-# the full-width trainer runs of chip_smoke.py's [train:*] phases whose
-# losses are held to the reference's
+# the trainer runs of chip_smoke.py's [train:*] phases held to the
+# reference's: Mamba2-130M at full width, and the SMOKE Mixtral long enough
+# for its loss to fall (over 4 steps it rises, 6.712 -> 6.908)
 TRAIN_RECORDS = {
     "mamba2-130m": ["--arch", "mamba2-130m", "--steps", "20", "--batch",
                     "8", "--seq", "128"],
+    "mixtral-8x22b-smoke": ["--arch", "mixtral-8x22b", "--smoke", "--steps",
+                            "12", "--batch", "4", "--seq", "32"],
 }
+# the wrong run beside each: this (1-based) step's update thrown away
+TRAIN_DROPPED_STEP = 3
+# the runs whose final parameters are recorded too, at this many sampled
+# elements a leaf (every element of a smaller leaf)
+TRAIN_FINAL_SAMPLES = {"mamba2-130m": 512}
 
 
-def write_train_reference(path: str) -> None:
-    """The reference's ``launch.train.main`` losses for each run of
-    ``TRAIN_RECORDS`` (full width, seed 0, adaptive NOMA bits), written as
-    JSON to ``path``."""
+def _train_run(argv, drop=None):
+    """``repro.launch.train.main(argv)``'s losses (float64) and final
+    parameters; ``drop``: the 1-based step whose parameter update is
+    thrown away (its optimizer state kept), as tests/test_torch_launch.py's
+    wrong runs."""
+    import contextlib
+    import io
+
     import numpy as np
 
     from repro.launch import train
 
-    runs = {name: {"argv": argv,
-                   "losses": [float(x) for x in np.asarray(
-                       train.main(list(argv)), np.float64)]}
-            for name, argv in TRAIN_RECORDS.items()}
+    real, calls, last = train.jax, [], {}
+
+    class Dropping:
+        def __getattr__(self, name):
+            return getattr(real, name)
+
+        def jit(self, fn, *args, **kwargs):
+            inner = real.jit(fn, *args, **kwargs)
+
+            def step(params, state, batch):
+                calls.append(1)
+                new, new_state, loss = inner(params, state, batch)
+                last["params"] = params if len(calls) == drop else new
+                return last["params"], new_state, loss
+
+            return step
+
+    train.jax = Dropping()
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            losses = np.asarray(train.main(list(argv)), np.float64)
+    finally:
+        train.jax = real
+    return [float(x) for x in losses], last["params"]
+
+
+def _final_samples(params, dropped, count):
+    """Per leaf: ``count`` flat indices (every index of a smaller leaf;
+    else drawn without repeats by ``default_rng(0)``) and the sound and
+    dropped runs' final elements there."""
+    import numpy as np
+
+    from repro.utils.tree import tree_flatten_with_paths
+
+    wrong = dict(tree_flatten_with_paths(dropped))
+    out = {}
+    for path, leaf in tree_flatten_with_paths(params):
+        flat = np.asarray(leaf, np.float32).reshape(-1)
+        n = flat.size
+        idx = (np.arange(n) if n <= count else np.sort(
+            np.random.default_rng(0).choice(n, count, replace=False)))
+        bad = np.asarray(wrong[path], np.float32).reshape(-1)
+        out[path] = {"index": [int(i) for i in idx],
+                     "values": [float(v) for v in flat[idx]],
+                     "dropped": [float(v) for v in bad[idx]]}
+    return out
+
+
+def write_train_reference(path: str) -> None:
+    """The reference's ``launch.train.main`` losses for each run of
+    ``TRAIN_RECORDS`` (seed 0, adaptive NOMA bits) and for the same run
+    with step ``TRAIN_DROPPED_STEP``'s update thrown away, and for the runs
+    of ``TRAIN_FINAL_SAMPLES`` both runs' final parameters at sampled
+    elements, written as JSON to ``path``."""
+    runs = {}
+    for name, argv in TRAIN_RECORDS.items():
+        losses, params = _train_run(argv)
+        dropped, wrong = _train_run(argv, drop=TRAIN_DROPPED_STEP)
+        runs[name] = {"argv": argv, "losses": losses,
+                      "dropped_losses": dropped}
+        if name in TRAIN_FINAL_SAMPLES:
+            runs[name]["final"] = _final_samples(
+                params, wrong, TRAIN_FINAL_SAMPLES[name])
     record = {
         "_command": ("PYTHONPATH=src JAX_PLATFORMS=cpu python "
                      "tests/_torch_reference_worker.py "
                      "--write-train-reference "
                      "tests/torch_reference/train_losses.json"),
-        "_what": ("repro.launch.train.main(argv) at full width on the CPU: "
-                  "each step's loss"),
+        "_what": ("repro.launch.train.main(argv) on the CPU: each step's "
+                  "loss; dropped_losses: the same run with step "
+                  "dropped_step's parameter update thrown away; final: "
+                  "both runs' final parameters at sampled flat indices"),
+        "dropped_step": TRAIN_DROPPED_STEP,
         "runs": runs,
     }
     with open(path, "w", encoding="utf-8") as fh:

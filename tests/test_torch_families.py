@@ -48,7 +48,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from test_torch_harness import (  # noqa: E402,F401
-    TOKEN_DATA, TOKEN_M, one_torch_thread, start_reference, token_world,
+    TOKEN_DATA, TOKEN_M, cached_plain_draws, one_torch_thread,
+    start_reference, token_world,
 )
 
 from repro_torch.config import FLConfig  # noqa: E402

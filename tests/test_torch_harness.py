@@ -34,6 +34,32 @@ def one_torch_thread():
     torch.set_num_threads(before)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def cached_plain_draws():
+    """The plain Threefry draws repeated within a test module come from a
+    cache: a draw is a function of its arguments alone, and the files that
+    import this fixture draw the same SMOKE models' initial weights many
+    times (each caller gets its own copy)."""
+    from repro_torch.core import prng
+
+    real, cache = prng.draw_plain, {}
+
+    def draw_plain(key, n, minval, maxval, *, normal=False, clip=None,
+                   device):
+        arg = (tuple(int(k) for k in np.asarray(key).reshape(-1)), int(n),
+               float(minval), float(maxval), bool(normal),
+               None if clip is None else tuple(map(float, clip)),
+               str(torch.device(device)))
+        if arg not in cache:
+            cache[arg] = real(key, n, minval, maxval, normal=normal,
+                              clip=clip, device=device)
+        return cache[arg].clone()
+
+    prng.draw_plain = draw_plain
+    yield
+    prng.draw_plain = real
+
+
 REPO = os.path.dirname(TESTS_DIR)
 WORKER = os.path.join(TESTS_DIR, "_torch_reference_worker.py")
 LEAVES = ("fc1/b", "fc1/w", "fc2/b", "fc2/w", "fc3/b", "fc3/w")

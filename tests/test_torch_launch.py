@@ -46,7 +46,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from test_torch_harness import (  # noqa: E402,F401
-    one_torch_thread, start_reference, tree_arrays,
+    cached_plain_draws, one_torch_thread, start_reference, tree_arrays,
 )
 
 from repro_torch.checkpoint import load_checkpoint  # noqa: E402
@@ -88,7 +88,6 @@ SERVE_ARCHS = ("mamba2-130m", "zamba2-7b", "mixtral-8x22b",
                "llama4-scout-17b-a16e")
 SERVE_EXACT = ("mamba2-130m", "mixtral-8x22b")
 SERVE_TIE_ULPS = 4
-ABSTRACT_ARCHS = ("qwen2_0_5b", "mixtral_8x22b", "mamba2_130m", "zamba2_7b")
 
 
 def _step_arrays():
@@ -124,7 +123,6 @@ def reference_job(tmp_path_factory, ckpt_dir):
             for k, (argv, _) in TRAIN_RUNS.items()],
         "serve_main": [dict(key=a, argv=["--arch", a, "--smoke"])
                        for a in SERVE_ARCHS],
-        "abstract": list(ABSTRACT_ARCHS),
     }
     job = start_reference(tmp_path_factory.mktemp("launch"), "launch_parts",
                           spec, arrays)
@@ -152,7 +150,7 @@ def _bf16_ulp(x):
 # in-process: noma, schedules, optimizers, error feedback
 # --------------------------------------------------------------------------
 
-@pytest.mark.parametrize("seed", range(6))
+@pytest.mark.parametrize("seed", range(12))
 def test_noma_sic_functions_match_the_reference(seed):
     import jax.numpy as jnp
 
@@ -162,14 +160,13 @@ def test_noma_sic_functions_match_the_reference(seed):
     k = 2 + seed % 3
     p = rng.uniform(0.0, 0.01, k).astype(np.float32)
     g = (10.0 ** rng.uniform(-8, -5, k)).astype(np.float32)
-    w = rng.uniform(0, 1, k).astype(np.float32)
     if seed == 5:
         p[:] = 0.01
         g[1] = g[0]                      # a tie in received power
+    if seed == 11:
+        p[0] = 0.0                       # a silent user
     noise, bw, slot = 1.6e-14, 4e6, 0.2
     pt, gt = torch.from_numpy(p), torch.from_numpy(g)
-    np.testing.assert_array_equal(noma.sic_order(pt, gt).numpy(),
-                                  np.asarray(ref.sic_order(p, g)))
     assert _ulps(noma.sinr(pt, gt, noise),
                  ref.sinr(jnp.asarray(p), jnp.asarray(g), noise)).max() == 0
     for got, want in (
@@ -178,9 +175,6 @@ def test_noma_sic_functions_match_the_reference(seed):
              ref.bit_budget(p, g, noise, bw, slot))):
         assert got.dtype == torch.float32
         assert _ulps(got, want).max() <= 2
-    got = noma.weighted_sum_rate(pt, gt, torch.from_numpy(w), noise)
-    np.testing.assert_allclose(float(got), float(ref.weighted_sum_rate(
-        p, g, w, noise)), rtol=1e-6)
 
 
 def test_schedules_match_the_reference():
@@ -351,6 +345,29 @@ def test_train_step_accumulates_interleaved_microbatches():
         np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-8, err_msg=p)
 
 
+def test_serve_step_takes_the_greedy_token_of_the_real_vocabulary():
+    """make_serve_step's argmax reads only the first ``vocab_size``
+    logits: a larger logit in the padded tail is never chosen; the caches
+    and the batch reach ``decode_step`` as given."""
+    seen = {}
+
+    class Fake:
+        class cfg:
+            vocab_size = 5
+
+        def decode_step(self, params, caches, tokens, *, batch, kv_chunk):
+            seen.update(caches=caches, batch=batch, kv_chunk=kv_chunk)
+            logits = torch.tensor([[[0.1, 0.7, 0.2, 0.0, 0.3, 9.0, 8.0]],
+                                   [[0.5, 0.1, 0.2, 0.4, 0.6, 7.0, 0.0]]])
+            return logits, "new caches"
+
+    batch = {"tokens": torch.zeros((2, 1), dtype=torch.int32)}
+    nxt, caches = steps.make_serve_step(Fake())(None, "caches", batch)
+    assert nxt.dtype == torch.int32 and nxt.tolist() == [[1], [4]]
+    assert caches == "new caches" and seen["caches"] == "caches"
+    assert seen["batch"] is batch and seen["kv_chunk"] == 4096
+
+
 def _run_train(argv, *, drop=None):
     """``train.main`` quietly on the CPU; ``drop``: the 1-based step whose
     parameter update is thrown away (a wrong run)."""
@@ -456,61 +473,12 @@ def test_serve_main_matches_the_reference(reference, arch):
         assert float((best - chosen).max()) <= tol
 
 
-@pytest.mark.parametrize("arch", ABSTRACT_ARCHS)
-def test_input_specs_and_abstract_cache_match_the_reference(reference, arch):
-    """Every input shape's stand-ins and the decode_32k cache at full
-    width: the reference's shapes and dtypes, with no allocation (the
-    Zamba2 cache alone would take 1.9 TB)."""
-    from repro_torch.config import INPUT_SHAPES
-    from repro_torch.configs import get_config
-
-    model = build_model(get_config(arch))
-    for name, shape in INPUT_SHAPES.items():
-        got = {k: tuple(v.shape) for k, v in
-               steps.input_specs(model.cfg, shape).items()}
-        pre = f"spec/{arch}/{name}/"
-        want = {k[len(pre):]: tuple(int(d) for d in v)
-                for k, v in reference.items() if k.startswith(pre)}
-        assert got == want, name
-    caches = steps.abstract_cache(model, INPUT_SHAPES["decode_32k"])
-    got = {p: (tuple(leaf.shape), str(leaf.dtype))
-           for p, leaf in tree_flatten_with_paths(caches)}
-    pre = f"cache/{arch}/"
-    want = {k[len(pre):]: (tuple(int(d) for d in v),
-                           str(reference[f"cache_dtype/{arch}/{k[len(pre):]}"]))
-            for k, v in reference.items() if k.startswith(pre)}
-    assert got == want
-
-
-@pytest.mark.parametrize("arch", ["mamba2-130m", "zamba2-7b",
-                                  "mixtral-8x22b"])
-def test_prefill_step_gives_the_last_logits_and_filled_caches(arch):
-    """make_prefill_step: the last position's logits of a forward through
-    fresh caches, within the reference's decode bound of the cacheless
-    forward's, and the attention caches' length the prompt's."""
-    from repro_torch.config import ShapeConfig
-
-    cfg = get_smoke(arch)
-    model = build_model(cfg)
-    params = model.init(prng.prng_key(0), device="cpu")
-    tokens = prng.randint(prng.fold_in(prng.prng_key(0), 1), (2, 12), 0,
-                          cfg.vocab_size, device="cpu")
-    step = steps.make_prefill_step(model, ShapeConfig("p", 16, 2, "prefill"))
-    last, caches = step(params, {"tokens": tokens})
-    with torch.no_grad():
-        full = model.forward(params, {"tokens": tokens})[0][:, -1:]
-    err = float((last - full).abs().max())
-    assert err <= 0.05 * float(full.abs().max()) + 0.05
-    lens = [leaf for p, leaf in tree_flatten_with_paths(caches)
-            if p.endswith("len")]
-    assert all(int(x.reshape(-1)[0]) == 12 for x in lens)
-
-
 def test_train_reference_record_is_the_trainers_run():
     """tests/torch_reference/train_losses.json (written by the reference,
-    its command in the file) holds a full-width run of the port's trainer
-    flags, one finite loss a step; chip_smoke.py holds the card's losses
-    to it."""
+    its command in the file) holds the trainer runs chip_smoke.py holds the
+    card's losses to: Mamba2-130M at full width and the SMOKE Mixtral, one
+    finite loss a step, falling; beside each the wrong run that threw away
+    one step's update: the same losses up to that step, others after."""
     import json
     import os
 
@@ -519,11 +487,19 @@ def test_train_reference_record_is_the_trainers_run():
     with open(path, encoding="utf-8") as fh:
         record = json.load(fh)
     assert "--write-train-reference" in record["_command"]
-    run = record["runs"]["mamba2-130m"]
-    args = train.parser().parse_args(run["argv"])
-    assert (args.arch, args.smoke, args.steps, args.batch, args.seq) == (
-        "mamba2-130m", False, 20, 8, 128)
-    assert args.fl_bits is None and not args.no_fl and not args.ef
-    losses = np.asarray(run["losses"])
-    assert losses.shape == (args.steps,) and np.all(np.isfinite(losses))
-    assert losses[-1] < losses[0]
+    runs = record["runs"]
+    want = {"mamba2-130m": ("mamba2-130m", False, 20, 8, 128),
+            "mixtral-8x22b-smoke": ("mixtral-8x22b", True, 12, 4, 32)}
+    assert set(runs) == set(want)
+    drop = record["dropped_step"]
+    for name, run in runs.items():
+        args = train.parser().parse_args(run["argv"])
+        assert (args.arch, args.smoke, args.steps, args.batch,
+                args.seq) == want[name]
+        assert args.fl_bits is None and not args.no_fl and not args.ef
+        losses = np.asarray(run["losses"])
+        wrong = np.asarray(run["dropped_losses"])
+        assert losses.shape == wrong.shape == (args.steps,)
+        assert np.all(np.isfinite(losses)) and losses[-1] < losses[0]
+        np.testing.assert_array_equal(wrong[:drop], losses[:drop])
+        assert np.all(wrong[drop:] != losses[drop:])
