@@ -179,7 +179,26 @@ package, and exits non-zero on the first failure.  Phases:
      elements, tokens to the plain per-token forward); ``launch.train`` at
      full width on Qwen2-0.5B (also with error feedback) and Mamba2-130M
      (each step's loss held to the reference's record), a save / resume
-     round trip, and the SMOKE Mixtral (``[train:*]``).
+     round trip, and the SMOKE Mixtral (``[train:*]``);
+ 17. the encdec and vlm families with their modality inputs: the Threefry
+     kernel's bf16 normals (jax.random's bfloat16 draw, one launch) equal
+     its plain version's on the card and the CPU's bits, the image
+     features' draw timed (``[draws:bf16]``); the SMOKE SeamlessM4T and
+     Llama-3.2-Vision (gates set non-zero) on the CPU and on the card:
+     initial weights bit-equal, logits, decode and served tokens held
+     (``[cpu-vs-card:multimodal]``); ``launch.serve`` on SeamlessM4T-medium
+     at full width and depth, its initial weights, frame embeddings and
+     one batch's loss against tests/torch_reference/seamless_m4t_medium.json
+     (``[ref:seamless-m4t-medium]``), and on Llama-3.2-Vision-90B at its
+     published widths cut to 5 layers (one site), its weights and image
+     features against the record (``[ref:llama-3.2-vision-90b]``), once at
+     init and once with its gates set non-zero (``[serve:*]``, tokens
+     held to the plain per-token forward); ``launch.train`` on
+     SeamlessM4T-medium at full width with the reference's defaults
+     (``[train:seamless-m4t-medium]``), and the SMOKE SeamlessM4T and
+     Llama-3.2-Vision held to tests/torch_reference/
+     train_losses_multimodal.json (``[train:seamless-smoke]``,
+     ``[train:llama-vision-smoke]``).
 
 The last lines are the card's name and power limit as nvidia-smi reports
 them, one JSON object with every kernel's numbers, and the one-line result
@@ -188,6 +207,7 @@ them, one JSON object with every kernel's numbers, and the one-line result
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import dataclasses
 import json
 import math
@@ -3147,36 +3167,45 @@ def _bf16_ulp(x):
     return 2.0 ** (math.floor(math.log2(x)) - 7)
 
 
-def run_serve_phase(arch, num_layers, gen=16):
+def run_serve_phase(arch, num_layers, gen=16, gates=None, checks=None):
     """``[serve:<arch>]``: ``launch.serve`` at the published widths (depth
     cut to ``num_layers`` where given), batch 4, prompt 32, 16 tokens, on
-    the card.  The initial weights at the record's indices equal the
-    reference's; the greedy tokens are held against the plain per-token
-    forward on the card (each step's full forward over the sequence so
-    far, no cache): every token is that forward's best logit within 4
-    bf16 ulps (a near-tie may flip a choice, as in the CPU tests).  Prints
-    the prefill seconds and the decode tokens per second."""
+    the card; a vlm's initial gates set to ``gates`` where given (its
+    cross layers are the identity at init).  The initial weights at the
+    record's indices equal the reference's (at init; ``checks(out)`` reads
+    the run's output further); the greedy tokens are held against the
+    plain per-token forward on the card (each step's full forward over the
+    sequence so far, no cache, with the run's modality inputs): every
+    token is that forward's best logit within 4 bf16 ulps (a near-tie may
+    flip a choice, as in the CPU tests).  Prints the prefill seconds and
+    the decode tokens per second."""
     from repro_torch.launch import serve
 
     argv = ["--arch", arch, "--batch", "4", "--prompt-len", "32", "--gen",
             str(gen), "--device", "cuda"]
     if num_layers:
         argv += ["--num-layers", str(num_layers)]
-    label = f"[serve:{arch}]"
+    label = f"[serve:{arch}{'-gated' if gates else ''}]"
     torch.cuda.reset_peak_memory_stats()
-    out, wall = _timed(lambda: serve.run(argv))
+    with _gated_init(gates):
+        out, wall = _timed(lambda: serve.run(argv))
     peak = torch.cuda.max_memory_allocated()
     model, params, tokens = out["model"], out["params"], out["tokens"]
+    extras = out["extras"]
     cfg = model.cfg
-    record = _record(arch.replace("-", "_").replace(".", "_"))
-    check(record["num_layers"] == cfg.num_layers,
-          f"{label} record has {record['num_layers']} layers")
-    _check_record_elements(params, record, label)
+    if gates is None:
+        record = _record(arch.replace("-", "_").replace(".", "_"))
+        check(record["num_layers"] == cfg.num_layers,
+              f"{label} record has {record['num_layers']} layers")
+        _check_record_elements(params, record, label)
+    if checks is not None:
+        checks(out)
     seq = torch.cat([out["prompts"], tokens[:, :-1]], dim=1)
     flips, worst = 0, 0.0
     with torch.no_grad():
         for i in range(gen):
-            logits = model.forward(params, {"tokens": seq[:, :32 + i]})[0]
+            logits = model.module.forward(params, seq[:, :32 + i], cfg,
+                                          **extras)[0]
             last = logits[:, -1, : cfg.vocab_size]
             best = last.max(-1).values
             chosen = torch.gather(last, -1, tokens[:, i:i + 1].long())[:, 0]
@@ -3192,11 +3221,12 @@ def run_serve_phase(arch, num_layers, gen=16):
         f"({n_params} parameters), batch 4, prompt 32, {gen} tokens: prefill "
         f"{out['prefill_s']:.3f} s, decode {out['decode_s']:.3f} s "
         f"({gen * 4 / out['decode_s']:.1f} tok/s), whole run {wall:.1f} s "
-        f"(the initial draw included), peak {peak / 2**30:.2f} GiB; the "
-        f"record's initial elements equal the reference's; tokens against "
-        f"the plain per-token forward: {flips} near-tie flips, worst gap "
-        f"{worst:.3g} ({CARD})")
-    del out, model, params, tokens, seq
+        f"(the initial draw included), peak {peak / 2**30:.2f} GiB; "
+        + ("the record's initial elements equal the reference's; "
+           if gates is None else f"gates (attn, mlp) set to {gates}; ")
+        + f"tokens against the plain per-token forward: {flips} near-tie "
+        f"flips, worst gap {worst:.3g} ({CARD})")
+    del out, model, params, tokens, seq, extras
     torch.cuda.empty_cache()
 
 
@@ -3380,6 +3410,334 @@ def run_family_phases(kernels):
     return errs
 
 
+# --------------------------------------------------------------------------
+# the encdec and vlm families: modality draws, server and trainer
+# --------------------------------------------------------------------------
+
+MULTIMODAL = ("seamless_m4t_medium", "llama_3_2_vision_90b")
+VLM_GATES = [0.5, -0.7]     # tests/test_torch_multimodal*.py's GATES
+# (seed, fold_in data, n): odd sizes, sizes above 2^16, and the image
+# features of [serve:llama-3.2-vision-90b] (4 x 1600 x 8192)
+BF16_DRAWS = ((0, 2, 1), (0, 3, 65_537), (3, 7, 12_345), (1, 0, 131_075),
+              (0, 2, 4 * 1600 * 8192))
+# the full-width SeamlessM4T loss against the record, relative: the CPU
+# port's SMOKE loss is within 3.5e-4 of the reference's
+# (tests/test_torch_multimodal.py), the card's bf16 products add their own
+SEAMLESS_LOSS_RTOL = 1e-3
+# [train:seamless-smoke] / [train:llama-vision-smoke] against the
+# reference's record (tests/torch_reference/train_losses_multimodal.json):
+# the final parameters' worst leaf mean drift over the sampled elements,
+# the vlm's two gates left out (F5, ROADMAP.md queue 3), between the sound
+# run and the record's dropped-step run (the CPU port over the record's 12
+# steps: 8.4e-6 / 1.86e-5 and 6.1e-6 / 1.56e-5)
+MULTIMODAL_TRAIN_DRIFT = {"seamless-smoke": 1e-5,
+                          "llama-vision-smoke": 1.1e-5}
+F5_GATES = ("cross_layers/gate_attn", "cross_layers/gate_mlp")
+
+
+@contextlib.contextmanager
+def _gated_init(gates):
+    """``Model.init`` setting a vlm's gates to ``gates`` inside the block
+    (nothing when ``gates`` is None), as the tests set them."""
+    from repro_torch.models import registry
+
+    real = registry.Model.init
+
+    def init(model, key, *, device=None):
+        params = real(model, key, device=device)
+        if model.cfg.family == "vlm":
+            cross = params["cross_layers"]
+            for name, value in zip(("gate_attn", "gate_mlp"), gates):
+                cross[name] = torch.full_like(cross[name], value)
+        return params
+
+    if gates is not None:
+        registry.Model.init = init
+    try:
+        yield
+    finally:
+        registry.Model.init = real
+
+
+def _bf16_bits(x):
+    return x.view(torch.int16).cpu()
+
+
+def check_bf16_draws():
+    """``[draws:bf16]``: the Threefry kernel's bf16 normals (one launch a
+    draw) equal its plain version's on the card and, up to 2^20 values,
+    the CPU's to the bit (above, the CPU's at sampled indices); the
+    serve draw of the image features timed beside the plain version."""
+    from repro_torch.core import prng
+    from repro_torch.kernels.threefry import threefry_draw
+
+    for seed, fold, n in BF16_DRAWS:
+        key = prng.fold_in(prng.prng_key(seed), fold)
+        before = threefry_draw.launches
+        card = prng.normal(key, n, device="cuda", dtype=torch.bfloat16)
+        check(threefry_draw.launches == before + 1 and card.dtype
+              == torch.bfloat16 and card.shape == (n,),
+              f"[draws:bf16] {n}: one bf16 launch")
+        plain = prng.normal_bf16_plain(key, n, device="cuda")
+        check(torch.equal(_bf16_bits(card), _bf16_bits(plain)),
+              f"[draws:bf16] {n}: kernel != plain on the card")
+        if n <= 1 << 20:
+            host = prng.normal(key, n, device="cpu", dtype=torch.bfloat16)
+            check(torch.equal(_bf16_bits(card), _bf16_bits(host)),
+                  f"[draws:bf16] {n}: card != CPU")
+        else:
+            idx = torch.randint(0, n, (4096,), generator=torch.Generator()
+                                .manual_seed(seed))
+            x0, x1 = prng.threefry2x32(key, idx >> 32, idx & prng.MASK32)
+            host = prng.bf16_normal_table("cpu")[((x0 ^ x1) & 0xFF) >> 1]
+            check(torch.equal(card[idx.to("cuda")].float().cpu(), host),
+                  f"[draws:bf16] {n}: card != CPU at sampled indices")
+        del card, plain
+    key = prng.fold_in(prng.prng_key(0), 2)
+    n = BF16_DRAWS[-1][2]
+    ms = _device_ms(lambda: prng.normal(key, n, device="cuda",
+                                        dtype=torch.bfloat16))
+    plain_ms, _ = _busy_ms(lambda: prng.normal_bf16_plain(key, n,
+                                                          device="cuda"))
+    bound = max(2 * n / PEAK_BYTES_PER_S,
+                n * THREEFRY_OPS / PEAK_F32_FLOPS) * 1e3
+    log(f"[draws:bf16] {len(BF16_DRAWS)} draws of jax.random's bf16 normals "
+        f"(1 to {n} values): the kernel equals its plain version on the "
+        f"card and the CPU's bits, one launch each; the image features' "
+        f"draw ({n} values) {ms:.4f} ms on the card, plain {plain_ms:.4f} "
+        f"ms, bound {bound:.4f} ms (operations) ({CARD})")
+    torch.cuda.empty_cache()
+
+
+def _mm_batch(cfg, seed, device):
+    """A seeded SMOKE batch: tokens, labels and the family's modality
+    input, numpy normals rounded to bf16."""
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(0, cfg.vocab_size, (2, 8)).astype(np.int32)
+    labels = rng.integers(0, cfg.vocab_size, (2, 8)).astype(np.int32)
+    frames = cfg.num_image_tokens if cfg.family == "vlm" else 8
+    feats = rng.standard_normal((2, frames, cfg.d_model)).astype(np.float32)
+    name = "img_feats" if cfg.family == "vlm" else "enc_feats"
+    return {"tokens": torch.from_numpy(tokens).to(device),
+            "labels": torch.from_numpy(labels).to(device),
+            name: torch.from_numpy(feats).to(torch.bfloat16).to(device)}
+
+
+def _mm_readings(model, params, batch):
+    """(logits, decode step after an S-1 prefill, full forward's last
+    position) of a SMOKE multimodal model."""
+    from repro_torch.models import encdec
+
+    cfg = model.cfg
+    toks = batch["tokens"]
+    b, s = toks.shape
+    with torch.no_grad():
+        full = model.forward(params, batch)[0]
+        caches = model.init_cache(b, s + 4, device=toks.device)
+        if cfg.family == "encdec":
+            extra = {"enc_out": encdec.encode(params, batch["enc_feats"],
+                                              cfg)}
+        else:
+            extra = {"img_feats": batch["img_feats"]}
+        out = model.module.forward(params, toks[:, :s - 1], cfg,
+                                   caches=caches, **extra)
+        step, _ = model.decode_step(params, out[1], toks[:, s - 1:],
+                                    batch=extra)
+    return full.float().cpu(), step.float().cpu()
+
+
+def _decode_contract(got, want):
+    """tests/test_models_smoke.py's decode contract: err <= 0.05 * scale +
+    0.05; returns (err, bound)."""
+    err = float((got - want).abs().max())
+    return err, 0.05 * float(want.abs().max()) + 0.05
+
+
+def compare_multimodal_cpu_and_card():
+    """``[cpu-vs-card:multimodal]``: the SMOKE SeamlessM4T and
+    Llama-3.2-Vision (gates set) on the CPU and on the card: initial
+    weights bit-equal; logits and the decode step within the reference's
+    decode contract of each other (bf16 products summed in other orders),
+    the card's decode step within it of the card's full forward; and
+    ``launch.serve``'s tokens, equal or near-tie flips within 4 bf16 ulps
+    of the card's full forward's best."""
+    import io
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.core import prng
+    from repro_torch.launch import serve
+    from repro_torch.models.registry import build_model
+
+    for i, arch in enumerate(MULTIMODAL):
+        cfg = get_smoke(arch)
+        model = build_model(cfg)
+        label = f"[cpu-vs-card:multimodal] {cfg.name}"
+        with _gated_init(VLM_GATES if cfg.family == "vlm" else None):
+            host_p = model.init(prng.prng_key(0), device="cpu")
+            card_p = model.init(prng.prng_key(0), device="cuda")
+        for a, b in zip(_leaves(host_p), _leaves(card_p)):
+            _bits_equal(b, a)
+        host = _mm_readings(model, host_p, _mm_batch(cfg, 30 + i, "cpu"))
+        card = _mm_readings(model, card_p, _mm_batch(cfg, 30 + i, "cuda"))
+        errs = []
+        for what, got, want in (("logits", card[0], host[0]),
+                                ("decode step", card[1], host[1]),
+                                ("card step vs card full", card[1][:, 0],
+                                 card[0][:, -1])):
+            err, bound = _decode_contract(got, want)
+            check(err <= bound, f"{label} {what}: {err} > {bound}")
+            errs.append(f"{what} {err:.3g} ({err / _bf16_ulp(float(want.abs().max())):.2g} ulps)")
+        argv = ["--arch", arch, "--smoke"]
+        with _gated_init(VLM_GATES if cfg.family == "vlm" else None):
+            with contextlib.redirect_stdout(io.StringIO()):
+                on_cpu = serve.main(argv + ["--device", "cpu"])
+                out = serve.run(argv + ["--device", "cuda"])
+        on_card = out["tokens"].cpu()
+        same = float((on_card == on_cpu).float().mean())
+        if same < 1.0:
+            seq = torch.cat([out["prompts"], out["tokens"][:, :-1]], dim=1)
+            with torch.no_grad():
+                logits = model.module.forward(out["params"], seq, cfg,
+                                              **out["extras"])[0]
+            logits = logits[:, 31:, : cfg.vocab_size]
+            best = logits.max(-1).values
+            chosen = torch.gather(logits, -1,
+                                  out["tokens"].long()[..., None])[..., 0]
+            tol = SERVE_TIE_ULPS * _bf16_ulp(float(logits.abs().max()))
+            check(float((best - chosen).max()) <= tol,
+                  f"{label} serve tokens leave the near-tie bound")
+        log(f"{label}: initial weights bit-equal; CPU against card "
+            f"{'; '.join(errs)} (the decode contract 0.05 * scale + 0.05); "
+            f"serve tokens {same:.3f} equal")
+    torch.cuda.empty_cache()
+
+
+def _check_feats(values, record, label):
+    """A run's modality features at the record's flat indices equal the
+    reference's bf16 draw."""
+    feats = record["feats"]
+    idx = torch.tensor(feats["index"], dtype=torch.int64).to(values.device)
+    got = values.reshape(-1)[idx].float().cpu().numpy()
+    check(np.array_equal(got, np.asarray(feats["values"], np.float32)),
+          f"{label} features {got[:4]} != {feats['values'][:4]}")
+
+
+def check_seamless_reference(out):
+    """``[ref:seamless-m4t-medium]`` on ``[serve:seamless-m4t-medium]``'s
+    run: its full-width initial weights (the record's elements and sums),
+    its frame embeddings (the record's first 256 values of the serve
+    draw), and one fixed batch's loss against
+    tests/torch_reference/seamless_m4t_medium.json (written by the JAX
+    package; its command is in the file)."""
+    from repro_torch.core import prng
+
+    label = "[ref:seamless-m4t-medium]"
+    record = _record("seamless_m4t_medium")
+    model, params = out["model"], out["params"]
+    worst = _check_record_elements(params, record, label)
+    key = prng.fold_in(prng.prng_key(0), record["feats"]["fold_in"])
+    shape = record["feats"]["shape"]
+    feats = prng.normal(key, int(np.prod(shape)), device="cuda",
+                        dtype=torch.bfloat16)
+    _check_feats(feats, record, label)
+    shape = record["loss_feats_shape"]
+    batch = {"tokens": torch.tensor(record["tokens"], dtype=torch.int32,
+                                    device="cuda"),
+             "labels": torch.tensor(record["labels"], dtype=torch.int32,
+                                    device="cuda"),
+             "enc_feats": feats[:int(np.prod(shape))].reshape(shape)}
+    with torch.no_grad():
+        loss = float(model.loss(params, batch))
+    rel = abs(loss - record["loss"]) / abs(record["loss"])
+    check(rel <= SEAMLESS_LOSS_RTOL,
+          f"{label} loss {loss!r} against {record['loss']!r}")
+    log(f"{label} {len(record['leaves'])} leaves ({record['param_count']} "
+        f"parameters) drawn on the card: the recorded elements equal the "
+        f"reference's, sums within float64 summation error (worst "
+        f"{worst:.3g} of sum |x|); the serve draw's frame embeddings equal "
+        f"the record's {len(record['feats']['index'])} values; the loss of "
+        f"the fixed 2 x 16 batch {loss!r} against the reference's "
+        f"{record['loss']!r}: relative {rel:.3g} (bound "
+        f"{SEAMLESS_LOSS_RTOL})")
+
+
+def check_vision_reference(out):
+    """``[ref:llama-3.2-vision-90b]`` on ``[serve:llama-3.2-vision-90b]``'s
+    run: the image features at the record's sampled indices (the initial
+    weights' are held by the serve phase itself)."""
+    label = "[ref:llama-3.2-vision-90b]"
+    record = _record("llama_3_2_vision_90b")
+    _check_feats(out["extras"]["img_feats"], record, label)
+    log(f"{label} {record['num_layers']} layers ({record['param_count']} "
+        f"parameters) drawn on the card: the {len(record['leaves'])} "
+        f"leaves' recorded elements equal the reference's; the serve draw's "
+        f"image features {tuple(out['extras']['img_feats'].shape)} equal "
+        f"the record's {len(record['feats']['index'])} sampled values")
+
+
+def check_multimodal_train_record(name):
+    """``[train:<name>]``: the SMOKE run of tests/torch_reference/
+    train_losses_multimodal.json (written by the JAX package) on the card,
+    a vlm's gates set as the record's: the final parameters' worst leaf
+    mean drift over the sampled elements within
+    ``MULTIMODAL_TRAIN_DRIFT[name]``, which the record's wrong run (one
+    step's update thrown away) leaves; each step's loss printed beside
+    the reference's."""
+    from repro_torch.utils.tree import tree_flatten_with_paths
+
+    with open(os.path.join(REPO, "tests", "torch_reference",
+                           "train_losses_multimodal.json"),
+              encoding="utf-8") as fh:
+        record = json.load(fh)
+    want = record["runs"][name]
+    final = {}
+    with _gated_init(want["gates"]):
+        losses = run_train_phase(name, want["argv"], final)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, want["losses"]))
+    wrong_rel = max(abs(a - b) / abs(b) for a, b in zip(
+        want["dropped_losses"], want["losses"]))
+    params = dict(tree_flatten_with_paths(final["params"]))
+    check(params.keys() == want["final"].keys(), f"[train:{name}] leaves")
+    card = {path: params[path].reshape(-1)[torch.tensor(
+        rec["index"], device=params[path].device)].double().cpu()
+        for path, rec in want["final"].items()}
+    held = {p: r for p, r in want["final"].items() if p not in F5_GATES}
+    drift = _sampled_drift(card, held)
+    wrong = _sampled_drift({path: rec["dropped"] for path, rec
+                            in held.items()}, held)
+    limit = MULTIMODAL_TRAIN_DRIFT[name]
+    check(len(losses) == len(want["losses"]) and drift < limit < wrong,
+          f"[train:{name}] final drift {drift} (limit {limit}, the wrong "
+          f"run {wrong})")
+    gates = {p: float(card[p][0] - want["final"][p]["values"][0])
+             for p in F5_GATES if p in card}
+    log(f"[train:{name}] final parameters' worst leaf mean drift "
+        f"{drift:.3g} over the sampled elements (limit {limit}; the run "
+        f"that threw away step {record['dropped_step']}'s update: "
+        f"{wrong:.3g})"
+        + (f", the gates (F5) {gates}" if gates else "")
+        + f"; each step's loss within {rel:.3g} relative of the "
+        f"reference's (the wrong run's: {wrong_rel:.3g}); the reference's "
+        f"{want['losses'][0]:.4f} -> {want['losses'][-1]:.4f}")
+
+
+def run_multimodal_phases():
+    """The encdec and vlm slice's phases, in order."""
+    check_bf16_draws()
+    compare_multimodal_cpu_and_card()
+    run_serve_phase("seamless-m4t-medium", None,
+                    checks=check_seamless_reference)
+    run_serve_phase("llama-3.2-vision-90b", 5, checks=check_vision_reference)
+    run_serve_phase("llama-3.2-vision-90b", 5, gates=VLM_GATES)
+    losses = run_train_phase("seamless-m4t-medium", [
+        "--arch", "seamless-m4t-medium", "--steps", "20", "--batch", "8",
+        "--seq", "128"])
+    check(all(math.isfinite(x) for x in losses),
+          "[train:seamless-m4t-medium] a loss is not finite")
+    check_multimodal_train_record("seamless-smoke")
+    check_multimodal_train_record("llama-vision-smoke")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -3501,6 +3859,7 @@ def main() -> int:
     agg_err, ota_err = run_family_phases(kernels)
     errs["weighted_aggregate"] = max(errs["weighted_aggregate"], agg_err)
     errs["ota_aggregate"] = max(errs["ota_aggregate"], ota_err)
+    run_multimodal_phases()
 
     rows = []
     for kern in kernels:

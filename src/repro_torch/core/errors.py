@@ -58,11 +58,6 @@ ERR_SCAN_ONLINE_MAPEL = (
 
 # --- port-only rules --------------------------------------------------------
 
-ERR_NOT_PORTED = (
-    "{feature} is not ported to repro_torch yet: ROADMAP.md queue 1 "
-    "item {item} brings it"
-)
-
 ERR_NO_CUDA = (
     "device {device!r} requested but torch.cuda.is_available() is False; "
     "pass device='cpu' to run on the CPU explicitly"

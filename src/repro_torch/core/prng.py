@@ -16,9 +16,10 @@ same streams with torch, bit for bit, on any device:
     exponent of 1.0, subtracts 1 and returns ``max(lo, f * (hi - lo) +
     lo)``, the multiply-add fused as XLA compiles it on the CPU;
   * ``normal(key, n)`` is ``sqrt(2) * erf_inv(u)`` of a uniform on
-    ``[nextafter(-1, 0), 1)``, and ``truncated_normal`` the same of a
-    uniform on ``[erf(lower / sqrt 2), erf(upper / sqrt 2)]``, clipped
-    inside the open interval.
+    ``[nextafter(-1, 0), 1)`` (in bfloat16 the same of a bf16 uniform
+    made from the low byte of the bits, :func:`normal_bf16_plain`), and
+    ``truncated_normal`` the same of a uniform on ``[erf(lower / sqrt 2),
+    erf(upper / sqrt 2)]``, clipped inside the open interval.
 
 :func:`erf_inv` is XLA's float32 ``ErfInv`` (Giles' single-precision
 polynomial, branch at w = 5) as XLA compiles it for the CPU: ``log1p``
@@ -257,10 +258,48 @@ def erf_inv(x: torch.Tensor) -> torch.Tensor:
     return x * p
 
 
-def normal(key, n: int, *, device) -> torch.Tensor:
-    """``jax.random.normal(key, (n,), float32)``: (n,) float32 on
-    ``device``."""
+def normal(key, n: int, *, device, dtype=torch.float32) -> torch.Tensor:
+    """``jax.random.normal(key, (n,), dtype)``: (n,) on ``device``, for
+    ``dtype`` float32 or bfloat16 (:func:`normal_bf16_plain`); on a CUDA
+    device either is one Threefry launch."""
+    if dtype == torch.bfloat16:
+        if torch.device(device).type == "cuda":
+            return threefry_draw(key, n, NORMAL_LO, 1.0, normal=True,
+                                 dtype=torch.bfloat16, device=device)
+        return normal_bf16_plain(key, n, device=device)
+    if dtype != torch.float32:
+        raise ValueError(f"normal draws float32 or bfloat16, got {dtype}")
     return draw(key, n, NORMAL_LO, 1.0, normal=True, device=device)
+
+
+# jax.random's bfloat16 uniform on [nextafter(-1, 0), 1): bf16 has 7
+# mantissa bits (fewer than 8), so it draws 8-bit words (the low byte of
+# x0 ^ x1), shifts them right by one under the exponent of 1.0 and forms
+# f * span + lo in bf16, where span = bf16(1 - lo) rounds to 2 and every
+# step is exact: u = k / 64 - 255 / 256 for the 7-bit k.  The normal is
+# bf16(bf16(erf_inv(u)) * bf16(sqrt 2)): XLA takes the bf16 erf_inv as the
+# float32 one of the widened input, rounded to bf16, and the product in
+# bf16 with the constant sqrt(2) rounded to bf16 (1.4140625).
+BF16_LO = -255.0 / 256.0
+BF16_SQRT2 = 1.4140625
+
+
+def bf16_normal_table(device) -> torch.Tensor:
+    """The 128 values of jax.random's bfloat16 normal, by the 7-bit k
+    (float32 holding bf16 values)."""
+    k = torch.arange(128, dtype=torch.float32, device=device)
+    u = torch.clamp_min(k / 64.0 + BF16_LO, BF16_LO)      # exact
+    e = erf_inv(u).to(torch.bfloat16).to(torch.float32)
+    return (e * BF16_SQRT2).to(torch.bfloat16).to(torch.float32)
+
+
+def normal_bf16_plain(key, n: int, *, device) -> torch.Tensor:
+    """``jax.random.normal(key, (n,), bfloat16)`` in tensor ops: the
+    7-bit k = (x0 ^ x1) & 0xFF >> 1 of each index looks its value up in
+    :func:`bf16_normal_table` (the table is the formula at every k): the
+    plain version of the Threefry kernel's bf16 mode."""
+    k = (random_bits(key, n, device=device) & 0xFF) >> 1
+    return bf16_normal_table(device)[k].to(torch.bfloat16)
 
 
 def truncated_normal(key, lower: float, upper: float, n: int, *,

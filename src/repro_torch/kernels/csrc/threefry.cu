@@ -17,6 +17,9 @@
 // ota_aggregate.cu's keyed reduction includes too: see there for how it
 // equals jax.random's bits.
 //
+// The bf16 mode (threefry_normal_bf16) writes jax.random's bfloat16
+// normals, 2 bytes a value: see normal_bf16_value in threefry.cuh.
+//
 // What bounds it: operations.  It reads nothing and writes 4 bytes per
 // value; each value takes about 190 integer and float32 operations.  One
 // thread per value, a grid-stride loop.
@@ -51,6 +54,16 @@ __global__ void threefry_draw(uint32_t k0, uint32_t k1, int64_t n,
   }
 }
 
+__global__ void threefry_normal_bf16_kernel(uint32_t k0, uint32_t k1,
+                                            int64_t n,
+                                            __nv_bfloat16* __restrict__ out) {
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += stride) {
+    out[i] = __float2bfloat16_rn(normal_bf16_value(k0, k1, i));
+  }
+}
+
 int grid_for(int64_t work) {
   int64_t blocks = (work + kThreads - 1) / kThreads;
   const int64_t cap = 132 * 16;  // SMs x resident blocks; grid-stride beyond
@@ -68,6 +81,14 @@ int threefry_draw_f32(uint32_t k0, uint32_t k1, int64_t n, int normal,
   threefry_draw<<<grid_for(n), kThreads, 0,
                   static_cast<cudaStream_t>(stream)>>>(
       k0, k1, n, normal, lo, span, clip_lo, clip_hi, static_cast<float*>(out));
+  return (int)cudaGetLastError();
+}
+
+int threefry_normal_bf16(uint32_t k0, uint32_t k1, int64_t n, void* out,
+                         void* stream) {
+  threefry_normal_bf16_kernel<<<grid_for(n), kThreads, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
+      k0, k1, n, static_cast<__nv_bfloat16*>(out));
   return (int)cudaGetLastError();
 }
 

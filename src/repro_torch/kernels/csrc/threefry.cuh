@@ -23,10 +23,12 @@
 // jax.random agree to the bit.
 //
 // Cost per normal: the hash 118 integer operations, the uniform 6,
-// erf_inv about 66 (a fused multiply-add counted as two).
+// erf_inv about 66 (a fused multiply-add counted as two).  A bfloat16
+// normal (normal_bf16_value) takes the same hash and erf_inv.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -147,6 +149,22 @@ __device__ __forceinline__ float normal_f32(uint32_t k0, uint32_t k1,
                                             int64_t i, float lo, float span) {
   return __fmul_rn(erf_inv_f32(uniform_f32(k0, k1, i, lo, span)),
                    0x1.6a09e6p+0f);
+}
+
+// jax.random's bfloat16 normal of flat index i, as the float32 value of a
+// bf16: bf16 has 7 mantissa bits, so the draw takes the low byte of the
+// hash and the 7-bit k = byte >> 1 makes the exact uniform
+// u = k / 64 - 255 / 256 (the bf16 span 1 - lo rounds to 2); the normal is
+// bf16(bf16(erf_inv(u)) * 1.4140625), sqrt(2) rounded to bf16.
+__device__ __forceinline__ float normal_bf16_value(uint32_t k0, uint32_t k1,
+                                                  int64_t i) {
+  const uint32_t bits = threefry_bits(k0, k1, (uint32_t)(i >> 32),
+                                      (uint32_t)(i & 0xFFFFFFFF));
+  const float k = (float)((bits & 0xFFu) >> 1);
+  const float lo = -0x1.fep-1f;                     // -255 / 256
+  const float u = fmaxf(__fmaf_rn(k, 0x1p-6f, lo), lo);   // exact
+  const float e = __bfloat162float(__float2bfloat16_rn(erf_inv_f32(u)));
+  return __fmul_rn(e, 0x1.6ap+0f);   // exact: two 8-bit significands
 }
 
 }  // namespace

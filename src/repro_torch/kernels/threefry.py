@@ -43,6 +43,11 @@ def _library() -> ctypes.CDLL:
             ctypes.c_void_p, ctypes.c_void_p,
         ]
         lib.threefry_draw_f32.restype = ctypes.c_int
+        lib.threefry_normal_bf16.argtypes = [
+            ctypes.c_uint32, ctypes.c_uint32, ctypes.c_int64,
+            ctypes.c_void_p, ctypes.c_void_p,
+        ]
+        lib.threefry_normal_bf16.restype = ctypes.c_int
         lib.threefry_error_string.argtypes = [ctypes.c_int]
         lib.threefry_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -58,32 +63,43 @@ def uniform_bounds(minval: float, maxval: float):
 
 
 def threefry_draw(key, n: int, minval: float, maxval: float, *,
-                  normal: bool = False, clip=None, device) -> torch.Tensor:
+                  normal: bool = False, clip=None, dtype=torch.float32,
+                  device) -> torch.Tensor:
     """(n,) float32 on the CUDA ``device``: ``jax.random.uniform(key, (n,),
     float32, minval, maxval)``, or with ``normal`` ``sqrt(2) * erf_inv`` of
-    that uniform clamped to ``clip = (lo, hi)`` (``None``: unclamped)."""
+    that uniform clamped to ``clip = (lo, hi)`` (``None``: unclamped).
+    With ``dtype=torch.bfloat16`` (a normal on ``[nextafter(-1, 0), 1)``,
+    unclamped, only): ``jax.random.normal(key, (n,), bfloat16)``, (n,)
+    bfloat16 (``prng.normal_bf16_plain`` is its plain version)."""
     device = torch.device(device)
     if device.type != "cuda":
         raise ValueError(errors.ERR_BAD_DEVICE.format(device=str(device)))
+    bf16 = dtype == torch.bfloat16
+    if bf16 and not (normal and clip is None):
+        raise ValueError("the bfloat16 mode draws unclamped normals only")
     lib = _library()    # a failed build raises here, before any launch
     n = int(n)
-    out = torch.empty(n, dtype=torch.float32, device=device)
+    out = torch.empty(n, dtype=dtype, device=device)
     if n == 0:
         return out
     lo, span = uniform_bounds(minval, maxval)
     clip_lo, clip_hi = (-np.inf, np.inf) if clip is None else clip
+    k0, k1 = int(key[0]) & MASK32, int(key[1]) & MASK32
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        status = lib.threefry_draw_f32(
-            int(key[0]) & MASK32, int(key[1]) & MASK32, n, int(bool(normal)),
-            lo, span, float(clip_lo), float(clip_hi),
-            out.data_ptr(), stream,
-        )
+        if bf16:
+            status = lib.threefry_normal_bf16(k0, k1, n, out.data_ptr(),
+                                              stream)
+        else:
+            status = lib.threefry_draw_f32(
+                k0, k1, n, int(bool(normal)), lo, span, float(clip_lo),
+                float(clip_hi), out.data_ptr(), stream,
+            )
     if status != 0:
         reason = lib.threefry_error_string(status).decode()
+        name = "threefry_normal_bf16" if bf16 else "threefry_draw_f32"
         raise RuntimeError(
-            errors.ERR_KERNEL_LAUNCH.format(name="threefry_draw_f32",
-                                            reason=reason)
+            errors.ERR_KERNEL_LAUNCH.format(name=name, reason=reason)
         )
     threefry_draw.launches += 1
     return out

@@ -8,15 +8,19 @@ Runs on ``cuda`` unless ``--device cpu`` is given; ``--num-layers`` cuts
 the depth (a model too deep for one card runs at its published widths).
 The weights are drawn
 from ``--seed`` and the prompts are ``jax.random.randint(fold_in(key, 1),
-(batch, prompt_len), 0, vocab_size)``, the reference's.  Decoding goes
-through the families' own caches (``layers.chunked_attention`` for
-attention), as the reference's does.  The families the reference's
-registry runs but for encdec and vlm (ROADMAP.md item 8d).
+(batch, prompt_len), 0, vocab_size)``, the reference's; so are the
+modality inputs, bf16 normals: a vlm's image features under ``fold_in(key,
+2)`` (B, num_image_tokens, d_model), an encdec's frame embeddings under
+``fold_in(key, 3)`` (B, max(prompt_len, 8), d_model), encoded once before
+the prefill.  Decoding goes through the families' own caches
+(``layers.chunked_attention`` for attention), as the reference's does.
+Every family of the reference's registry runs.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import math
 import time
 
 import torch
@@ -33,18 +37,43 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def generate(model, params, prompts: torch.Tensor, gen: int):
-    """Prefill ``prompts`` (B, P) into fresh caches, then ``gen - 1``
-    greedy decode steps.  Returns (tokens (B, gen) int32, prefill seconds,
-    decode seconds)."""
+def modality_inputs(model, params, key, batch: int, prompt_len: int,
+                    device) -> dict:
+    """The reference's modality inputs of a serve run: a vlm's
+    ``img_feats``, an encdec's ``enc_out`` (its ``enc_feats`` encoded
+    once); none for the token families."""
     cfg = model.cfg
+    if cfg.family not in ("vlm", "encdec"):
+        return {}
+    vlm = cfg.family == "vlm"
+    frames = cfg.num_image_tokens if vlm else max(prompt_len, 8)
+    shape = (batch, frames, cfg.d_model)
+    feats = prng.normal(prng.fold_in(key, 2 if vlm else 3), math.prod(shape),
+                        device=device, dtype=torch.bfloat16).reshape(shape)
+    if vlm:
+        return {"img_feats": feats}
+    from repro_torch.models import encdec
+
+    with torch.no_grad():
+        return {"enc_out": encdec.encode(params, feats, cfg)}
+
+
+def generate(model, params, prompts: torch.Tensor, gen: int,
+             extras=None):
+    """Prefill ``prompts`` (B, P) into fresh caches, then ``gen - 1``
+    greedy decode steps; ``extras`` (:func:`modality_inputs`) go to the
+    prefill and to every step.  Returns (tokens (B, gen) int32, prefill
+    seconds, decode seconds)."""
+    cfg = model.cfg
+    extras = extras or {}
     device = prompts.device
     batch, prompt_len = prompts.shape
     caches = model.init_cache(batch, prompt_len + gen + 1, device=device)
     _sync(device)
     t0 = time.time()
     with torch.no_grad():
-        out = model.module.forward(params, prompts, cfg, caches=caches)
+        out = model.module.forward(params, prompts, cfg, caches=caches,
+                                   **extras)
     logits, caches = out[0], out[1]
     tok = torch.argmax(logits[:, -1:, : cfg.vocab_size], dim=-1).to(
         torch.int32)
@@ -55,7 +84,7 @@ def generate(model, params, prompts: torch.Tensor, gen: int):
     generated = [tok]
     t0 = time.time()
     for _ in range(gen - 1):
-        tok, caches = serve_step(params, caches, {"tokens": tok})
+        tok, caches = serve_step(params, caches, {"tokens": tok, **extras})
         generated.append(tok)
     _sync(device)
     t_decode = time.time() - t0
@@ -72,7 +101,9 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--num-layers", type=int, default=None,
                     help="cut the depth to this many layers (the widths "
-                         "stay the published ones); default: the config's")
+                         "stay the published ones; a vlm's must stay a "
+                         "multiple of its cross_attn_every); default: the "
+                         "config's")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     return ap
@@ -81,7 +112,8 @@ def parser() -> argparse.ArgumentParser:
 def run(argv=None) -> dict:
     """:func:`main`'s run, returning what it drew and measured: the
     ``tokens`` (B, gen), the ``model``, its ``params``, the ``prompts``,
-    and the ``prefill_s`` and ``decode_s`` seconds."""
+    the modality inputs ``extras``, and the ``prefill_s`` and ``decode_s``
+    seconds."""
     args = parser().parse_args(argv)
     device = resolve_device(args.device)
 
@@ -95,7 +127,10 @@ def run(argv=None) -> dict:
                            (args.batch, args.prompt_len), 0, cfg.vocab_size,
                            device=device)
 
-    gen, t_prefill, t_decode = generate(model, params, prompts, args.gen)
+    extras = modality_inputs(model, params, key, args.batch,
+                             args.prompt_len, device)
+    gen, t_prefill, t_decode = generate(model, params, prompts, args.gen,
+                                        extras)
     print(f"arch={cfg.name} prefill {args.prompt_len} tok in {t_prefill:.2f}s; "
           f"decoded {args.gen} tok in {t_decode:.2f}s "
           f"({args.gen * args.batch / max(t_decode, 1e-9):.1f} tok/s)")
@@ -103,7 +138,7 @@ def run(argv=None) -> dict:
     assert gen.shape == (args.batch, args.gen)
     assert bool(torch.all((gen >= 0) & (gen < cfg.vocab_size)))
     return dict(tokens=gen, model=model, params=params, prompts=prompts,
-                prefill_s=t_prefill, decode_s=t_decode)
+                extras=extras, prefill_s=t_prefill, decode_s=t_decode)
 
 
 def main(argv=None):

@@ -1,6 +1,6 @@
 """Step functions (train / serve): the port of ``repro/launch/steps.py``
-(the prefill step and the input specs wait for ``launch/dryrun.py``,
-ROADMAP.md item 8d).
+(the prefill step and the input specs come with ``launch/dryrun.py``,
+their one reader).
 
 The FL-NOMA integration at LLM scale: :func:`make_train_step` puts the
 paper's DoReFa quantize -> dequantize on the gradient tree between the

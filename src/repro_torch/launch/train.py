@@ -7,8 +7,10 @@
 Runs on ``cuda`` unless ``--device cpu`` is given.  Each step: a synthetic
 token batch -> forward / backward -> DoReFa-quantized gradients with the
 bits of the NOMA rate model (one simulated round per step, the K = 3 best
-channels standing in for the clients) -> AdamW.  The families the
-reference's registry runs but for encdec and vlm (ROADMAP.md item 8d).
+channels standing in for the clients) -> AdamW.  Every family of the
+reference's registry runs; a vlm's step also takes image features and an
+encdec's frame embeddings, bf16 normals drawn as the reference draws them
+(step i under ``fold_in(fold_in(key, 7), i)``).
 """
 from __future__ import annotations
 
@@ -53,6 +55,22 @@ def fl_bits_schedule(key, payload_bits: float, n_rounds: int,
         b = qlib.adaptive_bits(payload_bits, torch.min(budget))
         bits.append(int(b))
     return np.array(bits)
+
+
+def modality_batch(cfg, key, batch: int, seq: int, device) -> dict:
+    """A step's modality inputs under ``key``, the reference's: a vlm's
+    ``img_feats`` (batch, num_image_tokens, d_model), an encdec's
+    ``enc_feats`` (batch, max(seq // 4, 8), d_model), bf16 normals; none
+    for the token families."""
+    if cfg.family == "vlm":
+        name, frames = "img_feats", cfg.num_image_tokens
+    elif cfg.family == "encdec":
+        name, frames = "enc_feats", max(seq // 4, 8)
+    else:
+        return {}
+    n = batch * frames * cfg.d_model
+    feats = prng.normal(key, n, device=device, dtype=torch.bfloat16)
+    return {name: feats.reshape(batch, frames, cfg.d_model)}
 
 
 def parser() -> argparse.ArgumentParser:
@@ -142,12 +160,15 @@ def main(argv=None):
     # keep the data stream aligned with the step counter on resume
     for _ in range(start_step):
         next(data)
+    fkey = prng.fold_in(key, 7)
     losses = []
     t0 = time.time()
     for i in range(start_step, args.steps):
         tokens, labels = next(data)
         batch = {"tokens": torch.from_numpy(tokens).to(device),
                  "labels": torch.from_numpy(labels).to(device)}
+        batch.update(modality_batch(cfg, prng.fold_in(fkey, i), args.batch,
+                                    args.seq, device))
         params, opt_state, loss = get_step(int(bits_per_round[i]))(
             params, opt_state, batch)
         losses.append(float(loss))

@@ -18,9 +18,10 @@ Names, as the reference resolves them (:func:`get_fl_model`):
 
 Token models wrap a :mod:`repro_torch.models.registry` family with the
 masked next-token cross-entropy, over the reference's four token
-families (dense, moe, ssm, hybrid); vlm / encdec raise the reference's
-``ValueError`` (their forwards need modality features the client bank
-does not carry).  ``batch_loss`` and ``accuracy`` unpack two values from
+families (dense, moe, ssm, hybrid); vlm / encdec, which the registry
+builds and the trainer and server run, raise the reference's
+``ValueError`` here (their forwards need modality features the client
+bank does not carry).  ``batch_loss`` and ``accuracy`` unpack two values from
 the family's forward, as the reference's adapter does, so a moe payload
 (whose forward returns three) raises the reference's ``ValueError`` at its
 first loss: the reference accepts such a configuration and fails there.

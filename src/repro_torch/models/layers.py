@@ -1,5 +1,5 @@
 """Shared neural building blocks (plain functions over param dicts): the
-dense subset of ``repro/models/layers.py``.
+port of ``repro/models/layers.py``.
 
 Conventions, the reference's:
   * activations are (B, S, ...) with heads as (B, S, H, D);
@@ -15,8 +15,7 @@ optimization barrier that pins the embedding table's bf16 convert before
 the gather (its batching rule and ``_grad_safe_barrier``) — torch converts
 where the code says, so :func:`embed` converts the table first — and the
 activation-sharding hook ``constrain``, which comes with the mesh slice of
-the port.  Cross-attention (``attention_block``'s ``kv_source``) comes
-with the encoder-decoder and vision families.
+the port.
 """
 from __future__ import annotations
 
@@ -49,6 +48,15 @@ def _rms(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
 
 def rmsnorm(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return _rms(x, p["scale"], eps)
+
+
+def add_norm(x: torch.Tensor, h: torch.Tensor, p, eps: float):
+    """(x + h rounded to x's dtype, the norm ``p`` of the unrounded float32
+    sum, in x's dtype): the reference's compiled layer bodies fuse a
+    residual add into the next norm's float32 convert and feed the norm
+    the unrounded sum, while the residual stream carries it rounded."""
+    s = x.to(torch.float32) + h.to(torch.float32)
+    return s.to(x.dtype), rmsnorm(p, s, eps).to(x.dtype)
 
 
 # --------------------------------------------------------------------------
@@ -207,16 +215,24 @@ def attention_block(
     positions: Optional[torch.Tensor] = None,
     cache: Optional[dict] = None,     # {"k","v": (B, Smax, Hkv, hd), "len"}
     kv_chunk: int = 1024,
+    kv_source: Optional[torch.Tensor] = None,   # cross-attention memory
 ):
     """Returns (out (B, S, D), new_cache).
 
     With a self-attention ``cache`` the step's K and V are written at slot
     ``cache["len"]`` (a 0-d integer tensor, read on the host) and the
-    queries attend to the valid slots of the whole cache."""
+    queries attend to the valid slots of the whole cache.
+
+    With ``kv_source`` (B, Sm, D), cross-attention: K and V are projected
+    from the memory, neither side is rotated, every memory slot is visible
+    (the mask is non-causal whatever ``mask_spec`` says) and a ``cache``
+    comes back unchanged, so the memory's K and V are recomputed at every
+    decode step, as the reference does."""
     xc = x.to(COMPUTE_DTYPE)
+    src = xc if kv_source is None else kv_source.to(COMPUTE_DTYPE)
     q = _proj(xc, p["wq"])
-    k = _proj(xc, p["wk"])
-    v = _proj(xc, p["wv"])
+    k = _proj(src, p["wk"])
+    v = _proj(src, p["wv"])
     if cfg.qkv_bias:
         q = q + p["bq"].to(COMPUTE_DTYPE)
         k = k + p["bk"].to(COMPUTE_DTYPE)
@@ -225,16 +241,19 @@ def attention_block(
         q = _qk_head_norm(q, p["q_norm"], cfg.norm_eps)
         k = _qk_head_norm(k, p["k_norm"], cfg.norm_eps)
 
-    if positions is None:
-        positions = torch.arange(x.shape[1], device=x.device)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    if kv_source is None:       # no rope on cross-attention memories
+        if positions is None:
+            positions = torch.arange(x.shape[1], device=x.device)
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    else:
+        mask_spec = AttnMaskSpec(causal=False)
 
     new_cache = None
     q_offset = 0
     kv_valid = None
     if cache is not None:
-        if "k" in cache:
+        if "k" in cache and kv_source is None:
             idx = int(cache["len"])
             ck, cv = cache["k"].clone(), cache["v"].clone()
             ck[:, idx:idx + x.shape[1]] = k.to(ck.dtype)

@@ -1,9 +1,6 @@
 """Model registry: one uniform :class:`Model` facade per architecture
-family, the port of ``repro/models/registry.py``.
-
-The dense, moe, ssm and hybrid families are ported; the encdec and vlm
-families raise ``NotImplementedError`` naming the ``ROADMAP.md`` queue 1
-item that brings them.
+family, the port of ``repro/models/registry.py``: the dense, moe, ssm,
+hybrid, encdec and vlm families.
 """
 from __future__ import annotations
 
@@ -11,8 +8,7 @@ import dataclasses
 from typing import Any
 
 from repro_torch.config import ModelConfig
-from repro_torch.core import errors
-from repro_torch.models import hybrid, mamba2, moe, transformer
+from repro_torch.models import encdec, hybrid, mamba2, moe, transformer, vlm
 from repro_torch.models.params import (
     abstract_params, init_params,
 )
@@ -22,22 +18,16 @@ _FAMILIES = {
     "moe": moe,
     "ssm": mamba2,
     "hybrid": hybrid,
+    "encdec": encdec,
+    "vlm": vlm,
 }
-
-# the families of the reference's registry that a later slice brings
-UNPORTED_FAMILIES = ("encdec", "vlm")
 
 
 def family_module(family: str):
-    """The module of a ported family; ``NotImplementedError`` for a family
-    of the reference's registry that is not ported yet, ``KeyError`` for
-    an unknown one."""
-    if family in _FAMILIES:
-        return _FAMILIES[family]
-    if family in UNPORTED_FAMILIES:
-        raise NotImplementedError(errors.ERR_NOT_PORTED.format(
-            feature=f"model family {family!r}", item=8))
-    raise KeyError(f"unknown family {family!r}")
+    """The module of a family; ``KeyError`` for an unknown one."""
+    if family not in _FAMILIES:
+        raise KeyError(f"unknown family {family!r}")
+    return _FAMILIES[family]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,7 +51,9 @@ class Model:
         return self.module.loss_fn(params, batch, self.cfg, **kw)
 
     def forward(self, params, batch, **kw):
-        return self.module.forward(params, batch["tokens"], self.cfg, **kw)
+        extra = _modal_kwargs(self.cfg, batch)
+        return self.module.forward(params, batch["tokens"], self.cfg,
+                                   **extra, **kw)
 
     def init_cache(self, batch: int, max_len: int, *, device=None):
         return self.module.init_cache(self.cfg, batch, max_len,
@@ -69,9 +61,25 @@ class Model:
 
     def decode_step(self, params, caches, tokens, *, batch=None, **kw):
         """One decode step; ``batch`` carries the modality inputs of the
-        encdec and vlm families (none for the ported ones)."""
-        del batch
-        return self.module.decode_step(params, caches, tokens, self.cfg, **kw)
+        encdec (``enc_out``) and vlm (``img_feats``) families."""
+        extra = _modal_kwargs(self.cfg, batch or {}, decode=True)
+        return self.module.decode_step(params, caches, tokens, self.cfg,
+                                       **extra, **kw)
+
+
+def _modal_kwargs(cfg, batch, *, decode: bool = False):
+    """The modality inputs a family's forward takes from ``batch``: the
+    vlm's ``img_feats``; the encdec's ``enc_feats``, or at decode its
+    precomputed ``enc_out``."""
+    out = {}
+    if cfg.family == "vlm":
+        out["img_feats"] = batch["img_feats"]
+    if cfg.family == "encdec":
+        if decode:
+            out["enc_out"] = batch["enc_out"]
+        else:
+            out["enc_feats"] = batch["enc_feats"]
+    return out
 
 
 def build_model(cfg: ModelConfig, *, shards: int = 1) -> Model:

@@ -48,12 +48,7 @@ def transformer_block(p, x, cfg, *, mspec, positions, cache, kv_chunk):
         p["attn"], L.rmsnorm(p["ln1"], x, cfg.norm_eps), cfg,
         mask_spec=mspec, positions=positions, cache=cache, kv_chunk=kv_chunk,
     )
-    # The reference's compiled layer body fuses this residual add into the
-    # next norm's float32 convert and feeds the norm the unrounded float32
-    # sum; the residual stream itself carries the sum rounded to bf16.
-    s = x.to(torch.float32) + h.to(torch.float32)
-    x = s.to(x.dtype)
-    normed = L.rmsnorm(p["ln2"], s, cfg.norm_eps).to(x.dtype)
+    x, normed = L.add_norm(x, h, p["ln2"], cfg.norm_eps)
     x = x + L.mlp_block(p["mlp"], normed)
     return x, new_cache
 

@@ -4,6 +4,8 @@
     python tests/_torch_reference_worker.py --write-qwen2-reference <out.json>
     python tests/_torch_reference_worker.py --write-family-reference <dir>
     python tests/_torch_reference_worker.py --write-train-reference <out.json>
+    python tests/_torch_reference_worker.py --write-multimodal-reference <dir>
+    python tests/_torch_reference_worker.py --write-multimodal-train-reference <out.json>
 
 The JAX package cannot import ``repro.models`` (and hence ``repro.core.fl``)
 under JAX 0.9.0: ``models/layers.py`` asks ``x not in
@@ -690,7 +692,8 @@ def task_launch_parts(spec, arrays):
     (``step/<key>/loss/<i>``, ``step/<key>/final/<path>``).
     ``spec["train_main"]`` / ``spec["serve_main"]``: ``train.main(argv)``'s
     losses (``train/<key>``) and ``serve.main(argv)``'s tokens
-    (``serve/<key>``)."""
+    (``serve/<key>``), a vlm's initial gates set to the case's ``gates``
+    where given (:func:`_gated_init`)."""
     import jax
     import jax.numpy as jnp
     import numpy as np
@@ -726,10 +729,158 @@ def task_launch_parts(spec, arrays):
             out[f"{pre}/loss/{i}"] = np.asarray(loss)
         out.update(_tree_to_arrays(params, f"{pre}/final/"))
     for case in spec.get("train_main", []):
-        out[f"train/{case['key']}"] = np.asarray(train.main(case["argv"]),
-                                                 np.float64)
+        with _gated_init(case.get("gates")):
+            out[f"train/{case['key']}"] = np.asarray(
+                train.main(case["argv"]), np.float64)
     for case in spec.get("serve_main", []):
-        out[f"serve/{case['key']}"] = np.asarray(serve.main(case["argv"]))
+        with _gated_init(case.get("gates")):
+            out[f"serve/{case['key']}"] = np.asarray(serve.main(case["argv"]))
+    return out
+
+
+def _set_gates(params, gates):
+    """A vlm parameter tree with its cross layers' tanh gates set to
+    ``gates = (attn, mlp)`` (zero at init, which makes every cross layer
+    the identity)."""
+    import jax.numpy as jnp
+
+    cross = dict(params["cross_layers"])
+    for name, value in zip(("gate_attn", "gate_mlp"), gates):
+        cross[name] = jnp.full_like(cross[name], float(value))
+    return dict(params, cross_layers=cross)
+
+
+@contextlib.contextmanager
+def _gated_init(gates):
+    """``repro.models.registry.Model.init`` setting a vlm's gates to
+    ``gates`` (nothing when ``gates`` is None)."""
+    from repro.models import registry
+
+    real = registry.Model.init
+
+    def init(self, key):
+        params = real(self, key)
+        if self.cfg.family == "vlm":
+            params = _set_gates(params, gates)
+        return params
+
+    if gates is not None:
+        registry.Model.init = init
+    try:
+        yield
+    finally:
+        registry.Model.init = real
+
+
+def _modal_batch(cfg, arrays, pre):
+    """The modality input of a batch from float32 arrays holding bf16
+    values (``<pre>/feats``), as the family's loss reads it."""
+    import jax.numpy as jnp
+
+    feats = jnp.asarray(arrays[f"{pre}/feats"]).astype(jnp.bfloat16)
+    return {"img_feats" if cfg.family == "vlm" else "enc_feats": feats}
+
+
+def task_multimodal_parts(spec, arrays):
+    """The encdec and vlm families' parts in one process.
+
+    ``spec["models"]``: for each arch id, its SMOKE registry model
+    (``build_model(get_smoke(id))``, shards=1): the initial parameters
+    from ``PRNGKey(spec["seed"])`` (``<id>/init/<path>``); then, with a
+    vlm's gates set to ``spec["gates"]``, on the batch ``<id>/bx``,
+    ``by``, ``feats`` (float32 holding bf16 features) the forward's
+    logits, ``model.loss`` and its gradient (``<id>/logits``, ``loss``,
+    ``grad/<path>``); the decode of ``dec/<id>/tokens`` and ``feats``:
+    the full forward (``dec/<id>/full``) and one step after prefilling
+    all but the last token (``dec/<id>/step``; an encdec encodes its
+    features once).  ``spec["xattn"]``: ``attention_block(kv_source=)``
+    of an arch's SMOKE config on ``xattn/<key>/x``, ``src`` and the
+    parameters ``xattn/<key>/p/<path>``, with the case's ``kv_chunk``
+    (``xattn/<key>/out``).  ``spec["normals"]``: ``jax.random.normal(
+    fold_in(PRNGKey(seed), fold), (n,), bfloat16)``'s bits
+    (``normal/<i>``, uint16).  ``spec["schemas"]``: each arch id's
+    full-width schema, shapes only (``<id>/shape/<path>``).
+    ``spec["fl_errors"]``: the message of the ``ValueError`` that
+    ``get_fl_model`` and ``FLConfig(model=)`` raise for each arch id and
+    its ``:smoke`` (``err/<name>``, ``cfgerr/<name>``)."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from repro.configs import get_config, get_smoke
+    from repro.models import encdec
+    from repro.models import layers as L
+    from repro.models.params import abstract_params
+    from repro.models.registry import build_model
+    from repro.utils.tree import tree_flatten_with_paths
+
+    out = {}
+    key = jax.random.PRNGKey(int(spec.get("seed", 0)))
+    for arch in spec.get("models", []):
+        cfg = get_smoke(arch)
+        model = build_model(cfg)
+        params = model.init(key)
+        out.update(_tree_to_arrays(params, f"{arch}/init/"))
+        if cfg.family == "vlm":
+            params = _set_gates(params, spec["gates"])
+        batch = {"tokens": jnp.asarray(arrays[f"{arch}/bx"]),
+                 "labels": jnp.asarray(arrays[f"{arch}/by"]),
+                 **_modal_batch(cfg, arrays, arch)}
+        out[f"{arch}/logits"] = np.asarray(model.forward(params, batch)[0])
+        loss, grads = jax.value_and_grad(model.loss)(params, batch)
+        out[f"{arch}/loss"] = np.asarray(loss)
+        out.update(_tree_to_arrays(grads, f"{arch}/grad/"))
+        pre = f"dec/{arch}"
+        toks = jnp.asarray(arrays[f"{pre}/tokens"])
+        b, s = toks.shape
+        feats = _modal_batch(cfg, arrays, pre)
+        full = model.forward(params, {"tokens": toks, **feats},
+                             remat=False)[0]
+        caches = model.init_cache(b, s + 4)
+        if cfg.family == "encdec":
+            extra = {"enc_out": encdec.encode(params, feats["enc_feats"],
+                                              cfg)}
+        else:
+            extra = feats
+        res = model.module.forward(params, toks[:, :s - 1], cfg,
+                                   caches=caches, remat=False, **extra)
+        step, _ = model.decode_step(params, res[1], toks[:, s - 1:],
+                                    batch=extra)
+        out[f"{pre}/full"] = np.asarray(full, np.float32)
+        out[f"{pre}/step"] = np.asarray(step, np.float32)
+    for case in spec.get("xattn", []):
+        pre = f"xattn/{case['key']}"
+        cfg = get_smoke(case["arch"])
+        p = {k[len(pre) + 3:]: jnp.asarray(v) for k, v in arrays.items()
+             if k.startswith(pre + "/p/")}
+        y, cache = L.attention_block(
+            p, jnp.asarray(arrays[pre + "/x"]), cfg,
+            mask_spec=L.AttnMaskSpec(causal=True),
+            kv_source=jnp.asarray(arrays[pre + "/src"]),
+            kv_chunk=int(case["kv_chunk"]))
+        assert cache is None
+        out[pre + "/out"] = np.asarray(y, np.float32)
+    for i, (seed, fold, n) in enumerate(spec.get("normals", [])):
+        k = jax.random.fold_in(jax.random.PRNGKey(int(seed)), int(fold))
+        x = jax.random.normal(k, (int(n),), jnp.bfloat16)
+        out[f"normal/{i}"] = np.asarray(x).view(np.uint16)
+    for arch in spec.get("schemas", []):
+        shapes = abstract_params(build_model(get_config(arch)).schema)
+        for path, leaf in tree_flatten_with_paths(shapes):
+            out[f"{arch}/shape/{path}"] = np.asarray(leaf.shape, np.int64)
+    for arch in spec.get("fl_errors", []):
+        from repro.config import FLConfig
+        from repro.models.fl_models import get_fl_model
+
+        for name in (arch, f"{arch}:smoke"):
+            for key, call in (("err", get_fl_model),
+                              ("cfgerr", lambda n: FLConfig(model=n))):
+                try:
+                    call(name)
+                    msg = "no error"
+                except ValueError as exc:
+                    msg = f"ValueError: {exc}"
+                out[f"{key}/{name}"] = np.asarray(msg)
     return out
 
 
@@ -1043,6 +1194,213 @@ def write_family_reference(directory: str) -> None:
             fh.write("\n")
 
 
+# the encdec and vlm records: SeamlessM4T-medium in full (served and
+# trained at full width on the card), Llama-3.2-Vision-90B cut to one site
+# of 5 layers (served at its published widths) by sampled elements only
+MULTIMODAL_RECORDS = {
+    "seamless_m4t_medium": dict(num_layers=None, full=True, fold_in=3,
+                                feats=(4, 32, 1024)),
+    "llama_3_2_vision_90b": dict(num_layers=5, full=False, fold_in=2,
+                                 feats=(4, 1600, 8192)),
+}
+# the fixed batch of the full record's loss: 2 rows of 16 tokens, frame
+# embeddings drawn as serve draws them for batch 2, prompt 16
+MULTIMODAL_LOSS_FEATS = (2, 16, 1024)
+
+
+def sampled_normal_bf16(key, idx):
+    """``jax.random.normal(key, shape, bfloat16)`` at the flat indices
+    ``idx`` only, jax.random's counters replaced by ``idx`` (as
+    :func:`sampled_materialize` draws)."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    from jax._src import prng as jprng
+
+    idx = np.asarray(idx, np.int64)
+    n = len(idx)
+    real = jprng.iota_2x32_shape
+
+    def iota(shape):
+        if tuple(shape) != (n,):
+            return real(shape)
+        return (jnp.asarray((idx >> 32).astype(np.uint32)),
+                jnp.asarray((idx & 0xFFFFFFFF).astype(np.uint32)))
+
+    jax.clear_caches()
+    jprng.iota_2x32_shape = iota
+    try:
+        return np.asarray(jax.random.normal(key, (n,), jnp.bfloat16),
+                          np.float32)
+    finally:
+        jprng.iota_2x32_shape = real
+        jax.clear_caches()
+
+
+def write_multimodal_reference(directory: str) -> None:
+    """The records of ``MULTIMODAL_RECORDS`` at seed 0, one JSON file per
+    model in ``directory``: the registry model (``build_model(cfg)``,
+    shards=1) at the record's depth, per leaf its shape and the float32
+    elements at :func:`sample_indices`; ``feats``: the serve draw's bf16
+    modality features (``fold_in(PRNGKey(0), fold_in)``, shape ``shape``)
+    at recorded flat indices.  A full record also has each leaf's float64
+    sum and sum of squares and ``loss``: ``model.loss`` of the first two
+    rows of ``make_token_dataset(vocab_size, num_samples=600, seq_len=16,
+    seed=0)`` with the frame embeddings of MULTIMODAL_LOSS_FEATS.  Sampled
+    records draw only the recorded elements (checked here against full
+    draws of small leaves and features)."""
+    import dataclasses
+    import os
+    import zlib
+
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from repro.configs import get_config
+    from repro.data.tokens import make_token_dataset
+    from repro.models import params as P
+    from repro.models.registry import build_model
+    from repro.utils.tree import tree_flatten_with_paths
+
+    key = jax.random.PRNGKey(0)
+    for probe in (P.ParamSpec((), (), init="zeros"),
+                  P.ParamSpec((2, 3, 50, 7), (None,) * 4)):
+        full = np.asarray(P._materialize(probe, key)).reshape(-1)
+        idx = sample_indices(full.size)
+        assert np.array_equal(sampled_materialize(probe, key, idx),
+                              full[idx]), probe
+    full = np.asarray(jax.random.normal(key, (3, 1001), jnp.bfloat16),
+                      np.float32).reshape(-1)
+    idx = sample_indices(full.size)
+    assert np.array_equal(sampled_normal_bf16(key, idx), full[idx])
+    for arch, how in MULTIMODAL_RECORDS.items():
+        cfg = get_config(arch)
+        if how["num_layers"]:
+            cfg = dataclasses.replace(cfg, num_layers=how["num_layers"])
+        model = build_model(cfg)
+        fkey = jax.random.fold_in(key, how["fold_in"])
+        n_feats = int(np.prod(how["feats"]))
+        leaves, record = {}, {}
+        if how["full"]:
+            params = model.init(key)
+            for path, leaf in tree_flatten_with_paths(params):
+                x = np.asarray(leaf).reshape(-1).astype(np.float64)
+                ix = sample_indices(x.size)
+                leaves[path] = {
+                    "shape": [int(d) for d in leaf.shape],
+                    "sum": float(x.sum()), "sumsq": float(np.square(x).sum()),
+                    "index": [int(i) for i in ix],
+                    "values": [float(v) for v in
+                               np.asarray(leaf).reshape(-1)[ix]],
+                }
+            feats = jax.random.normal(fkey, how["feats"], jnp.bfloat16)
+            fidx = list(range(256))
+            fvals = np.asarray(feats, np.float32).reshape(-1)[fidx]
+            ds = make_token_dataset(vocab_size=cfg.vocab_size,
+                                    num_samples=600, seq_len=16, seed=0)
+            bx, by = jnp.asarray(ds.x_train[:2]), jnp.asarray(ds.y_train[:2])
+            batch = {"tokens": bx, "labels": by,
+                     "enc_feats": jax.random.normal(
+                         fkey, MULTIMODAL_LOSS_FEATS, jnp.bfloat16)}
+            record["tokens"] = np.asarray(bx).tolist()
+            record["labels"] = np.asarray(by).tolist()
+            record["loss_feats_shape"] = list(MULTIMODAL_LOSS_FEATS)
+            record["loss"] = float(model.loss(params, batch))
+            del params
+        else:
+            for path, spec in tree_flatten_with_paths(model.schema):
+                n = int(np.prod(spec.shape))
+                ix = sample_indices(n)
+                h = zlib.crc32(("".join(f"[{k!r}]" for k in path.split("/")))
+                               .encode()) % (2 ** 31)
+                vals = sampled_materialize(spec, jax.random.fold_in(key, h),
+                                           ix)
+                leaves[path] = {"shape": [int(d) for d in spec.shape],
+                                "index": [int(i) for i in ix],
+                                "values": [float(v) for v in vals]}
+            fidx = sample_indices(n_feats)
+            fvals = sampled_normal_bf16(fkey, fidx)
+        record.update({
+            "_command": ("PYTHONPATH=src JAX_PLATFORMS=cpu python "
+                         "tests/_torch_reference_worker.py "
+                         "--write-multimodal-reference tests/torch_reference"),
+            "_what": (f"repro.models.registry.build_model(get_config({arch!r})"
+                      + (f" cut to num_layers={how['num_layers']}"
+                         if how["num_layers"] else "")
+                      + ") (shards=1), init(PRNGKey(0)): per leaf the "
+                      "float32 elements at the flat indices 'index'"
+                      + ("; the float64 sum and sum of squares; 'loss' is "
+                         "model.loss of 'tokens' / 'labels', the first two "
+                         "rows of make_token_dataset(vocab_size, "
+                         "num_samples=600, seq_len=16, seed=0), with "
+                         "enc_feats = jax.random.normal(fold_in(PRNGKey(0), "
+                         "3), loss_feats_shape, bfloat16)"
+                         if how["full"] else
+                         ", drawn alone with jax.random's counters set to "
+                         "those indices (sampled_materialize)")
+                      + "; 'feats': launch/serve.py's bf16 modality draw "
+                      "(jax.random.normal(fold_in(PRNGKey(0), fold_in), "
+                      "shape, bfloat16)) at the flat indices 'index'"),
+            "model": arch, "seed": 0, "num_layers": cfg.num_layers,
+            "param_count": int(sum(np.prod(v["shape"])
+                                   for v in leaves.values())),
+            "feats": {"fold_in": how["fold_in"],
+                      "shape": list(how["feats"]),
+                      "index": [int(i) for i in fidx],
+                      "values": [float(v) for v in fvals]},
+            "leaves": leaves,
+        })
+        with open(os.path.join(directory, f"{arch}.json"), "w",
+                  encoding="utf-8") as fh:
+            json.dump(record, fh, indent=1, sort_keys=True)
+            fh.write("\n")
+
+
+# the SMOKE encdec and vlm trainer runs of chip_smoke.py's [train:*]
+# phases: (argv, the vlm's initial gates: zero gates leave its cross
+# layers out of the loss)
+MULTIMODAL_TRAIN_RECORDS = {
+    "seamless-smoke": (["--arch", "seamless-m4t-medium", "--smoke",
+                        "--steps", "12", "--batch", "4", "--seq", "32"],
+                       None),
+    "llama-vision-smoke": (["--arch", "llama-3.2-vision-90b", "--smoke",
+                            "--steps", "12", "--batch", "4", "--seq", "32"],
+                           [0.5, -0.7]),
+}
+
+
+def write_multimodal_train_reference(path: str) -> None:
+    """:func:`write_train_reference` for ``MULTIMODAL_TRAIN_RECORDS``: each
+    run's losses beside the run that threw away step TRAIN_DROPPED_STEP's
+    update, and both runs' final parameters at 512 sampled elements a
+    leaf, a vlm's initial gates set to the run's ``gates``."""
+    runs = {}
+    for name, (argv, gates) in MULTIMODAL_TRAIN_RECORDS.items():
+        with _gated_init(gates):
+            losses, params = _train_run(argv)
+            dropped, wrong = _train_run(argv, drop=TRAIN_DROPPED_STEP)
+        runs[name] = {"argv": argv, "gates": gates, "losses": losses,
+                      "dropped_losses": dropped,
+                      "final": _final_samples(params, wrong, 512)}
+    record = {
+        "_command": ("PYTHONPATH=src JAX_PLATFORMS=cpu python "
+                     "tests/_torch_reference_worker.py "
+                     "--write-multimodal-train-reference "
+                     "tests/torch_reference/train_losses_multimodal.json"),
+        "_what": ("repro.launch.train.main(argv) on the CPU, a vlm's "
+                  "initial gates set to 'gates': each step's loss; "
+                  "dropped_losses: the same run with step dropped_step's "
+                  "parameter update thrown away; final: both runs' final "
+                  "parameters at sampled flat indices"),
+        "dropped_step": TRAIN_DROPPED_STEP,
+        "runs": runs,
+    }
+    with open(path, "w", encoding="utf-8") as fh:
+        json.dump(record, fh, indent=1, sort_keys=True)
+        fh.write("\n")
+
+
 # the trainer runs of chip_smoke.py's [train:*] phases held to the
 # reference's: Mamba2-130M at full width, and the SMOKE Mixtral long enough
 # for its loss to fall (over 4 steps it rises, 6.712 -> 6.908)
@@ -1166,6 +1524,7 @@ TASKS = {
     "token_runs": task_token_runs,
     "family_parts": task_family_parts,
     "launch_parts": task_launch_parts,
+    "multimodal_parts": task_multimodal_parts,
     "qwen2_reference": task_qwen2_reference,
 }
 
@@ -1180,6 +1539,14 @@ def main(argv) -> int:
     if argv[1] == "--write-family-reference":
         apply_shim()
         write_family_reference(argv[2])
+        return 0
+    if argv[1] == "--write-multimodal-reference":
+        apply_shim()
+        write_multimodal_reference(argv[2])
+        return 0
+    if argv[1] == "--write-multimodal-train-reference":
+        apply_shim()
+        write_multimodal_train_reference(argv[2])
         return 0
     if argv[1] == "--write-qwen2-reference":
         apply_shim()

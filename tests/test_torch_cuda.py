@@ -449,6 +449,27 @@ def test_threefry_kernel_matches_plain_bit_for_bit(cuda, kind, n):
                                     clip=clip, device="cpu"))
 
 
+@pytest.mark.parametrize("n", [0, 1, 255, 65_537, (1 << 20) + 3])
+def test_threefry_bf16_normals_match_plain_bit_for_bit(cuda, n):
+    """The kernel's bf16 mode (jax.random's bfloat16 normal): one launch
+    per draw, the plain version's bits on the card and on the CPU; it
+    refuses a clamped or uniform bf16 draw."""
+    from repro_torch.kernels import threefry
+
+    key = prng.fold_in(prng.prng_key(n), 3)
+    before = threefry.threefry_draw.launches
+    got = prng.normal(key, n, device=cuda, dtype=torch.bfloat16)
+    assert threefry.threefry_draw.launches == before + (n > 0)
+    assert got.dtype == torch.bfloat16 and got.shape == (n,)
+    for device in (cuda, "cpu"):
+        want = prng.normal_bf16_plain(key, n, device=device)
+        assert torch.equal(got.view(torch.int16).cpu(),
+                           want.view(torch.int16).cpu())
+    with pytest.raises(ValueError, match="unclamped normals"):
+        threefry.threefry_draw(key, 4, 0.0, 1.0, dtype=torch.bfloat16,
+                               device=cuda)
+
+
 @pytest.mark.parametrize("seed", [0, 3])
 def test_seeded_draws_on_the_card_equal_the_cpu(cuda, seed):
     """The reference's draws from a seed (channels of the paper cell,

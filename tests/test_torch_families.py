@@ -296,17 +296,19 @@ def test_hybrid_shared_block_is_one_leaf_summed_over_its_sites():
 
 
 def test_registry_builds_every_ported_family():
-    """dense, moe, ssm and hybrid build; encdec and vlm still name item 8."""
-    from repro_torch.models.registry import UNPORTED_FAMILIES, family_module
+    """Every family builds: dense, moe, ssm, hybrid, and since item 8d's
+    first half encdec and vlm; an unknown family raises KeyError."""
+    from repro_torch.configs import ARCH_IDS
+    from repro_torch.models.registry import family_module
 
     for arch, family in (("qwen2_0_5b", "dense"), ("mixtral_8x22b", "moe"),
-                         ("mamba2_130m", "ssm"), ("zamba2_7b", "hybrid")):
+                         ("mamba2_130m", "ssm"), ("zamba2_7b", "hybrid"),
+                         ("seamless_m4t_medium", "encdec"),
+                         ("llama_3_2_vision_90b", "vlm")):
         assert build_model(get_config(arch)).cfg.family == family
-    assert UNPORTED_FAMILIES == ("encdec", "vlm")
-    for arch in ("seamless_m4t_medium", "llama_3_2_vision_90b"):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md queue 1 item 8 brings it"):
-            build_model(get_config(arch))
+    for arch in ARCH_IDS:
+        model = build_model(get_config(arch))
+        assert model.module is family_module(model.cfg.family)
     with pytest.raises(KeyError):
         family_module("mlp")
 

@@ -31,6 +31,8 @@ transformers and the SMOKE variant of every dense architecture id.
   equal the reference's, counted with no allocation (Qwen2-0.5B:
   494,147,456 parameters in 14 leaves).
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -364,8 +366,10 @@ def test_model_facade_and_tree_utilities(port_params):
         (w.double() ** 2).sum() for w in tree_lib.tree_flatten(params)[0]
     )).float(), rtol=1e-5)
     assert build_model(get_config("mixtral_8x22b")).cfg.family == "moe"
-    with pytest.raises(NotImplementedError, match="item 8"):
-        build_model(get_config("seamless_m4t_medium"))
+    assert build_model(get_config("seamless_m4t_medium")).cfg.family \
+        == "encdec"
+    with pytest.raises(KeyError, match="unknown family"):
+        build_model(dataclasses.replace(cfg, family="mlp"))
 
 
 def test_full_width_reference_record_matches_the_port_schema():
