@@ -220,9 +220,13 @@ import numpy as np
 import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(REPO, "src"))
 
-PEAK_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
-PEAK_F32_FLOPS = 67e12          # H100 SXM float32 outside the tensor cores
+# the H100's peaks, stated once in the port (src/repro_torch/launch/
+# roofline.py): HBM3 bytes/s, float32 outside the tensor cores, bf16 dense
+from repro_torch.launch.roofline import (  # noqa: E402
+    HBM_BW as PEAK_BYTES_PER_S, PEAK_F32_FLOPS, PEAK_FLOPS as PEAK_BF16_FLOPS,
+)
 LENET_LEAVES = (235_200, 300, 30_000, 100, 1_000, 10)
 SWEEP_K = (1, 3, 8)
 SWEEP_N = (1, 10, 300, 30_000, 235_200, 2_200_000)
@@ -265,7 +269,7 @@ DECODE_32K = (128, 2, 7, 64, 32_768)
 # one bfloat16 rounding of the output (2^-7 relative), far inside that
 # contract's 5e-2, which a kernel returning zeros would pass
 FLASH_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-6, 2.0 ** -7)}
-PEAK_FLOPS = {torch.float32: PEAK_F32_FLOPS, torch.bfloat16: 989e12}
+PEAK_FLOPS = {torch.float32: PEAK_F32_FLOPS, torch.bfloat16: PEAK_BF16_FLOPS}
 # operations per normal of the Threefry kernel, counted from its source:
 # the hash 118 integer operations, the uniform 6, erf_inv about 66 (a
 # fused multiply-add counted as two)
@@ -1050,7 +1054,8 @@ def _dorefa_case(shape, dtype, seed):
 
 def _dorefa_one(mod, x, s, bits, n_out, what):
     """The three kernels once on (x, s) against their plain versions on the
-    card and on the CPU; returns the largest absolute difference."""
+    card and on the CPU, and on float32 ``x`` the quantize_dequantize
+    kernel's residual mode; returns the largest absolute difference."""
     xc, sc = x.cpu(), s.cpu()
     n = x.numel()
     wrappers = (mod.quantize_codes, mod.dequantize_codes,
@@ -1059,19 +1064,28 @@ def _dorefa_one(mod, x, s, bits, n_out, what):
     codes = mod.quantize_codes(x, s, bits, n_out)
     deq = mod.dequantize_codes(codes[:n], s, bits)
     qdq = mod.quantize_dequantize(x, s, bits)
+    residual = x.dtype == torch.float32     # #5's residual mode: float32
+    if residual:
+        qdq_r, res = mod.quantize_dequantize_residual(x, s, bits)
     torch.cuda.synchronize()
-    check([fn.launches for fn in wrappers] == [b + 1 for b in before],
+    check([fn.launches for fn in wrappers]
+          == [before[0] + 1, before[1] + 1, before[2] + 1 + residual],
           f"DoReFa launches at {what}")
     worst = 0.0
+    cases = [
+        (codes, mod.quantize_codes_plain(x, s, bits, n_out),
+         mod.quantize_codes_plain(xc, sc, bits, n_out)),
+        (deq, mod.dequantize_codes_plain(codes[:n], s, bits),
+         mod.dequantize_codes_plain(codes[:n].cpu(), sc, bits)),
+        (qdq, mod.quantize_dequantize_plain(x, s, bits),
+         mod.quantize_dequantize_plain(xc, sc, bits)),
+    ]
+    if residual:
+        card = mod.quantize_dequantize_residual_plain(x, s, bits)
+        cpu = mod.quantize_dequantize_residual_plain(xc, sc, bits)
+        cases += [(qdq_r, card[0], cpu[0]), (res, card[1], cpu[1])]
     try:
-        for got, card, cpu in (
-            (codes, mod.quantize_codes_plain(x, s, bits, n_out),
-             mod.quantize_codes_plain(xc, sc, bits, n_out)),
-            (deq, mod.dequantize_codes_plain(codes[:n], s, bits),
-             mod.dequantize_codes_plain(codes[:n].cpu(), sc, bits)),
-            (qdq, mod.quantize_dequantize_plain(x, s, bits),
-             mod.quantize_dequantize_plain(xc, sc, bits)),
-        ):
+        for got, card, cpu in cases:
             worst = max(worst, _bits_equal(got, card), _bits_equal(got, cpu))
     except SmokeFailure as exc:
         raise SmokeFailure(f"DoReFa kernel at {what}: {exc}")
@@ -1145,7 +1159,8 @@ def compare_dorefa(mod):
                           mod.quantize_dequantize(x, s, bits)[0])),
                       f"a NaN element lost its NaN at {what}")
                 n_odd += 1
-    log(f"[dorefa-kernel] {n_cases} cases x 3 kernels (shapes "
+    log(f"[dorefa-kernel] {n_cases} cases x 3 kernels and, on float32, "
+        f"quantize_dequantize's residual mode (shapes "
         f"{[s[0] if len(s) == 1 else s for s in DOREFA_SHAPES]}, float32 and "
         f"bfloat16, bits {DOREFA_BITS}), {n_views} on views at every element "
         f"offset off 16 bytes (dequantize_codes also on int32 views with "
@@ -1158,11 +1173,12 @@ def compare_dorefa(mod):
 
 
 def time_dorefa(mod, n, bits=8):
-    """Each quantizer kernel at n float32 elements: device time (behind
-    the sleep kernel) and host-inclusive time (interleaved
-    plain/kernel/kernel/plain) beside its plain version, one PyTorch call
-    computing the same function (for quantize_codes and quantize_dequantize
-    one that rounds x * (a / s) instead, timed only), and the bound: each
+    """Each quantizer kernel, and quantize_dequantize's residual mode, at
+    n float32 elements: device time (behind the sleep kernel) and
+    host-inclusive time (interleaved plain/kernel/kernel/plain) beside its
+    plain version, one PyTorch call computing the same function (for
+    quantize_codes and quantize_dequantize one that rounds x * (a / s)
+    instead, timed only; none for the residual mode), and the bound: each
     input read once, each output written once, at 3.35 TB/s.  Returns
     {kernel name: timing dict}."""
     x, s = _dorefa_case((n,), torch.float32, seed=n)
@@ -1191,6 +1207,12 @@ def time_dorefa(mod, n, bits=8):
             lambda: torch.fake_quantize_per_tensor_affine(
                 x, fq_scale, 0, -int(a), int(a)),
             8 * n + 4, 6 * n),
+        # #5's residual mode (the --ef trainer's quantizer): no library call
+        # computes the fused residual
+        "quantize_dequantize_residual": (
+            lambda: mod._quantize_dequantize_residual_launch(x, s, bits),
+            lambda: mod.quantize_dequantize_residual_plain(x, s, bits),
+            None, 12 * n + 4, 8 * n),
     }
     lib_err = _bits_equal(cases["dequantize_codes"][2](),
                           cases["dequantize_codes"][0]())
@@ -1233,6 +1255,8 @@ def time_dorefa(mod, n, bits=8):
         log(f"[time] {name} n={n}: kernel/library ({lib_name}) device-time "
             f"ratio {ratio:.3f} in this run; kernel "
             f"{_attributes_text(attributes())}")
+    log(f"[time] quantize_dequantize_residual n={n}: kernel "
+        f"{_attributes_text(mod.quantize_dequantize_residual_attributes())}")
     for name, value in counted.items():
         getattr(mod, name).launches = value   # timing launches don't count
     log(f"[time] dequantize_codes n={n}: torch.mul(codes, s * fl(1/a)) "
@@ -2466,6 +2490,7 @@ def check_draws(seed=0, m=300, t=35):
 QWEN2 = "qwen2_0_5b"
 QWEN2_PARAMS = 494_147_456
 QWEN2_LEAVES = 14
+QWEN2_EMBED_LEAF = 136_249_344      # embed/tokens, (152064, 896)
 QWEN2_WEIGHT_DRAWS = 8      # embed + wq, wk, wv, wo + wi_gate, wi_up, wo;
                             # the zero biases and unit norm scales draw none
 QWEN2_REF = os.path.join(REPO, "tests", "torch_reference", "qwen2_0_5b.json")
@@ -3345,26 +3370,115 @@ def check_train_record(name):
         f"{want['losses'][-1]:.4f}")
 
 
+def _checked_quantizer(label):
+    """A context in which the trainer's uplink (kernel #5, one launch per
+    leaf) is checked on its first call: ``compression.
+    quantize_dequantize_tree``'s output, or under ``--ef`` ``compression.
+    quantize_dequantize_residual_tree``'s (#5's residual mode), each leaf
+    bit-equal to the plain jitted form of the same gradients on the card,
+    ``quantize_dequantize_plain(g, max_abs_scale(g), bits)``, and each
+    residual to ``quantize_dequantize_residual_plain``'s."""
+    from repro_torch.core import compression
+    from repro_torch.kernels import dorefa, ops as kops
+
+    real = compression.quantize_dequantize_tree
+    real_residual = compression.quantize_dequantize_residual_tree
+    seen = {}
+
+    def same(got, want, what):
+        check(torch.equal(got.reshape(-1).view(torch.int32),
+                          want.view(torch.int32)),
+              f"[train:{label}] #5's {what} differ from the plain jitted form")
+
+    def first(tree, out, bits, residuals=None):
+        grads = _leaves(tree)
+        for i, (g, q) in enumerate(zip(grads, _leaves(out))):
+            scale = kops.max_abs_scale(g)
+            same(q, dorefa.quantize_dequantize_plain(g.reshape(-1), scale,
+                                                     bits),
+                 "quantized gradients")
+            if residuals is not None:
+                same(_leaves(residuals)[i],
+                     dorefa.quantize_dequantize_residual_plain(
+                         g.reshape(-1), scale, bits)[1], "EF residuals")
+        seen["leaves"] = len(grads)
+        seen["elements"] = sum(g.numel() for g in grads)
+        seen["residual_leaves"] = 0 if residuals is None else len(grads)
+
+    def checked(tree, bits, **kw):
+        out = real(tree, bits, **kw)
+        if not seen:
+            first(tree, out, bits)
+        return out
+
+    def checked_residual(tree, bits, **kw):
+        out, residuals = real_residual(tree, bits, **kw)
+        if not seen:
+            first(tree, out, bits, residuals)
+        return out, residuals
+
+    @contextlib.contextmanager
+    def context():
+        compression.quantize_dequantize_tree = checked
+        compression.quantize_dequantize_residual_tree = checked_residual
+        try:
+            yield seen
+        finally:
+            compression.quantize_dequantize_tree = real
+            compression.quantize_dequantize_residual_tree = real_residual
+
+    return context()
+
+
 def run_train_phases(tmpdir):
-    """The trainer at full width, batch 8, seq 128, adaptive NOMA bits:
-    Qwen2-0.5B (the reference's default arch) 10 steps and with ``--ef
-    --fl-bits 4``, the loss falling; Mamba2-130M 20 steps (the reference's
+    """The trainer at full width, batch 8, seq 128: Qwen2-0.5B (the
+    reference's default arch) 10 steps at ``--fl-bits 4`` and with ``--ef
+    --fl-bits 4``, the loss falling, kernel #5 launched once per leaf per
+    step (F6's repair: the trainer's uplink), and one step's quantized
+    gradients through #5 bit-equal to the plain jitted form of the same
+    gradients on the card; then, at adaptive NOMA bits, Mamba2-130M 20
+    steps (the reference's
     default count: at 1-bit codes its loss does not fall within 10, the
     reference's neither) held to the reference's record
     (:func:`check_train_record`); a ``--save`` / ``--resume`` round trip
     on Mamba2-130M (10 steps, a checkpoint at 5, the other 5 resumed: the
     same losses as the uninterrupted run, to the bit); the SMOKE Mixtral
-    (the moe family) 12 steps, held to its record likewise."""
+    (the moe family) 12 steps, held to its record likewise.  Returns #5's
+    launches in the two Qwen2 runs."""
     import repro_torch.checkpoint as ck
+    from repro_torch.kernels import dorefa
 
     base = ["--batch", "8", "--seq", "128"]
+    q_launches = 0
     for label, argv in (
-            ("qwen2-0.5b", ["--arch", "qwen2-0.5b", "--steps", "10"] + base),
+            ("qwen2-0.5b", ["--arch", "qwen2-0.5b", "--steps", "10",
+                            "--fl-bits", "4"] + base),
             ("qwen2-0.5b-ef", ["--arch", "qwen2-0.5b", "--steps", "10",
                                "--ef", "--fl-bits", "4"] + base)):
-        losses = run_train_phase(label, argv)
+        dorefa.quantize_dequantize.launches = 0
+        with _checked_quantizer(label) as seen:
+            losses = run_train_phase(label, argv)
+        n = dorefa.quantize_dequantize.launches
         check(losses[-1] < losses[0],
               f"[train:{label}] the loss did not fall: {losses}")
+        check(seen.get("leaves") == QWEN2_LEAVES
+              and n == QWEN2_LEAVES * len(losses),
+              f"[train:{label}] #5 launched {n} times for {len(losses)} "
+              f"steps of {seen.get('leaves')} leaves")
+        ef = "--ef" in argv
+        check(seen.get("residual_leaves", 0) == (QWEN2_LEAVES if ef else 0),
+              f"[train:{label}] {seen.get('residual_leaves', 0)} EF "
+              f"residual leaves checked")
+        q_launches += n
+        log(f"[train:{label}] #5 (quantize_dequantize) launched {n} times: "
+            f"{QWEN2_LEAVES} leaves x {len(losses)} steps; step 1's "
+            f"{seen['elements']} quantized gradients bit-equal to the "
+            f"plain jitted form on the card"
+            + ("; #5's residual mode: step 1's EF residuals bit-equal to "
+               "its plain version's on the card" if ef else ""))
+    # #5 at the trainer's largest leaf, the Qwen2-0.5B embedding, at its
+    # 4-bit width (time_dorefa's launches do not count)
+    time_dorefa(dorefa, QWEN2_EMBED_LEAF, bits=4)
     check_train_record("mamba2-130m")
     # the step-5 checkpoint is the one the resume reads; the run's other
     # saves (1.5 GB each through zlib on a host without zstandard, ~40 s)
@@ -3387,11 +3501,13 @@ def run_train_phases(tmpdir):
     log("[train:mamba2-130m-resume] resumed at step 5 from the checkpoint: "
         "the same losses as the uninterrupted run, to the bit")
     check_train_record("mixtral-8x22b-smoke")
+    return q_launches
 
 
 def run_family_phases(kernels):
     """The moe, ssm and hybrid slice's phases, in order; returns #1's and
-    #2's max abs errors at the Mamba2-130M shapes (``[family-kernel]``)."""
+    #2's max abs errors at the Mamba2-130M shapes (``[family-kernel]``)
+    and #5's launches in the trainer (``[train:qwen2-0.5b*]``)."""
     import tempfile
 
     errs = compare_token_kernels(MAMBA2, "Mamba2-130M", "family-kernel",
@@ -3406,8 +3522,8 @@ def run_family_phases(kernels):
     for arch, num_layers in SERVE_RUNS:
         run_serve_phase(arch, num_layers)
     with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as tmp:
-        run_train_phases(tmp)
-    return errs
+        q_launches = run_train_phases(tmp)
+    return errs + (q_launches,)
 
 
 # --------------------------------------------------------------------------
@@ -3738,12 +3854,226 @@ def run_multimodal_phases():
     check_multimodal_train_record("llama-vision-smoke")
 
 
+# --------------------------------------------------------------------------
+# the mesh, dry-run and roofline slice: [dryrun], [roofline:*]
+# --------------------------------------------------------------------------
+
+# the port's dry-run CLI on the card's host (it counts on fake CPU tensors
+# and needs no card): Qwen2-0.5B at its four shapes (long_500k is one of
+# SKIPS) and Mixtral-8x22B's train_4k, each at 16x16 and 2x16x16, at the
+# published widths and full depth, one subprocess a pair, all at once
+DRYRUN_PAIRS = tuple(("qwen2-0.5b", s) for s in (
+    "train_4k", "prefill_32k", "decode_32k", "long_500k")) \
+    + (("mixtral-8x22b", "train_4k"),)
+# [roofline:*]: the dry-run's 1x1 prediction of a step beside the same step
+# measured on the card; predicted bytes per device over the step's
+# torch.cuda.max_memory_allocated must fall in this range.  Measured in
+# three runs on an H100 80GB HBM3 at 700 W: Qwen2-0.5B train 0.805 / 0.804
+# / 0.805, SeamlessM4T-medium train 0.846 / 0.845 / 0.846, Mamba2-130M
+# decode 0.771 / 0.757 / 0.757 (the count leaves out the caching
+# allocator's rounding and the autograd engine's own buffers).  The runs
+# spread by 0.014 at most; the lower end sits 0.057 (four such spreads)
+# below the lowest reading.  Above 1.0 the count would hold bytes the step
+# never allocates.
+ROOFLINE_BYTES_RATIO = (0.7, 1.0)
+ROOFLINE_REPS = 3
+# [roofline:*]'s train steps: (label, arch, fl_bits)
+ROOFLINE_TRAIN = (("qwen2-0.5b-train", "qwen2_0_5b", 4),
+                  ("seamless-m4t-medium-train", "seamless_m4t_medium", None))
+
+
+def run_dryrun_and_roofline_phases():
+    """``[dryrun]``: ``python -m repro_torch.launch.dryrun --arch A
+    --shape S [--multi-pod]`` for each of :data:`DRYRUN_PAIRS` at both
+    meshes, every pair OK or one of ``SKIPS``; prints each pair's terms,
+    bottleneck and bytes per device with the H100's constants.  While the
+    subprocesses count, this process counts the 1x1 predictions of
+    ``[roofline:*]`` (CPU work, nothing timed); the steps are measured on
+    the card after the subprocesses have ended."""
+    import tempfile
+
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as tmp:
+        jobs = []
+        for i, (arch, shape) in enumerate(DRYRUN_PAIRS):
+            for multi in (False, True):
+                out = os.path.join(tmp, f"{i}_{int(multi)}.jsonl")
+                argv = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                        "--arch", arch, "--shape", shape, "--out", out] \
+                    + (["--multi-pod"] if multi else [])
+                jobs.append((arch, shape, multi, out, subprocess.Popen(
+                    argv, cwd=REPO, env=env, stdout=subprocess.PIPE,
+                    stderr=subprocess.PIPE, text=True)))
+        try:
+            preds = _roofline_predictions()
+        finally:
+            _finish_dryrun(jobs, t0)
+    run_roofline_phases(preds)
+
+
+def _finish_dryrun(jobs, t0):
+    """Waits for the ``[dryrun]`` subprocesses and prints their results."""
+    for arch, shape, multi, out, proc in jobs:
+        try:
+            _, err = proc.communicate(timeout=900)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        check(proc.returncode == 0,
+              f"[dryrun] {arch} x {shape}: exit {proc.returncode}: "
+              f"{err[-2000:]}")
+        with open(out, encoding="utf-8") as fh:
+            row = json.loads(fh.read().splitlines()[-1])
+        mesh = "2x16x16" if multi else "16x16"
+        if row["status"] == "SKIP":
+            log(f"[dryrun] {arch} x {shape} x {mesh}: SKIP "
+                f"({row['error']})")
+            continue
+        check(row["status"] == "OK",
+              f"[dryrun] {arch} x {shape}: {row['error']}")
+        r = row["roofline"]
+        log(f"[dryrun] {arch} x {shape} x {row['mesh']}: counted in "
+            f"{row['compile_s']:.1f} s; per card {r['hlo_flops_per_chip']:.4g} "
+            f"FLOPs, {r['hbm_bytes_per_chip']:.4g} HBM bytes, "
+            f"{r['collective_bytes_per_chip']:.4g} collective bytes; "
+            f"t_compute {r['t_compute_s'] * 1e3:.3f} ms, t_memory "
+            f"{r['t_memory_s'] * 1e3:.3f} ms, t_collective "
+            f"{r['t_collective_s'] * 1e3:.3f} ms, bottleneck "
+            f"{r['bottleneck']}; {row['bytes_per_device'] / 2**30:.2f} "
+            f"GiB a device; useful FLOPs {r['useful_flops_ratio']:.3f}, "
+            f"host reads {r['host_reads']}")
+    log(f"[dryrun] {len(jobs)} counts in "
+        f"{time.perf_counter() - t0:.1f} s (H100 constants: "
+        f"src/repro_torch/launch/roofline.py)")
+
+
+def _roofline_check(label, pred, seconds, peak):
+    """Holds a measured step against its 1x1 prediction: not faster than
+    ``t_compute``; prints measured / t_memory and measured / max(term),
+    and the predicted bytes per device against the measured peak."""
+    r = pred.roofline
+    t_c, t_m = r["t_compute_s"], r["t_memory_s"]
+    top = max(t_c, t_m, r["t_collective_s"])
+    check(seconds >= t_c, f"[roofline:{label}] measured {seconds} s is "
+                          f"below t_compute {t_c} s: the count is wrong")
+    ratio = pred.bytes_per_device / peak
+    lo, hi = ROOFLINE_BYTES_RATIO
+    check(lo <= ratio <= hi,
+          f"[roofline:{label}] predicted bytes per device "
+          f"{pred.bytes_per_device} against the measured peak {peak}: "
+          f"ratio {ratio} outside {ROOFLINE_BYTES_RATIO}")
+    note = ("; measured below t_memory (the L2 serves small tensors: a "
+            "finding, not a failure)" if seconds < t_m else "")
+    log(f"[roofline:{label}] predicted (1x1) {r['hlo_flops_per_chip']:.4g} "
+        f"FLOPs, {r['hbm_bytes_per_chip']:.4g} HBM bytes: t_compute "
+        f"{t_c * 1e3:.4f} ms, t_memory {t_m * 1e3:.4f} ms, bottleneck "
+        f"{r['bottleneck']}; measured {seconds * 1e3:.3f} ms a step: "
+        f"measured / t_compute {seconds / t_c:.2f}, measured / t_memory "
+        f"{seconds / t_m:.2f}, measured / max(term) {seconds / top:.2f}; "
+        f"bytes per device predicted {pred.bytes_per_device / 2**30:.3f} "
+        f"GiB, max_memory_allocated {peak / 2**30:.3f} GiB (predicted / "
+        f"measured {ratio:.3f}, held within {lo}-{hi}){note} ({CARD})")
+
+
+def _timed_steps(step):
+    """Seconds per call of ``step()`` over ROOFLINE_REPS calls after two
+    warm-up calls, and the peak device bytes over all of them (the peak
+    counter reset after the set-up, before the first call)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):
+        step()
+    _, wall = _timed(lambda: [step() for _ in range(ROOFLINE_REPS)])
+    return wall / ROOFLINE_REPS, torch.cuda.max_memory_allocated()
+
+
+def _roofline_shapes():
+    from repro_torch.config import ShapeConfig
+
+    return (ShapeConfig("train_8x128", 128, 8, "train"),
+            ShapeConfig("serve_4x49", 49, 4, "decode"))
+
+
+def _roofline_predictions():
+    """The 1x1 dry-run counts of the ``[roofline:*]`` steps, by label."""
+    from repro_torch.launch import dryrun, mesh as mesh_lib
+
+    train, serve = _roofline_shapes()
+    preds = {label: dryrun.run_one(arch, train, smoke_mesh=True,
+                                   fl_bits=fl_bits, verbose=False)
+             for label, arch, fl_bits in ROOFLINE_TRAIN}
+    preds["mamba2-130m-decode"] = dryrun.run_one(
+        "mamba2_130m", serve, smoke_mesh=True, verbose=False)
+    mesh_lib.release_world()
+    for label, pred in preds.items():
+        check(pred.status == "OK", f"[roofline:{label}] {pred.error}")
+    return preds
+
+
+def run_roofline_phases(preds):
+    """``[roofline:*]``: the 1x1 dry-run's prediction (``preds``) against
+    the same step on the card: the Qwen2-0.5B train step (8 x 128,
+    ``fl_bits=4``), the SeamlessM4T-medium train step (8 x 128, no codes)
+    and one Mamba2-130M decode step at the server's batch (4 rows, a
+    49-slot state: prompt 32 + 16 tokens + 1)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import prng
+    from repro_torch.launch import steps
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim import adamw
+
+    def batch_of(cfg, shape):
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        out = {}
+        for k, v in steps.input_specs(cfg, shape).items():
+            if v.dtype == torch.int32:
+                out[k] = torch.randint(0, cfg.vocab_size, tuple(v.shape),
+                                       generator=gen, device="cuda",
+                                       dtype=torch.int32)
+            else:
+                out[k] = torch.randn(tuple(v.shape), generator=gen,
+                                     device="cuda").to(v.dtype)
+        return out
+
+    train, serve = _roofline_shapes()
+    for label, arch, fl_bits in ROOFLINE_TRAIN:
+        cfg = get_config(arch)
+        model = build_model(cfg, shards=1)
+        params = model.init(prng.prng_key(0), device="cuda")
+        opt = adamw(3e-4)
+        state = {"params": params, "opt": opt.init(params)}
+        batch = batch_of(cfg, train)
+        step = steps.make_train_step(model, opt, fl_bits=fl_bits)
+
+        def one():
+            state["params"], state["opt"], _ = step(
+                state["params"], state["opt"], batch)
+
+        seconds, peak = _timed_steps(one)
+        _roofline_check(label, preds[label], seconds, peak)
+        del model, params, state, batch, step, one
+        torch.cuda.empty_cache()
+
+    model = build_model(get_config("mamba2_130m"), shards=1)
+    params = model.init(prng.prng_key(0), device="cuda")
+    caches = model.init_cache(serve.global_batch, serve.seq_len,
+                              device="cuda")
+    batch = batch_of(model.cfg, serve)
+    step = steps.make_serve_step(model)
+    seconds, peak = _timed_steps(lambda: step(params, caches, batch))
+    _roofline_check("mamba2-130m-decode", preds["mamba2-130m-decode"],
+                    seconds, peak)
+    del model, params, caches, batch, step
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
     t_start = time.perf_counter()
-    sys.path.insert(0, os.path.join(REPO, "src"))
     from repro_torch.device import resolve_device
 
     resolve_device("cuda")           # pins float32 matmuls to full precision
@@ -3856,10 +4186,16 @@ def main() -> int:
     agg_err, ota_err = run_token_phases(kernels)
     errs["weighted_aggregate"] = max(errs["weighted_aggregate"], agg_err)
     errs["ota_aggregate"] = max(errs["ota_aggregate"], ota_err)
-    agg_err, ota_err = run_family_phases(kernels)
+    agg_err, ota_err, q_launches = run_family_phases(kernels)
     errs["weighted_aggregate"] = max(errs["weighted_aggregate"], agg_err)
     errs["ota_aggregate"] = max(errs["ota_aggregate"], ota_err)
+    launches["quantize_dequantize"] += q_launches
     run_multimodal_phases()
+    t_mesh = time.perf_counter()
+    run_dryrun_and_roofline_phases()
+    log(f"[time] the mesh slice's phases ([dryrun], [roofline:*]) took "
+        f"{time.perf_counter() - t_mesh:.1f} s of the "
+        f"{time.perf_counter() - t_start:.1f} s so far")
 
     rows = []
     for kern in kernels:

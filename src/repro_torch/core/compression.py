@@ -8,7 +8,7 @@ a tree into integer codes for honest byte accounting (:func:`encode_tree`
 sparse stage that may run before DoReFa (:func:`topk_plan`,
 :func:`topk_mask`, :func:`sparse_payload_bits`).  The trainer's uplink
 (``launch/steps.py``) quantizes its gradient tree with
-:func:`encode_decode_tree`, optionally under
+:func:`quantize_dequantize_tree`, optionally under
 :func:`error_feedback_optimizer`.
 
 Trees are nested dicts of tensors, flattened in JAX's sorted-key order
@@ -25,6 +25,7 @@ import torch
 
 from repro_torch.core import quantization as q
 from repro_torch.core import tree as tree_lib
+from repro_torch.kernels import dorefa
 from repro_torch.kernels import ops as kops
 
 
@@ -153,6 +154,47 @@ def encode_decode_tree(tree, bits, *, paper_exact: bool = False):
     return q.quantize_tree(tree, bits, paper_exact=paper_exact)
 
 
+def quantize_dequantize_tree(tree, bits: int, *, paper_exact: bool = False):
+    """Fused quantize->dequantize of a tree at a static ``bits``, leaf by
+    leaf, in the jitted form: ``c * (s * fl(1/a))`` with ``s`` the leaf's
+    max-abs scale (``1.0`` under ``paper_exact``), as XLA compiles the
+    reference's :func:`encode_decode_tree` inside a jitted step with a
+    Python-int width.  Each leaf goes through
+    :func:`repro_torch.kernels.dorefa.quantize_dequantize`: kernel #5 on a
+    CUDA tensor (one launch per leaf), its plain version on a CPU one."""
+    def leaf(g):
+        return dorefa.quantize_dequantize(g, _tree_scale(g, paper_exact),
+                                          bits).reshape(g.shape)
+
+    return tree_lib.tree_map(leaf, tree)
+
+
+def _tree_scale(g, paper_exact: bool) -> torch.Tensor:
+    if paper_exact:
+        return torch.ones((), dtype=torch.float32, device=g.device)
+    return kops.max_abs_scale(g)
+
+
+def quantize_dequantize_residual_tree(tree, bits: int, *,
+                                      paper_exact: bool = False):
+    """(:func:`quantize_dequantize_tree`, the error-feedback residual ``adj
+    - q`` of each leaf as XLA's CPU compiles it after the quantizer: one
+    fused multiply-add, ``fma(c, -(s * fl(1/a)), adj)``, ``c`` the rounded
+    levels).  Each float32 leaf goes through
+    :func:`repro_torch.kernels.dorefa.quantize_dequantize_residual`: kernel
+    #5's residual mode on a CUDA tensor (one launch per leaf writes both),
+    its plain version on a CPU one."""
+    flat, treedef = tree_lib.tree_flatten(tree)
+    qs, rs = [], []
+    for g in flat:
+        q, r = dorefa.quantize_dequantize_residual(
+            g, _tree_scale(g, paper_exact), bits)
+        qs.append(q.reshape(g.shape))
+        rs.append(r.reshape(g.shape))
+    return (tree_lib.tree_unflatten(treedef, qs),
+            tree_lib.tree_unflatten(treedef, rs))
+
+
 def adaptive_bits_for_budget(tree, budget_bits) -> torch.Tensor:
     """Paper §II-B: b = floor(32 / r), r = max(I / c, 1)."""
     return q.adaptive_bits(payload_bits(tree), budget_bits)
@@ -164,7 +206,11 @@ def error_feedback_optimizer(optimizer, bits: int, *,
     the previous round's rounding residual is added back before
     quantizing, ``adj_t = g_t + r_{t-1}; q_t = Q_b(adj_t); r_t = adj_t -
     q_t``, with the residual kept in float32 (the reference's
-    ``compression.error_feedback_optimizer``)."""
+    ``compression.error_feedback_optimizer``).  The reference runs it
+    inside its jitted train step, so ``Q_b`` is
+    :func:`quantize_dequantize_tree`, the jitted form, and ``adj - q`` is
+    the fused multiply-add XLA contracts it to, both from one pass
+    (:func:`quantize_dequantize_residual_tree`)."""
     from repro_torch.optim.optimizers import Optimizer
 
     def init(params):
@@ -178,8 +224,8 @@ def error_feedback_optimizer(optimizer, bits: int, *,
     def update(grads, state, params):
         adj = tree_lib.tree_map(lambda g, r: g.to(torch.float32) + r,
                                 grads, state["residual"])
-        qd = encode_decode_tree(adj, bits, paper_exact=paper_exact)
-        residual = tree_lib.tree_map(lambda a, qq: a - qq, adj, qd)
+        qd, residual = quantize_dequantize_residual_tree(
+            adj, bits, paper_exact=paper_exact)
         new_params, inner = optimizer.update(qd, state["inner"], params)
         return new_params, {"inner": inner, "residual": residual}
 

@@ -9,6 +9,9 @@
 //   quantize_dequantize <- quantize_dequantize_pallas (_qdq_kernel)
 //       out[i]  = rint(a * clip(x[i] / s', -1, 1)) * (s' * inv_a),
 //       s' = max(s, 1e-12), stored in the input's type
+//     and its float32 mode with the error-feedback residual,
+//       res[i]  = fma(c[i], -(s' * inv_a), x[i]),  c[i] the rounded level,
+//     the one rounding XLA's CPU contracts the reference's adj - q to
 //
 // with a = 2^b - 1 rounded to float32 and inv_a = 1 / a rounded to float32,
 // both computed by the wrapper on the host.  These are the roundings the
@@ -16,9 +19,9 @@
 // a constant and XLA rewrites `x / a` as `x * fl(1/a)` and reassociates the
 // scalar product `(r * fl(1/a)) * s` into `r * (s * fl(1/a))`; the division
 // by the traced scale stays a true division.  Every step below is one
-// explicitly rounded operation (no fused multiply-add, no approximate
-// division), so the three kernels equal their plain PyTorch versions, and
-// the Pallas kernels in interpret mode, to the bit.
+// explicitly rounded operation (no fused multiply-add but the residual's,
+// no approximate division), so the three kernels equal their plain PyTorch
+// versions, and the Pallas kernels in interpret mode, to the bit.
 //
 // float -> int32 is __float2int_rn: round half to even, like jnp.round,
 // and saturating like XLA's convert (b = 31 and 32 give +-2^31 codes
@@ -128,6 +131,28 @@ __device__ __forceinline__ void vector_codes(const uint4& r, float s, float a,
 __device__ __forceinline__ float qdq_of(float x, float s, float a,
                                         float step) {
   return __fmul_rn(rintf(scaled(x, s, a)), step);
+}
+
+// Quantize -> dequantize of one float32 element and its residual
+// x - c * step as one fused multiply-add.
+__device__ __forceinline__ float2 qdq_residual_of(float x, float s, float a,
+                                                  float step) {
+  const float c = rintf(scaled(x, s, a));
+  return make_float2(__fmul_rn(c, step), __fmaf_rn(c, -step, x));
+}
+
+// The fused outputs and residuals of one 16-byte vector of float32 x.
+__device__ __forceinline__ void vector_qdq_residual(const uint4& r, float s,
+                                                    float a, float step,
+                                                    uint4& q, uint4& res) {
+  const float2 e0 = qdq_residual_of(__uint_as_float(r.x), s, a, step);
+  const float2 e1 = qdq_residual_of(__uint_as_float(r.y), s, a, step);
+  const float2 e2 = qdq_residual_of(__uint_as_float(r.z), s, a, step);
+  const float2 e3 = qdq_residual_of(__uint_as_float(r.w), s, a, step);
+  q = make_uint4(__float_as_uint(e0.x), __float_as_uint(e1.x),
+                 __float_as_uint(e2.x), __float_as_uint(e3.x));
+  res = make_uint4(__float_as_uint(e0.y), __float_as_uint(e1.y),
+                   __float_as_uint(e2.y), __float_as_uint(e3.y));
 }
 
 // The fused outputs of one 16-byte vector of x, in x's type.
@@ -318,6 +343,49 @@ __global__ void quantize_dequantize_kernel(const T* __restrict__ x, int64_t n,
   }
 }
 
+// quantize_dequantize_kernel<float> that also writes each element's
+// residual: one read of x, two writes.
+__global__ void quantize_dequantize_residual_kernel(
+    const float* __restrict__ x, int64_t n, const float* __restrict__ scale,
+    float a, float inv_a, float* __restrict__ out, float* __restrict__ res) {
+  const float s = floored(__ldg(scale));
+  const float step = __fmul_rn(s, inv_a);
+  const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+
+  const int64_t lead = to_boundary(x);
+  const int64_t head = lead < n ? lead : n;
+  const int64_t n_vec = (n - head) / 4;
+  const int64_t body_end = head + n_vec * 4;
+  const uint4* xv = reinterpret_cast<const uint4*>(x + head);
+  float* ov = out + head;
+  float* rv = res + head;
+  const bool o_aligned = to_boundary(ov) == 0;
+  const bool r_aligned = to_boundary(rv) == 0;
+  for (int64_t i = tid; i < n_vec; i += 2 * stride) {
+    const bool two = i + stride < n_vec;
+    const uint4 r0 = xv[i];
+    uint4 r1 = make_uint4(0, 0, 0, 0);
+    if (two) r1 = xv[i + stride];
+    uint4 q, e;
+    vector_qdq_residual(r0, s, a, step, q, e);
+    store_vector(ov + i * 4, q, o_aligned);
+    store_vector(rv + i * 4, e, r_aligned);
+    if (two) {
+      vector_qdq_residual(r1, s, a, step, q, e);
+      store_vector(ov + (i + stride) * 4, q, o_aligned);
+      store_vector(rv + (i + stride) * 4, e, r_aligned);
+    }
+  }
+  const int64_t n_edge = head + (n - body_end);
+  for (int64_t i = tid; i < n_edge; i += stride) {
+    const int64_t e = i < head ? i : body_end + (i - head);
+    const float2 v = qdq_residual_of(x[e], s, a, step);
+    out[e] = v.x;
+    res[e] = v.y;
+  }
+}
+
 // Threads the vector kernels want for n elements of x.
 int64_t vector_work(int64_t n, int bf16) {
   return n / (kVectorsPerThread * (bf16 ? 8 : 4)) + 1;
@@ -398,6 +466,12 @@ int dorefa_quantize_dequantize_attributes(int bf16, int* out) {
       out);
 }
 
+// The same for the residual mode of the quantize_dequantize kernel.
+int dorefa_quantize_dequantize_residual_attributes(int* out) {
+  return read_attributes(
+      reinterpret_cast<const void*>(quantize_dequantize_residual_kernel), out);
+}
+
 // codes: n int32; out: n float32.
 int dorefa_dequantize_codes(const void* codes, int64_t n, const void* scale,
                             float inv_a, void* out, void* stream) {
@@ -425,6 +499,18 @@ int dorefa_quantize_dequantize(const void* x, int bf16, int64_t n,
         static_cast<const float*>(x), n, s, a, inv_a,
         static_cast<float*>(out));
   }
+  return (int)cudaGetLastError();
+}
+
+// x, out and res: n float32 values.
+int dorefa_quantize_dequantize_residual(const void* x, int64_t n,
+                                        const void* scale, float a,
+                                        float inv_a, void* out, void* res,
+                                        void* stream) {
+  quantize_dequantize_residual_kernel<<<grid_for(vector_work(n, 0)), kThreads,
+                                        0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), n, static_cast<const float*>(scale), a,
+      inv_a, static_cast<float*>(out), static_cast<float*>(res));
   return (int)cudaGetLastError();
 }
 

@@ -7,7 +7,11 @@ width ``b`` (``a = 2^b - 1``):
     saturating at the int32 range;
   * :func:`dequantize_codes`: ``f32(c) * (s * fl(1/a))``;
   * :func:`quantize_dequantize`: ``rint(a * clip(x / s', -1, 1)) *
-    (s' * fl(1/a))``, ``s' = max(s, 1e-12)``, in the input's type.
+    (s' * fl(1/a))``, ``s' = max(s, 1e-12)``, in the input's type; and
+    its float32 mode :func:`quantize_dequantize_residual`, which also
+    writes the error-feedback residual ``fma(c, -(s' * fl(1/a)), x)`` (``c``
+    the rounded level), the one rounding XLA's CPU contracts the
+    reference's ``adj - q`` to, in the same pass.
 
 They replace the Pallas kernels ``repro/kernels/dorefa.py:
 quantize_codes_pallas``, ``dequantize_codes_pallas`` and
@@ -50,6 +54,7 @@ import torch
 
 from repro_torch.core import errors
 from repro_torch.kernels import cuda_build
+from repro_torch.kernels.fma import fma_f32
 
 KERNEL = "dorefa"
 
@@ -77,15 +82,22 @@ def _library() -> ctypes.CDLL:
             ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_void_p,
             ctypes.c_float, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
         ]
+        lib.dorefa_quantize_dequantize_residual.argtypes = [
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_float,
+            ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ]
         for fn in (lib.dorefa_quantize_codes, lib.dorefa_dequantize_codes,
-                   lib.dorefa_quantize_dequantize):
+                   lib.dorefa_quantize_dequantize,
+                   lib.dorefa_quantize_dequantize_residual):
             fn.restype = ctypes.c_int
         for fn in (lib.dorefa_quantize_codes_attributes,
                    lib.dorefa_quantize_dequantize_attributes):
             fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
             fn.restype = ctypes.c_int
-        lib.dorefa_dequantize_codes_attributes.argtypes = [ctypes.c_void_p]
-        lib.dorefa_dequantize_codes_attributes.restype = ctypes.c_int
+        for fn in (lib.dorefa_dequantize_codes_attributes,
+                   lib.dorefa_quantize_dequantize_residual_attributes):
+            fn.argtypes = [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
         lib.dorefa_error_string.argtypes = [ctypes.c_int]
         lib.dorefa_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -152,6 +164,19 @@ def quantize_dequantize_plain(x: torch.Tensor, scale: torch.Tensor,
     return out.to(flat.dtype)
 
 
+def quantize_dequantize_residual_plain(x: torch.Tensor, scale: torch.Tensor,
+                                       bits: int):
+    """Plain PyTorch version of :func:`quantize_dequantize_residual`: flat
+    float32 ``x`` (n,) -> ((n,) ``quantize_dequantize_plain(x, scale,
+    bits)``, (n,) residual ``fma(c, -(s * fl(1/a)), x)``) from one pass of
+    the rounded levels ``c``."""
+    flat = x.reshape(-1)
+    s = _floored(scale)
+    c = rounded_levels(flat, s, bits)
+    step = s * inv_levels(bits)
+    return c * step, fma_f32(flat, c, -step)
+
+
 # --------------------------------------------------------------------------
 # The kernels
 # --------------------------------------------------------------------------
@@ -162,6 +187,12 @@ def quantize_codes_attributes(dtype) -> dict:
     return cuda_build.read_attributes(
         _library().dorefa_quantize_codes_attributes,
         int(dtype == torch.bfloat16))
+
+
+def quantize_dequantize_residual_attributes() -> dict:
+    """The same for the quantize_dequantize kernel's residual mode."""
+    return cuda_build.read_attributes(
+        _library().dorefa_quantize_dequantize_residual_attributes)
 
 
 def dequantize_codes_attributes() -> dict:
@@ -254,6 +285,24 @@ def _quantize_dequantize_launch(flat, scale, bits):
     return out
 
 
+def _quantize_dequantize_residual_launch(flat, scale, bits):
+    lib = _library()
+    _check_operands(flat, scale, (torch.float32,), "x")
+    out = torch.empty_like(flat)
+    res = torch.empty_like(flat)
+    if flat.numel() == 0:
+        return out, res
+    with torch.cuda.device(flat.device):
+        status = lib.dorefa_quantize_dequantize_residual(
+            flat.data_ptr(), flat.numel(), scale.data_ptr(), levels(bits),
+            inv_levels(bits), out.data_ptr(), res.data_ptr(),
+            _stream(flat.device),
+        )
+    _check_launch(lib, status, "dorefa_quantize_dequantize_residual")
+    quantize_dequantize.launches += 1
+    return out, res
+
+
 def _dispatch(x, plain, launch, *args):
     if x.device.type == "cpu":
         return plain(x, *args)
@@ -288,6 +337,18 @@ def quantize_dequantize(x: torch.Tensor, scale: torch.Tensor,
     bfloat16) at a static ``bits``: (n,) of x's type."""
     return _dispatch(x, quantize_dequantize_plain,
                      _quantize_dequantize_launch, scale, int(bits))
+
+
+def quantize_dequantize_residual(x: torch.Tensor, scale: torch.Tensor,
+                                 bits: int):
+    """:func:`quantize_dequantize` of the flattened float32 ``x`` with the
+    error-feedback residual ``x - q`` as one fused multiply-add, both in
+    one pass: ((n,) float32, (n,) float32).  Its launch is #5's and counts
+    in ``quantize_dequantize.launches``."""
+    if x.dtype != torch.float32:
+        raise TypeError(f"x must be torch.float32, got {x.dtype}")
+    return _dispatch(x, quantize_dequantize_residual_plain,
+                     _quantize_dequantize_residual_launch, scale, int(bits))
 
 
 quantize_codes.launches = 0

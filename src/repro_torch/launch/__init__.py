@@ -1,2 +1,2 @@
-"""Launch layer: the LLM trainer and server (the mesh, dry-run and roofline
-tools are the second half of ROADMAP.md queue 1 item 8d)."""
+"""Launch layer: the LLM trainer and server, and the mesh, dry-run and
+roofline tools."""

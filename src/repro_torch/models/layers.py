@@ -13,9 +13,17 @@ Conventions, the reference's:
 What the reference adds only to steer XLA has no counterpart here: the
 optimization barrier that pins the embedding table's bf16 convert before
 the gather (its batching rule and ``_grad_safe_barrier``) — torch converts
-where the code says, so :func:`embed` converts the table first — and the
-activation-sharding hook ``constrain``, which comes with the mesh slice of
-the port.
+where the code says, so :func:`embed` converts the table first.
+
+The activation-sharding hook (:func:`set_activation_sharding`,
+:func:`constrain`) sits at the reference's call sites: the q, k and v
+projections ("heads"), the attention and MLP outputs and the embedding
+("residual"), and the transformer block's two residual sums.  The three
+row-parallel sites (the attention and MLP outputs and the vocab-sharded
+embedding gather) say that their output is a partial sum over the model
+axis.  With no hook it is the identity; the dry-run
+(``launch/dryrun.py``) installs one that counts the tensor-parallel
+all-reduces those sites imply.
 """
 from __future__ import annotations
 
@@ -30,6 +38,27 @@ from repro_torch.device import resolve_device
 from repro_torch.models.params import ParamSpec
 
 COMPUTE_DTYPE = torch.bfloat16
+
+# --------------------------------------------------------------------------
+# Activation-sharding hook (set by a launcher; the identity without one).
+# Kinds: "residual" for (B, S, D) activations, "heads" for (B, S, H, D).
+# --------------------------------------------------------------------------
+
+_ACT_SHARDING_HOOK = None
+
+
+def set_activation_sharding(hook):
+    """hook: callable(x, kind, partial_sum) -> x, kind in {"residual",
+    "heads"}, ``partial_sum`` true at a row-parallel site (its output is
+    summed over the model axis); ``None`` removes it."""
+    global _ACT_SHARDING_HOOK
+    _ACT_SHARDING_HOOK = hook
+
+
+def constrain(x, kind: str, *, partial_sum: bool = False):
+    if _ACT_SHARDING_HOOK is None:
+        return x
+    return _ACT_SHARDING_HOOK(x, kind, partial_sum)
 
 # --------------------------------------------------------------------------
 # Norms
@@ -230,9 +259,9 @@ def attention_block(
     decode step, as the reference does."""
     xc = x.to(COMPUTE_DTYPE)
     src = xc if kv_source is None else kv_source.to(COMPUTE_DTYPE)
-    q = _proj(xc, p["wq"])
-    k = _proj(src, p["wk"])
-    v = _proj(src, p["wv"])
+    q = constrain(_proj(xc, p["wq"]), "heads")
+    k = constrain(_proj(src, p["wk"]), "heads")
+    v = constrain(_proj(src, p["wv"]), "heads")
     if cfg.qkv_bias:
         q = q + p["bq"].to(COMPUTE_DTYPE)
         k = k + p["bk"].to(COMPUTE_DTYPE)
@@ -271,7 +300,9 @@ def attention_block(
         mask_spec=mask_spec,
         q_offset=q_offset, kv_chunk=kv_chunk, kv_valid_len=kv_valid,
     )
-    y = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(COMPUTE_DTYPE))
+    y = constrain(torch.einsum("bshk,hkd->bsd", out,
+                               p["wo"].to(COMPUTE_DTYPE)), "residual",
+                  partial_sum=True)
     return y.to(x.dtype), new_cache
 
 
@@ -308,7 +339,7 @@ def mlp_block(p, x):
     act = torch.nn.functional.silu(gate.to(torch.float32)).to(
         COMPUTE_DTYPE) * up
     out = torch.einsum("bsf,fd->bsd", act, p["wo"].to(COMPUTE_DTYPE))
-    return out.to(x.dtype)
+    return constrain(out, "residual", partial_sum=True).to(x.dtype)
 
 
 def embedding_schema(vocab: int, d: int, *, tie: bool):
@@ -322,7 +353,8 @@ def embed(p, tokens):
     """The bf16 rows of the table: the table is converted before the
     gather, as the reference pins it."""
     table = p["tokens"].to(COMPUTE_DTYPE)
-    return table[tokens.to(torch.int64)]
+    return constrain(table[tokens.to(torch.int64)], "residual",
+                     partial_sum=True)
 
 
 def unembed(p, x, *, tie: bool):

@@ -6,6 +6,8 @@ as a nested dict of :class:`ParamSpec` (shape + logical axis names +
 initializer); from that one schema come
 
   * :func:`init_params` — the float32 parameter tree on a device;
+  * :func:`logical_specs` — the same tree of logical-axis tuples, which
+    ``repro_torch.sharding.rules`` maps onto a mesh;
   * :func:`abstract_params` — shapes and dtypes only, no allocation.
 
 Each leaf is drawn from the key ``fold_in(key, crc32(keystr(path)) %
@@ -119,6 +121,11 @@ def init_params(schema, key, *, device=None):
         return _materialize(node, leaf_key(key, keystr(path)), device)
 
     return build(schema, ())
+
+
+def logical_specs(schema):
+    """The tree of logical-axis tuples matching the parameter tree."""
+    return _map_specs(lambda s: s.axes, schema)
 
 
 def abstract_params(schema):

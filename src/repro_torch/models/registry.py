@@ -10,7 +10,7 @@ from typing import Any
 from repro_torch.config import ModelConfig
 from repro_torch.models import encdec, hybrid, mamba2, moe, transformer, vlm
 from repro_torch.models.params import (
-    abstract_params, init_params,
+    abstract_params, init_params, logical_specs,
 )
 
 _FAMILIES = {
@@ -45,6 +45,9 @@ class Model:
 
     def abstract(self):
         return abstract_params(self.schema)
+
+    def param_logical_specs(self):
+        return logical_specs(self.schema)
 
     # ---- compute ----
     def loss(self, params, batch, **kw):

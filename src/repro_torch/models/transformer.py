@@ -49,8 +49,9 @@ def transformer_block(p, x, cfg, *, mspec, positions, cache, kv_chunk):
         mask_spec=mspec, positions=positions, cache=cache, kv_chunk=kv_chunk,
     )
     x, normed = L.add_norm(x, h, p["ln2"], cfg.norm_eps)
+    x = L.constrain(x, "residual")
     x = x + L.mlp_block(p["mlp"], normed)
-    return x, new_cache
+    return L.constrain(x, "residual"), new_cache
 
 
 def _per_layer(tree, n: int):

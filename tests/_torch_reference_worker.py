@@ -10,8 +10,10 @@
 The JAX package cannot import ``repro.models`` (and hence ``repro.core.fl``)
 under JAX 0.9.0: ``models/layers.py`` asks ``x not in
 batching.primitive_batchers``, which the 0.9.0 proxy object no longer
-supports, and ``jax.experimental.enable_x64`` is gone.  This script applies
-a compatibility shim for both faults *in its own process only* and then runs
+supports, and ``jax.experimental.enable_x64`` is gone; and its dry-run's
+production mesh gets 0.9.0's Explicit axis types, under which its
+embedding gather fails.  This script applies a compatibility shim for these
+faults *in its own process only* and then runs
 one reference task, exchanging arrays through ``.npz`` files.  The shim is
 never applied inside the pytest process: there it would turn the reference's
 own failing tests green without any fix to the package.
@@ -49,6 +51,22 @@ def apply_shim() -> None:
             jax.config.update("jax_enable_x64", old)
 
     jax.experimental.enable_x64 = enable_x64
+
+    # Under 0.9.0 jax.make_mesh defaults to Explicit axis types, and the
+    # reference's dry-run fails at its embedding gather ("ShardingTypeError:
+    # Use .at[...].get(out_sharding=)"): its production mesh is rebuilt with
+    # Auto axes, the type the reference was written for.
+    from jax.sharding import AxisType
+
+    import repro.launch.mesh as mesh_mod
+
+    def make_production_mesh(*, multi_pod: bool = False):
+        shape = (2, 16, 16) if multi_pod else (16, 16)
+        axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+        return jax.make_mesh(shape, axes,
+                             axis_types=(AxisType.Auto,) * len(shape))
+
+    mesh_mod.make_production_mesh = make_production_mesh
 
 
 LEAVES = ("fc1/b", "fc1/w", "fc2/b", "fc2/w", "fc3/b", "fc3/w")
@@ -728,6 +746,7 @@ def task_launch_parts(spec, arrays):
             params, state, loss = step(params, state, batch)
             out[f"{pre}/loss/{i}"] = np.asarray(loss)
         out.update(_tree_to_arrays(params, f"{pre}/final/"))
+    out.update(_quantized_steps(spec.get("quantized_steps", []), arrays))
     for case in spec.get("train_main", []):
         with _gated_init(case.get("gates")):
             out[f"train/{case['key']}"] = np.asarray(
@@ -735,6 +754,70 @@ def task_launch_parts(spec, arrays):
     for case in spec.get("serve_main", []):
         with _gated_init(case.get("gates")):
             out[f"serve/{case['key']}"] = np.asarray(serve.main(case["argv"]))
+    return out
+
+
+class _GivenGrads:
+    """A stand-in model whose loss is ``batch["l"][0] + sum_k sum(p_k *
+    batch[k][0])``: at zero parameters the loss is ``l`` and the gradient
+    of leaf k is ``batch[k][0]``, both exactly, so a train step's
+    quantizer and mean see given values."""
+
+    def loss(self, params, batch, **_):
+        import jax.numpy as jnp
+
+        tot = batch["l"][0]
+        for k in sorted(params):
+            tot = tot + jnp.sum(params[k] * batch[k][0])
+        return tot
+
+
+def _quantized_steps(cases, arrays):
+    """``spec["quantized_steps"]``: the reference's jitted
+    ``steps.make_train_step`` on :class:`_GivenGrads` with an optimizer that
+    returns the gradients it is given as the new parameters: the case's
+    ``fl_bits`` and ``grad_accum``, or with ``ef`` the
+    ``error_feedback_optimizer`` around it (``fl_bits=None``), one step per
+    batch ``qstep/<key>/<i>/<leaf>`` (leading axis ``grad_accum``, and
+    ``l``).  Returns ``qstep/<key>/q/<i>/<leaf>`` (the quantized
+    gradients), ``qstep/<key>/loss/<i>`` and, with ``ef``,
+    ``qstep/<key>/r/<i>/<leaf>`` (the residual after step i)."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from repro.core.compression import error_feedback_optimizer
+    from repro.launch import steps
+    from repro.optim.optimizers import Optimizer
+
+    capture = Optimizer(lambda p: {"step": jnp.zeros((), jnp.int32)},
+                        lambda g, s, p: (g, {"step": s["step"] + 1}))
+    out = {}
+    for case in cases:
+        pre = f"qstep/{case['key']}"
+        names = case["leaves"]
+        opt = capture
+        if case.get("ef"):
+            opt = error_feedback_optimizer(capture, int(case["fl_bits"]))
+        step = jax.jit(steps.make_train_step(
+            _GivenGrads(), opt,
+            fl_bits=None if case.get("ef") else int(case["fl_bits"]),
+            grad_accum=int(case["grad_accum"])))
+        state = None
+        for i in range(int(case["steps"])):
+            batch = {k: jnp.asarray(arrays[f"{pre}/{i}/{k}"])
+                     for k in names + ["l"]}
+            params = {k: jnp.zeros(batch[k].shape[1:], jnp.float32)
+                      for k in names}
+            if state is None:
+                state = opt.init(params)
+            q, state, loss = step(params, state, batch)
+            out[f"{pre}/loss/{i}"] = np.asarray(loss)
+            for k in names:
+                out[f"{pre}/q/{i}/{k}"] = np.asarray(q[k])
+                if case.get("ef"):
+                    out[f"{pre}/r/{i}/{k}"] = np.asarray(
+                        state["residual"][k])
     return out
 
 
@@ -1509,6 +1592,133 @@ def write_train_reference(path: str) -> None:
         fh.write("\n")
 
 
+def _json_array(obj):
+    import numpy as np
+
+    return np.asarray(json.dumps(obj))
+
+
+def _shapes_of(tree):
+    """{path: [shape, dtype name]} of a tree of arrays or shape structs."""
+    from repro.utils.tree import tree_flatten_with_paths
+
+    return {path: [list(leaf.shape), str(leaf.dtype)]
+            for path, leaf in tree_flatten_with_paths(tree)}
+
+
+def _depth_override(cfg, layers):
+    """The reference dry-run's probe configs at ``layers`` layers: the
+    encdec's encoder cut alike, the vlm and hybrid with a site every 2."""
+    over = {"num_layers": layers}
+    if cfg.family == "encdec":
+        over["encoder_layers"] = layers
+    if cfg.family == "vlm":
+        over["cross_attn_every"] = 2
+    if cfg.family == "hybrid":
+        over["hybrid_attn_every"] = 2
+    return over
+
+
+def task_sharding_parts(spec, arrays):
+    """``spec["archs"]``: each architecture's full-width schema as
+    ``build_model(get_config(arch), shards=16)`` gives it: its logical axes
+    and shapes (``schema/<arch>``, JSON {path: [axes, shape]}).
+    ``spec["caches"]``: ``[arch, shape name]`` pairs, the abstract cache
+    ``jax.eval_shape(model.init_cache(B, S))`` at that shape
+    (``cache/<arch>/<shape>``, JSON {path: [shape, dtype]})."""
+    import jax
+    import numpy as np
+
+    from repro.config import INPUT_SHAPES
+    from repro.configs import get_config
+    from repro.models.params import abstract_params
+    from repro.models.registry import build_model
+    from repro.utils.tree import tree_flatten_with_paths
+
+    out = {}
+    for arch in spec.get("archs", []):
+        model = build_model(get_config(arch), shards=16)
+        boxed = jax.tree_util.tree_map(
+            lambda a: np.asarray(json.dumps(list(a))),
+            model.param_logical_specs(),
+            is_leaf=lambda x: isinstance(x, tuple))
+        axes = {p: json.loads(str(a))
+                for p, a in tree_flatten_with_paths(boxed)}
+        shapes = dict(tree_flatten_with_paths(abstract_params(model.schema)))
+        out[f"schema/{arch}"] = _json_array(
+            {p: [axes[p], list(shapes[p].shape)] for p in shapes})
+    for arch, name in spec.get("caches", []):
+        model = build_model(get_config(arch), shards=16)
+        shape = INPUT_SHAPES[name]
+        out[f"cache/{arch}/{name}"] = _json_array(_shapes_of(jax.eval_shape(
+            lambda: model.init_cache(shape.global_batch, shape.seq_len))))
+    return out
+
+
+def task_dryrun_parts(spec, arrays):
+    """The reference's dry-run pieces, its production mesh on 512 fake XLA
+    devices with Auto axes (the shim).  ``spec["runs"]``: ``run_one(arch,
+    shape, cfg_override=<depth>, fl_bits=..., multi_pod=...)``'s result
+    (``run/<i>``, JSON of its dataclass).  ``spec["inputs"]``: ``[arch,
+    shape]`` pairs, ``steps.input_specs`` and ``steps.abstract_cache``
+    (``inputs/<arch>/<shape>``, ``acache/...``, JSON {path: [shape,
+    dtype]}).  ``spec["prefill"]``: SMOKE prefill steps,
+    ``steps.make_prefill_step(model, ShapeConfig(S, B, "prefill"))`` on the
+    model's ``init(PRNGKey(0))`` (a vlm's gates set to ``gates``) and the
+    batch ``prefill/<arch>/<k>``: the last logits and the caches
+    (``prefill/<arch>/out/...``).  Also ``skips``: the reference's
+    ``SKIPS``."""
+    import dataclasses
+
+    import repro.launch.dryrun as dr   # sets XLA_FLAGS before jax's init
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from repro.config import INPUT_SHAPES, ShapeConfig
+    from repro.configs import get_config, get_smoke
+    from repro.launch import steps
+    from repro.models.registry import build_model
+
+    out = {"skips": _json_array(sorted([list(k), v]
+                                       for k, v in dr.SKIPS.items()))}
+    for i, case in enumerate(spec.get("runs", [])):
+        cfg = get_config(case["arch"])
+        res = dr.run_one(case["arch"], case["shape"],
+                         cfg_override=_depth_override(cfg, case["layers"]),
+                         fl_bits=case.get("fl_bits", 8),
+                         multi_pod=bool(case.get("multi_pod")),
+                         verbose=False)
+        out[f"run/{i}"] = _json_array(dataclasses.asdict(res))
+    for arch, name in spec.get("inputs", []):
+        cfg = get_config(arch)
+        shape = INPUT_SHAPES[name]
+        out[f"inputs/{arch}/{name}"] = _json_array(
+            _shapes_of(steps.input_specs(cfg, shape)))
+        model = build_model(cfg, shards=16)
+        out[f"acache/{arch}/{name}"] = _json_array(
+            _shapes_of(steps.abstract_cache(model, shape)))
+    for case in spec.get("prefill", []):
+        arch = case["arch"]
+        pre = f"prefill/{arch}"
+        model = build_model(get_smoke(arch))
+        with _gated_init(case.get("gates")):
+            params = model.init(jax.random.PRNGKey(0))
+        batch = {k[len(pre) + 1:]: jnp.asarray(v) for k, v in arrays.items()
+                 if k.startswith(pre + "/")}
+        batch = {k: v if k == "tokens" else v.astype(jnp.bfloat16)
+                 for k, v in batch.items()}
+        b, s = batch["tokens"].shape
+        step = steps.make_prefill_step(model, ShapeConfig("p", s, b,
+                                                          "prefill"))
+        logits, caches = step(params, batch)
+        out[f"{pre}/out/logits"] = np.asarray(logits)
+        out.update(_tree_to_arrays(jax.tree_util.tree_map(
+            lambda x: x.astype(jnp.float32) if x.dtype == jnp.bfloat16
+            else x, caches), f"{pre}/out/cache/"))
+    return out
+
+
 TASKS = {
     "lenet_grad": task_lenet_grad,
     "sgd_epoch": task_sgd_epoch,
@@ -1526,6 +1736,8 @@ TASKS = {
     "launch_parts": task_launch_parts,
     "multimodal_parts": task_multimodal_parts,
     "qwen2_reference": task_qwen2_reference,
+    "sharding_parts": task_sharding_parts,
+    "dryrun_parts": task_dryrun_parts,
 }
 
 

@@ -352,7 +352,8 @@ def test_port_imports_neither_jax_nor_reference():
                  "models.moe", "models.mamba2", "models.hybrid",
                  "optim.optimizers", "optim.schedules",
                  "checkpoint.msgpack_ckpt", "launch.steps", "launch.train",
-                 "launch.serve"):
+                 "launch.serve", "launch.mesh", "launch.dryrun",
+                 "launch.roofline", "sharding.rules"):
         assert "repro_torch." + name in out["modules"]
     assert out["bad"] == []
 
@@ -387,16 +388,23 @@ def test_entry_points_default_to_cuda(monkeypatch):
 
 def test_parameter_entry_points_default_to_cuda(monkeypatch):
     """params_from_jax, LenetFLModel.init, init_lenet, TokenFLModel.init and
-    the decode caches (Model.init_cache, transformer.init_cache) put their
-    tensors on cuda unless given device='cpu', and raise without CUDA."""
+    the decode caches (Model.init_cache, transformer.init_cache, the
+    prefill step's) put their tensors on cuda unless given device='cpu',
+    and raise without CUDA."""
+    from repro_torch.config import ShapeConfig
     from repro_torch.configs import get_smoke
+    from repro_torch.core import prng
     from repro_torch.core.tree import tree_flatten
+    from repro_torch.launch.steps import make_prefill_step
     from repro_torch.models import transformer
     from repro_torch.models.fl_models import get_fl_model
     from repro_torch.models.params import init_lenet
     from repro_torch.models.registry import build_model
 
     smoke = get_smoke("qwen2_0_5b")
+    model = build_model(smoke)
+    params = model.init(prng.prng_key(0), device="cpu")
+    batch = {"tokens": torch.zeros((2, 4), dtype=torch.int32)}
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for make in (
         lambda **kw: convert.params_from_jax(tree(_numpy_params(0), "p/"),
@@ -406,6 +414,8 @@ def test_parameter_entry_points_default_to_cuda(monkeypatch):
         lambda **kw: get_fl_model("tiny-transformer").init(0, **kw),
         lambda **kw: build_model(smoke).init_cache(2, 8, **kw),
         lambda **kw: transformer.init_cache(smoke, 2, 8, shards=1, **kw),
+        lambda **kw: make_prefill_step(
+            model, ShapeConfig("p", 8, 2, "prefill"), **kw)(params, batch)[1],
     ):
         with pytest.raises(RuntimeError, match="pass device='cpu'"):
             make()
