@@ -30,7 +30,11 @@ package, and exits non-zero on the first failure.  Phases:
      each device backend's time into device-busy and idle; at the FL main
      path's shape the fused loop is also issued whole behind a sleep kernel
      (no step waits for the card); an instance of equal gains shows the
-     first-maximum tie-break on the card;
+     first-maximum tie-break on the card; the vertex split
+     (``[sched:split]``: ``shards`` as 2 and 4 shards on ``cuda:0``, and on
+     distinct cards where the host has them) gives the unsplit schedule
+     at both widths and both scorers, kernel #6 launches shards x greedy
+     steps, and the split loop runs under the sync check;
   6. the main path — ``repro_torch.core.fl.run_federated_learning`` at
      paper width (M=300 devices, K=3, LeNet-300-100 on 12,000 samples,
      MAPEL, lazy GWMIN, adaptive DoReFa, batched engine with the kernel) —
@@ -125,8 +129,13 @@ package, and exits non-zero on the first failure.  Phases:
      twice a round for the 24 (seed, leaf) sums); a cell sweep of 2 cells x
      2 seeds with ``cell_shards=2``, clamped to the card count
      (``[sweep:cells]``: each instance equal to its single scan to the
-     bit); and the M=30 scan on the CPU and on the card held to the
-     contract of 7 (``[cpu-vs-card:scan]``);
+     bit); the cell sweep split over 2 worker processes, on ``cuda:0``
+     twice and on two cards where the host has them
+     (``[sweep:cells-split]``: NOMA with C=3 padded to 4 and S=2, OTA and
+     age-fair with C=3 and S=1, every instance bit-equal to the unsplit
+     sweep's, each worker's #1 or keyed #2 launches counted in the worker
+     and returned); and the M=30 scan on the CPU and on the card held to
+     the contract of 7 (``[cpu-vs-card:scan]``);
  14. the online policies, which select each round from the FL state of
      the rounds before: update-aware with MAPEL per round
      (``[main:online]``: each round's norms fed to the policy and host
@@ -1349,7 +1358,8 @@ def _same_schedule(a, b):
     return a.rounds == b.rounds and a.weighted_sum_rate == b.weighted_sum_rate
 
 
-def _fused_on_card(gains, w, k, pool, scorer, behind_sleep=False):
+def _fused_on_card(gains, w, k, pool, scorer, behind_sleep=False,
+                   shards=None):
     """The fused loop alone with every host sync an error; returns the
     rounds it selected (read back after the mode is lifted).
 
@@ -1359,7 +1369,8 @@ def _fused_on_card(gains, w, k, pool, scorer, behind_sleep=False):
     for the card.  That proof holds only while the loop's launches fit the
     card's launch queue (past it the host blocks until the card drains the
     queue, as the paper-width loops, of thousands of launches, do), so it
-    is made at the FL main path's shape, hundreds of launches."""
+    is made at the FL main path's shape, hundreds of launches.  ``shards``
+    is passed on (a device list runs the vertex split)."""
     from repro_torch.core import rates_device, scheduling
 
     pool, kk, (g, wt, solo, subs) = scheduling._device_greedy_inputs(
@@ -1373,7 +1384,7 @@ def _fused_on_card(gains, w, k, pool, scorer, behind_sleep=False):
     try:
         assign, done, _ = rates_device.greedy_rounds_fused(
             g, wt, solo, subs, pool=pool, pmax=PMAX, noise_power=NOISE,
-            scorer=scorer)
+            scorer=scorer, shards=shards)
     finally:
         torch.cuda.set_sync_debug_mode(0)
     if behind_sleep:
@@ -1469,6 +1480,76 @@ def run_scheduler(sic):
         check(rounds == ref.rounds, f"M=300 T=5: fused loop ({scorer}) differs")
     log("[sched] M=300 T=5 pool=24: fused loop (xla, pallas) issued whole "
         "while the card slept: no step waited for the card")
+
+
+def _split_device_lists(n):
+    """The device lists a split of ``n`` shards runs on: ``n`` times
+    ``cuda:0`` (one card holds every shard), and the first ``n`` cards
+    where the host has them."""
+    lists = [[torch.device("cuda", 0)] * n]
+    if torch.cuda.device_count() >= n:
+        lists.append([torch.device("cuda", i) for i in range(n)])
+    return lists
+
+
+def _split_label(devices):
+    cards = sorted({d.index for d in devices})
+    return (f"{len(devices)} shards on cuda:0" if cards == [0]
+            else f"{len(devices)} shards on cuda:{cards[0]}-{cards[-1]}")
+
+
+def run_sched_split(kernels):
+    """``[sched:split]``: the device greedy's vertex split at the
+    BENCH_scheduling.json widths (M=300/T=35 and M=1000/T=50, K=3, pool
+    64), scorers xla and pallas, 2 and 4 shards on ``cuda:0`` (and on
+    distinct cards where the host has them): rounds and weighted sum rate
+    equal the unsplit schedule's, kernel #6 launches shards x greedy steps,
+    and the split loop runs under ``set_sync_debug_mode("error")``.
+    Returns #6's launches over the phase's split schedules."""
+    from repro_torch.core import scheduling
+
+    def schedule(gains, w, k, pool, scorer, shards):
+        return scheduling.lazy_greedy_schedule(
+            gains, w, k, noise_power=NOISE, pmax=PMAX, candidate_pool=pool,
+            backend="jax", scorer=scorer, shards=shards, device="cuda")
+
+    total = 0
+    for m, t, k, pool in SCHED_CASES:
+        gains, w = _sched_instance(m, t)
+        steps = min(t, m // k)
+        for scorer in ("xla", "pallas"):
+            ref, ref_s = _timed(lambda: schedule(gains, w, k, pool, scorer,
+                                                 None))
+            parts = [f"unsplit {ref_s:.3f} s"]
+            for n in (2, 4):
+                for devices in _split_device_lists(n):
+                    label = (f"[sched:split] M={m} T={t} pool={pool} "
+                             f"{scorer} {_split_label(devices)}")
+                    reset_launches(kernels)
+                    got, sec = _timed(lambda: schedule(gains, w, k, pool,
+                                                       scorer, devices))
+                    launches = read_launches(kernels)
+                    want = {name: 0 for name in launches}
+                    if scorer == "pallas":
+                        want["sic_weighted_rates"] = n * steps
+                    check(launches == want,
+                          f"{label}: launches {launches}, expected {want}")
+                    total += launches["sic_weighted_rates"]
+                    check(_same_schedule(got, ref),
+                          f"{label}: the schedule differs from the unsplit "
+                          f"one")
+                    rounds = _fused_on_card(gains, w, k, pool, scorer,
+                                            shards=devices)
+                    check(rounds == ref.rounds,
+                          f"{label}: the split loop under sync-debug differs")
+                    parts.append(f"{_split_label(devices)} {sec:.3f} s")
+            sic_launches = f"n x {steps}" if scorer == "pallas" else "0"
+            log(f"[sched:split] M={m} T={t} K={k} pool={pool} {scorer}: "
+                f"rounds and wsum {ref.weighted_sum_rate!r} equal at every "
+                f"shard count; #6 {sic_launches} launches; the split loop "
+                f"ran under sync-debug 'error'; seconds per schedule: "
+                f"{'; '.join(parts)}")
+    return total
 
 
 # --------------------------------------------------------------------------
@@ -2005,7 +2086,9 @@ def run_seed_sweep(kernels, scan_run, m=300, t=5, samples=12_000):
 def run_cell_sweep(kernels, singles, single_dev, m=300, t=5,
                    samples=12_000):
     """``[sweep:cells]``: ``run_cell_sweep`` with 2 cells of 2 seeds and
-    ``cell_shards=2``, which clamps to the card count; every instance's
+    ``cell_shards=2``, which clamps to the card count (1 on a one-card
+    host: the unsplit sweep, in this process; ``[sweep:cells-split]``
+    runs the split); every instance's
     logs and final parameters equal its own single scan's to the bit (the
     same ``run_horizon`` program at the same batch count).  Each of the
     four horizons' device part runs under the sync check, and its seconds
@@ -2038,7 +2121,8 @@ def run_cell_sweep(kernels, singles, single_dev, m=300, t=5,
                 f"[sweep:cells] cell {c} seed {s} (seed {seed}) against its "
                 f"single scan:")
     log(f"[sweep:cells] C=2 x S=2 at M={m} K=3 T={t}, cell_shards=2 clamped "
-        f"to {shards_n} on {torch.cuda.device_count()} card(s): one "
+        f"to {shards_n} on {torch.cuda.device_count()} card(s)"
+        f"{': unsplit, in this process' if shards_n == 1 else ''}: one "
         f"run_horizon per instance; {sec:.3f} s ({sec / 4:.4f} s per "
         f"instance, schedules included); launches {launches}")
     singles_dev = [single_dev[SWEEP_SEEDS.index(seed)] for seed in range(4)]
@@ -2047,6 +2131,91 @@ def run_cell_sweep(kernels, singles, single_dev, m=300, t=5,
         f"(mean {sum(cells_dev) / 4:.4f}) against the single scans' "
         f"{[round(x, 4) for x in singles_dev]} s (mean "
         f"{sum(singles_dev) / 4:.4f})")
+    return sec
+
+
+SPLIT_SWEEPS = (   # [sweep:cells-split]: label, _config overrides, C, S
+    ("noma", dict(), 3, 2),
+    ("ota", dict(uplink="ota"), 3, 1),
+    ("age-fair", dict(scheduler="age-fair", power_mode="max"), 3, 1),
+)
+
+
+def run_cell_sweep_split(kernels, singles, cells_sec, m=300, t=5,
+                         samples=12_000):
+    """``[sweep:cells-split]``: ``run_cell_sweep`` split over 2 worker
+    processes at the ``[main:scan]`` width (LeNet-300-100, 12,000 samples,
+    M=300, K=3, T=5): NOMA (the main path's MAPEL lazy GWMIN) with C=3,
+    S=2 (C padded to 4), OTA (noise 1e-9) and age-fair at max power with
+    C=3, S=1; on ``cuda:0`` twice, and on two cards where the host has
+    them.  Every instance's logs and final parameters equal the unsplit
+    sweep's to the bit (seeds 0-3 of NOMA: the single scans
+    ``[sweep:cells]`` held the unsplit sweep to); each worker's launches
+    are #1 once a round of each of its instances (NOMA, age-fair) or the
+    keyed #2 (OTA), and no Threefry draw (the parent draws the initial
+    weights, 3 an instance).  The split's seconds print beside the
+    unsplit sweep's (for NOMA, ``[sweep:cells]``'s ``cells_sec`` for seeds
+    0-3 plus the single scans of seeds 4 and 5).  Returns #1's and #2's
+    launches over the phase's workers."""
+    from repro_torch.core import fl
+    from repro_torch.sharding import cells
+
+    ds, cell, shards = _world(m, samples)
+    totals = {"weighted_aggregate": 0, "ota_aggregate": 0}
+    for label, overrides, num_c, num_s in SPLIT_SWEEPS:
+        cfg = _config(m, t, horizon="scan", **overrides)
+        count = num_c * num_s
+        if label == "noma":
+            extra, extra_s = _timed(lambda: [fl.run_federated_learning(
+                ds, shards, cell, dataclasses.replace(cfg, seed=seed),
+                device="cuda") for seed in range(len(singles), count)])
+            flat = list(singles) + extra
+            unsplit = [flat[c * num_s:(c + 1) * num_s] for c in range(num_c)]
+            unsplit_s = cells_sec + extra_s
+        else:
+            unsplit, unsplit_s = _timed(lambda: fl.run_cell_sweep(
+                ds, shards, cell, cfg, num_cells=num_c, seeds_per_cell=num_s,
+                device="cuda"))
+        kernel = "ota_aggregate" if label == "ota" else "weighted_aggregate"
+        for devices in _split_device_lists(2):
+            tag = f"[sweep:cells-split] {label} C={num_c} S={num_s} " \
+                  f"{_split_label(devices)}"
+            reset_launches(kernels)
+            grid, sec = _timed(lambda: fl.run_cell_sweep(
+                ds, shards, cell, cfg, num_cells=num_c, seeds_per_cell=num_s,
+                cell_shards=devices, device="cuda"))
+            parent = read_launches(kernels)
+            want = {name: 0 for name in parent}
+            want["threefry_draw"] = LENET_WEIGHT_LEAVES * count
+            check(parent == want,
+                  f"{tag}: parent launches {parent}, expected {want}")
+            workers = list(cells.last_launches)
+            padded = -(-num_c // 2) * 2
+            per_worker = padded // 2 * num_s * t
+            for j, got in enumerate(workers):
+                want = {name: 0 for name in got}
+                want[kernel] = per_worker
+                check(got == want, f"{tag}: worker {j} launches {got}, "
+                      f"expected {want}")
+                totals[kernel] += got[kernel]
+            for c in range(num_c):
+                for s in range(num_s):
+                    _check_identical_runs(
+                        grid[c][s], unsplit[c][s],
+                        f"{tag} cell {c} seed {s} against the unsplit sweep:")
+            log(f"{tag} at M={m} K=3 T={t}: every instance bit-equal to the "
+                f"unsplit sweep's; {len(workers)} workers, each {kernel} "
+                f"{per_worker} launches ({padded // 2} cells x {num_s} "
+                f"seeds x {t} rounds), Threefry 0; the parent Threefry "
+                f"{parent['threefry_draw']}; {sec:.3f} s (the workers' start "
+                f"included) against the unsplit sweep's {unsplit_s:.3f} s")
+            seconds = [{k: round(v, 3) for k, v in w.items()}
+                       for w in cells.last_seconds]
+            log(f"{tag}: each worker's seconds (start = spawn to its first "
+                f"statement, setup = the card's context, receive = waiting "
+                f"for its block and reading it, run = its horizons, exit = "
+                f"its process's end): {seconds}")
+    return totals
 
 
 def run_online_phases(kernels):
@@ -4100,6 +4269,8 @@ def main() -> int:
     m2, t2, k2, pool2 = SCHED_CASES[1]
     time_sic(sic, t2 * math.comb(pool2, k2), k2, label="M=1000 T=50 pool=64 ")
     run_scheduler(sic)
+    split_launches = {"sched:split": {"sic_weighted_rates": run_sched_split(
+        kernels)}}
     host, _ = run_main_path(kernels, "host")
     on_card, _ = run_main_path(kernels, "jax")
     planned, launches = run_main_path(kernels, "pallas")
@@ -4166,7 +4337,12 @@ def main() -> int:
     log(f"[main:scan-ota] {RUN_SECONDS['scan-ota']:.4f} s after the "
         f"schedule; [main:ota] {RUN_SECONDS['ota']:.4f} s")
     singles, single_dev = run_seed_sweep(kernels, scan_run)
-    run_cell_sweep(kernels, singles, single_dev)
+    cells_sec = run_cell_sweep(kernels, singles, single_dev)
+    split_launches["sweep:cells-split"] = run_cell_sweep_split(
+        kernels, singles, cells_sec)
+    for phase in split_launches.values():
+        for name, count in phase.items():
+            launches[name] += count
     compare_cpu_and_card(kernels, scan=True)
 
     online_scan = run_online_phases(kernels)
@@ -4208,6 +4384,8 @@ def main() -> int:
             bound_ms=t["bound_ms"], bound_by=t.get("bound_by", "bytes"),
             library_ms=t["library_ms"], host_ms=t["host_ms"],
             plain_host_ms=t["plain_host_ms"],
+            split_launches={phase: counts.get(name, 0)
+                            for phase, counts in split_launches.items()},
         ))
         check(all(math.isfinite(v) for v in t.values()
                   if isinstance(v, float)), f"{name} timing not finite")

@@ -77,6 +77,7 @@ from repro_torch.core import tree as tree_lib
 from repro_torch.data.client_bank import ClientBank, EvalBank, eval_sample_plan
 from repro_torch.device import resolve_device
 from repro_torch.models.fl_models import get_fl_model
+from repro_torch.sharding import cells as cells_lib
 from repro_torch.utils.tree import tree_count
 
 
@@ -780,14 +781,16 @@ def run_cell_sweep(
 
     Instance (c, s) runs seed ``cfg.seed + c * seeds_per_cell + s``: cells
     are disjoint seed blocks of one cell geometry.  Every instance runs
-    on the run's device as one :func:`repro_torch.core.fl_engine.
-    run_horizon` at its own batch count, over the shared bank and test set:
-    the reference's own path on a one-device mesh.  ``cell_shards`` is the
-    reference's cell-axis split across devices
-    (:func:`repro_torch.sharding.cells.cell_shards` clamps it to the card
-    count); the split across cards is not ported (``ROADMAP.md`` item 4's
-    residue), so the port runs the same instances whatever it says.
-    Returns ``results[c][s]``.
+    as one :func:`repro_torch.core.fl_engine.run_horizon` (or
+    ``run_horizon_online``) at its own batch count, over the shared bank
+    and test set.  ``cell_shards`` is the reference's split of the cell
+    axis across devices: an int is clamped to the card count (1 on the
+    CPU), a sequence of devices is one shard per entry
+    (:func:`repro_torch.sharding.cells.shard_devices`).  One shard runs
+    every instance on the run's device; more run
+    :func:`_run_cell_sweep_split`: one worker process per shard, each
+    running its block of cells one horizon per instance, so the results
+    do not depend on the shard count.  Returns ``results[c][s]``.
     """
     dev = resolve_device(device)
     uplink = _resolve_uplink(cfg, uplink)
@@ -795,9 +798,13 @@ def run_cell_sweep(
     if num_c < 1 or num_s < 1:
         raise ValueError(f"need num_cells >= 1 and seeds_per_cell >= 1, "
                          f"got ({num_cells}, {seeds_per_cell})")
-    bank, ebank = _horizon_world(dataset, shards, cfg, dev)
     eval_mask = _eval_mask(cfg.num_rounds, eval_every)
     online = _traced_online(cfg)
+    devices = cells_lib.shard_devices(cell_shards, dev)
+    if len(devices) > 1:
+        return _run_cell_sweep_split(dataset, shards, cell, cfg, num_c, num_s,
+                                     uplink, eval_mask, devices, dev, online)
+    bank, ebank = _horizon_world(dataset, shards, cfg, dev)
     results = []
     for c in range(num_c):
         row = []
@@ -815,6 +822,75 @@ def run_cell_sweep(
                                  ebank, dev))
         results.append(row)
     return results
+
+
+def _run_cell_sweep_split(dataset, shards, cell, cfg: FLConfig, num_c, num_s,
+                          uplink, eval_mask, devices, device,
+                          online) -> list:
+    """The cell sweep split across ``devices``, as the reference's parent
+    splits it (``repro/core/fl.py:1344-1400``, ``:1116-1157``): every
+    instance's host plan built here (:func:`_horizon_setup` or
+    :func:`_online_horizon_setup`, on ``device``), the plans stacked (C, S,
+    ...), C padded to a multiple of the shards by repeating the leading
+    cells (:func:`repro_torch.sharding.cells.pad_cells`), the blocks run
+    by :func:`repro_torch.core.fl_engine.run_horizon_sharded` (or
+    ``run_horizon_online_sharded``), the padding dropped and each
+    instance's result assembled here as the unsplit sweep assembles it."""
+    insts = [dataclasses.replace(cfg, seed=cfg.seed + i)
+             for i in range(num_c * num_s)]
+    pad = (-num_c) % len(devices)
+
+    def cs(x):
+        """(C*S, ...) -> (C + pad, S, ...)."""
+        if x is None:
+            return None
+        return cells_lib.pad_cells(tree_lib.tree_map(
+            lambda a: a.reshape(num_c, num_s, *a.shape[1:]), x), num_c, pad)
+
+    def grid(one):
+        """``results[c][s]`` from ``one(c, s, instance index, final
+        params)``."""
+        return [[one(c, s, c * num_s + s, tree_lib.tree_map(
+            lambda w, c=c, s=s: w[c, s], final)) for s in range(num_s)]
+            for c in range(num_c)]
+
+    # the workers start (imports, the device's context) while the plans
+    # are built here
+    with cells_lib.Workers(devices) as workers:
+        bank, ebank = _horizon_world(dataset, shards, cfg, device)
+        world = (bank.xb, bank.yb, ebank.xe, ebank.ye)
+        if online:
+            plans = [_online_horizon_setup(dataset, shards, cell, inst,
+                                           device=device) for inst in insts]
+            params_s, solo, gains, weights, sizes, keys, eidx = (
+                _stack_online_plans(plans, "cpu"))
+            policy = scheduling.get_policy(cfg.scheduler)
+            final, dev_cs, mask_cs, bits, kept, accs = (
+                fl_engine.run_horizon_online_sharded(
+                    cs(params_s), cs(solo), cs(gains), cs(keys), eval_mask,
+                    cs(eidx), weights, sizes, *world, shards=workers,
+                    nb=bank.n_batches_for(range(cell.num_devices)),
+                    **_online_statics(cfg, cell, uplink, policy),
+                    **_horizon_statics(cfg, plans[0].payload, cell, uplink)))
+            return grid(lambda c, s, i, params: _assemble_horizon_result(
+                _finalize_online_plan(plans[i], insts[i], cell, uplink,
+                                      dev_cs[c, s], mask_cs[c, s]),
+                insts[i], uplink, eval_mask, bits[c, s],
+                None if kept is None else kept[c, s], accs[c, s], params))
+        plans = [_horizon_setup(dataset, shards, cell, inst, uplink, None,
+                                device=device) for inst in insts]
+        params_s, dev_stk, bud, agg, gains, keys, eidx, _ = _stack_plans(
+            plans, bank, "cpu")
+        # each instance at its own batch count, as the unsplit sweep runs it
+        nb = np.array([max(bank.n_batches_for(g) for g in p.schedule.rounds)
+                       for p in plans])
+        final, bits, kept, accs = fl_engine.run_horizon_sharded(
+            cs(params_s), cs(dev_stk), cs(bud), cs(agg), cs(gains), cs(keys),
+            eval_mask, cs(eidx), *world, shards=workers, nb=cs(nb),
+            **_horizon_statics(cfg, plans[0].payload, cell, uplink))
+        return grid(lambda c, s, i, params: _assemble_horizon_result(
+            plans[i], insts[i], uplink, eval_mask, bits[c, s],
+            None if kept is None else kept[c, s], accs[c, s], params))
 
 
 # --------------------------------------------------------------------------

@@ -488,6 +488,138 @@ def _split_log(host: np.ndarray, k: int):
 
 
 # --------------------------------------------------------------------------
+# The cell split: a (C, S) sweep's cells in blocks, one block per card
+# --------------------------------------------------------------------------
+
+def _put(a, device):
+    """A host array as a tensor on ``device``, queued as the fl driver's
+    uploads are (:func:`_to_device`)."""
+    return _to_device(torch.from_numpy(np.ascontiguousarray(a)), device)
+
+
+def _block_world(xb, yb, xe, ye, device):
+    """A worker's client bank and test set on its device.  The block's
+    horizons only take rows from the bank; its shard sizes (the FedAvg
+    weights' source) stay with the caller, whose plans carry the weights."""
+    return (ClientBank(_put(xb, device), _put(yb, device), None),
+            EvalBank(_put(xe, device), _put(ye, device)))
+
+
+def _run_instances(block, device, one):
+    """Each (c, s) instance of a block through ``one(c, s, params)``, one
+    horizon at a time, as the unsplit sweep runs them; returns the stacked
+    host results (a result that is ``None`` for one instance is ``None``
+    for all)."""
+    params_cs = block[0][0]
+    cells, seeds = tree_lib.tree_flatten(params_cs)[0][0].shape[:2]
+    rows = []
+    for c in range(cells):
+        for s in range(seeds):
+            params = tree_lib.tree_map(lambda w: _put(w[c, s], device),
+                                       params_cs)
+            final, *logs = one(c, s, params)
+            rows.append((tree_lib.tree_map(
+                lambda w: w.detach().cpu().numpy(), final), *logs))
+
+    def stack(*parts):
+        if parts[0] is None:
+            return None
+        out = np.stack(parts)
+        return out.reshape(cells, seeds, *out.shape[1:])
+
+    return (tree_lib.tree_map(stack, *[r[0] for r in rows]),
+            *[stack(*col) for col in list(zip(*rows))[1:]])
+
+
+def _horizon_block(block, device):
+    """A worker's block of precomputed-schedule instances (the target of
+    :func:`run_horizon_sharded`): one :func:`run_horizon` per instance at
+    its own batch count, the log read once per instance.  Returns host
+    ``(final params, bits, kept, accs)`` stacked (Cb, S, ...)."""
+    args, nb_cs, statics = block
+    (_, dev, bud, agg, gains, keys, emask, eidx, xb, yb, xe, ye) = args
+    bank, ebank = _block_world(xb, yb, xe, ye, device)
+
+    def one(c, s, params):
+        final, log = run_horizon(
+            params, _put(dev[c, s], device), _put(bud[c, s], device),
+            _put(agg[c, s], device), _put(gains[c, s], device), keys[c, s],
+            emask, None if eidx is None else _put(eidx[c, s], device), bank,
+            ebank, nb=int(nb_cs[c, s]), **statics)
+        return (final, *horizon_logs(log))
+
+    return _run_instances(block, device, one)
+
+
+def _run_split(target, args, in_specs, out_specs, nb, statics, shards):
+    """A split sweep's common driver: the shards' devices, the contract
+    that C is a multiple of their count, the blocks cut by ``in_specs``
+    (and the (C, S) batch counts ``nb`` with them), ``target`` run on each
+    block (in this process for one shard on the inputs' own device, else
+    one worker process per shard, or on ``shards`` if it is a group of
+    started :class:`repro_torch.sharding.cells.Workers`), the results
+    joined by ``out_specs`` and the final parameters put on the inputs'
+    device."""
+    from repro_torch.sharding import cells
+
+    params_cs = args[0]
+    lead = tree_lib.tree_flatten(params_cs)[0][0]
+    home = lead.device
+    num_c, num_s = lead.shape[:2]
+    devices = cells.shard_devices(shards, home)
+    if num_c % len(devices):
+        raise ValueError(f"C={num_c} cells must be a multiple of the "
+                         f"{len(devices)} shards (pad them: cells.pad_cells)")
+    nb_cs = np.broadcast_to(np.asarray(nb, np.int64), (num_c, num_s))
+    host = cells.to_host(args)
+    blocks = [(blk, nbs, statics) for blk, nbs in zip(
+        cells.cut_blocks(host, in_specs, len(devices)),
+        np.split(nb_cs, len(devices)))]
+    if isinstance(shards, cells.Workers):
+        outs = shards.run(target, blocks)
+    elif len(devices) == 1 and devices[0] == home:
+        outs = [target(blocks[0], home)]
+    else:
+        outs = cells.run_blocks(target, blocks, devices)
+    final, *rest = cells.join_blocks(outs, out_specs)
+    return (tree_lib.tree_map(lambda w: _put(w, home), final), *rest)
+
+
+def run_horizon_sharded(
+    params_cs, dev_cstk, budgets_cstk, agg_cstk, gains_cstk, keys_cst,
+    eval_mask_t, eval_idx_cstn, xb, yb, xe, ye, *, shards, nb, **statics,
+):
+    """A (C, S) cells-x-seeds sweep of precomputed-schedule horizons with
+    the cell axis split across cards: the port of the reference's
+    ``run_horizon_sharded`` (``shard_map`` over ``cell_mesh``).
+
+    The arguments follow :func:`repro_torch.sharding.rules.
+    cell_sweep_in_specs`, which decides what is cut into blocks of cells:
+    ``params_cs`` a tree of (C, S, ...) leaves; (C, S, T, K) device ids,
+    budgets, FedAvg weights and gains; (C, S, T, 2) host noise keys; the
+    (T,) host eval mask; (C, S, T, n) eval plans or ``None``; the client
+    bank's ``xb`` / ``yb`` and the test set's ``xe`` / ``ye``.  ``shards``
+    is a card count (clamped), a sequence of devices or started
+    :class:`repro_torch.sharding.cells.Workers`; C must be a multiple of
+    its count (:func:`repro_torch.sharding.cells.pad_cells`).  ``nb``
+    is one batch count for every instance or a (C, S) array of each one's
+    own.  Each shard runs its block one :func:`run_horizon` per instance
+    (in a worker process on its card; in this process for one shard on
+    the inputs' device), never stacked, so the results do not depend on
+    the shard count.  Returns ``(final params (C, S, ...) on the inputs'
+    device, bits, kept, accs)``, the logs as host arrays.
+    """
+    from repro_torch.sharding import rules
+
+    return _run_split(
+        _horizon_block,
+        (params_cs, dev_cstk, budgets_cstk, agg_cstk, gains_cstk, keys_cst,
+         eval_mask_t, eval_idx_cstn, xb, yb, xe, ye),
+        rules.cell_sweep_in_specs(), rules.cell_sweep_out_specs(), nb,
+        statics, shards)
+
+
+# --------------------------------------------------------------------------
 # Online-policy horizon: selection, powers and budgets inside the rounds
 # --------------------------------------------------------------------------
 
@@ -632,6 +764,54 @@ def online_horizon_logs(logs: torch.Tensor):
     dev = host[..., 2 * k + 1:3 * k + 1].astype(np.int64)
     mask = host[..., 3 * k + 1:] > 0.5
     return (dev, mask) + _split_log(host, k)
+
+
+def _online_block(block, device):
+    """A worker's block of online-policy instances (the target of
+    :func:`run_horizon_online_sharded`): one :func:`run_horizon_online`
+    per instance at the bank-wide batch count, the log read once per
+    instance.  Returns host ``(final params, device ids, masks, bits,
+    kept, accs)`` stacked (Cb, S, ...)."""
+    args, nb_cs, statics = block
+    (_, solo, gains, keys, emask, eidx, weights, sizes, xb, yb, xe,
+     ye) = args
+    bank, ebank = _block_world(xb, yb, xe, ye, device)
+    weights, sizes = _put(weights, device), _put(sizes, device)
+
+    def one(c, s, params):
+        final, log = run_horizon_online(
+            params, _put(solo[c, s], device), _put(gains[c, s], device),
+            weights, sizes, keys[c, s], emask,
+            None if eidx is None else _put(eidx[c, s], device), bank, ebank,
+            nb=int(nb_cs[c, s]), **statics)
+        return (final, *online_horizon_logs(log))
+
+    return _run_instances(block, device, one)
+
+
+def run_horizon_online_sharded(
+    params_cs, solo_cstm, gains_cstm, keys_cst, eval_mask_t, eval_idx_cstn,
+    weights_m, sizes_m, xb, yb, xe, ye, *, shards, nb, **statics,
+):
+    """A (C, S) online-policy cells-x-seeds sweep, the cell axis split
+    across cards: the port of the reference's
+    ``run_horizon_online_sharded``, with :func:`run_horizon_sharded`'s
+    contract (C a multiple of ``shards``; one :func:`run_horizon_online`
+    per instance).  The arguments follow :func:`repro_torch.sharding.
+    rules.cell_sweep_online_in_specs`: (C, S, T, M) float32 solo tables and
+    gains, (C, S, T, 2) host noise keys, the (T,) host eval mask, (C, S,
+    T, n) eval plans or ``None``, the shared (M,) float32 data weights and
+    shard sizes, the bank and the test set.  Returns ``(final params,
+    device ids, masks, bits, kept, accs)``, the logs as host arrays.
+    """
+    from repro_torch.sharding import rules
+
+    return _run_split(
+        _online_block,
+        (params_cs, solo_cstm, gains_cstm, keys_cst, eval_mask_t,
+         eval_idx_cstn, weights_m, sizes_m, xb, yb, xe, ye),
+        rules.cell_sweep_online_in_specs(),
+        rules.cell_sweep_online_out_specs(), nb, statics, shards)
 
 
 # --------------------------------------------------------------------------

@@ -42,9 +42,14 @@ plain version on the CPU), which accumulates in float32, so its argmax can
 tie-flip against the float64 scorer on degenerate instances.  The names
 are the reference's, kept because users' configurations carry them.
 
-``shards=N`` is clamped to :func:`repro_torch.sharding.vertex.max_vertex_shards`
-and pads the enumeration to a multiple of it; every row is scored on the
-run's device (see :mod:`repro_torch.sharding.vertex`).
+``shards`` splits the V axis (the reference's ``shard_map`` over its
+vertex mesh): an int is clamped to
+:func:`repro_torch.sharding.vertex.max_vertex_shards` (the card count), a
+sequence of devices is taken as given, and the enumeration is padded with
+sentinel rows to a multiple of the shard count.  Each shard scores its
+contiguous slice on its own device; per step the shards' argmaxes meet on
+the run's device (:func:`_combine`) and only the winner goes back to every
+shard, which updates its own copy of the state (:func:`_split_loop`).
 """
 from __future__ import annotations
 
@@ -116,11 +121,12 @@ def _score_vertices(g_tvk, w_tvk, pmax: float, noise_power: float, scorer: str):
     raise ValueError(f"unknown scorer {scorer!r}; known: {SCORERS}")
 
 
-def _select_vertex(
+def _argmax_vertex(
     gains_tm, weights_m, solo_tm, subs_pos_vk, avail_m, done_t,
     *, pool: int, pmax: float, noise_power: float, scorer: str = "xla",
 ):
-    """Argmax-weight (subset, round) vertex under the current masks.
+    """Argmax-weight (subset, round) vertex of ``subs_pos_vk`` under the
+    current masks.
 
     Per remaining round, the ``pool`` strongest available devices (by the
     solo-rate proxy, ties to the lower device id) form the candidate pool,
@@ -134,8 +140,9 @@ def _select_vertex(
     first maximum: the numpy path's tie-break (earliest round, first
     subset).
 
-    Returns 0-d ``val`` and ``t_star`` and the (K,) ``sub_ids``, all on the
-    device, with no host sync; ``val == -inf`` means no feasible vertex.
+    Returns 0-d ``val`` and ``idx`` (the flat index, t * V + v, into this
+    enumeration) and the (K,) ``sub_ids``, all on the device, with no host
+    sync; ``val == -inf`` means no feasible vertex.
     """
     t_cnt, m = gains_tm.shape
     v_cnt = subs_pos_vk.shape[0]
@@ -161,20 +168,34 @@ def _select_vertex(
     t_star = torch.div(idx, v_cnt, rounding_mode="floor")
     pos = safe_pos.index_select(0, (idx % v_cnt).view(1))          # (1, K)
     sub_ids = torch.gather(kept_sorted.index_select(0, t_star.view(1)), 1, pos)
-    return val, t_star, sub_ids.view(-1)
+    return val, idx, sub_ids.view(-1)
 
 
-def _mark_vertex(val, t_star, sub_ids, avail_m, done_t):
-    """Take the selected vertex off the masks when it is feasible; an
-    infeasible step leaves both unchanged.  Sentinel ids (only present when
-    infeasible) are clamped, so the scatter never leaves the (M,) mask."""
-    feasible = val > -torch.inf
+def _select_vertex(gains_tm, weights_m, solo_tm, subs_pos_vk, avail_m,
+                   done_t, **kw):
+    """:func:`_argmax_vertex` over the whole enumeration: returns 0-d
+    ``val`` and ``t_star`` and the (K,) ``sub_ids``."""
+    val, idx, sub_ids = _argmax_vertex(gains_tm, weights_m, solo_tm,
+                                       subs_pos_vk, avail_m, done_t, **kw)
+    t_star = torch.div(idx, subs_pos_vk.shape[0], rounding_mode="floor")
+    return val, t_star, sub_ids
+
+
+def _mark_vertex(feasible, t_star, sub_ids, avail_m, done_t, assign_tk):
+    """Take the selected vertex off the masks and place it in the
+    assignment when it is ``feasible``; an infeasible step leaves all three
+    unchanged.  Sentinel ids (only present when infeasible) are clamped, so
+    the scatter never leaves the (M,) mask."""
     m = avail_m.shape[0]
     taken = avail_m.index_fill(0, torch.clamp(sub_ids, max=m - 1), False)
     avail_m = torch.where(feasible, taken, avail_m)
     done_t = torch.where(feasible, done_t.index_fill(0, t_star.view(1), True),
                          done_t)
-    return feasible, avail_m, done_t
+    if assign_tk is not None:
+        placed = assign_tk.index_copy(
+            0, t_star.view(1), sub_ids.view(1, -1).to(assign_tk.dtype))
+        assign_tk = torch.where(feasible, placed, assign_tk)
+    return avail_m, done_t, assign_tk
 
 
 def greedy_step(
@@ -201,8 +222,16 @@ def greedy_step(
         gains_tm, weights_m, solo_tm, subs_pos_vk, avail_m, done_t,
         pool=pool, pmax=pmax, noise_power=noise_power,
     )
-    _, avail_new, done_new = _mark_vertex(val, t_star, sub_ids, avail_m, done_t)
+    avail_new, done_new, _ = _mark_vertex(val > -torch.inf, t_star, sub_ids,
+                                          avail_m, done_t, None)
     return val, t_star, sub_ids, avail_new, done_new
+
+
+def _initial_state(t_cnt, m, kk, device):
+    """(avail, done, assign) before the first step."""
+    return (torch.ones(m, dtype=torch.bool, device=device),
+            torch.zeros(t_cnt, dtype=torch.bool, device=device),
+            torch.full((t_cnt, kk), -1, dtype=torch.int32, device=device))
 
 
 def _fused_loop(gains_tm, weights_m, solo_tm, subs_pos_vk,
@@ -211,20 +240,87 @@ def _fused_loop(gains_tm, weights_m, solo_tm, subs_pos_vk,
     docstring for the state)."""
     t_cnt, m = gains_tm.shape
     kk = subs_pos_vk.shape[1]
-    dev = gains_tm.device
-    avail = torch.ones(m, dtype=torch.bool, device=dev)
-    done = torch.zeros(t_cnt, dtype=torch.bool, device=dev)
-    assign = torch.full((t_cnt, kk), -1, dtype=torch.int32, device=dev)
+    avail, done, assign = _initial_state(t_cnt, m, kk, gains_tm.device)
     for _ in range(min(t_cnt, m // kk)):   # the step-wise driver's bound
         val, t_star, sub_ids = _select_vertex(
             gains_tm, weights_m, solo_tm, subs_pos_vk, avail, done,
             pool=pool, pmax=pmax, noise_power=noise_power, scorer=scorer,
         )
-        feasible, avail, done = _mark_vertex(val, t_star, sub_ids, avail, done)
-        placed = assign.index_copy(
-            0, t_star.view(1), sub_ids.view(1, -1).to(assign.dtype)
-        )
-        assign = torch.where(feasible, placed, assign)
+        avail, done, assign = _mark_vertex(val > -torch.inf, t_star, sub_ids,
+                                           avail, done, assign)
+    return assign, done, avail
+
+
+def _combine(parts, v_local: int, t_cnt: int, home):
+    """The reference's in-mesh combine of the shards' argmaxes, on
+    ``home``.
+
+    ``parts[j]`` is shard j's local ``(val, idx, sub_ids)`` over its V_local
+    rows.  The local flat index becomes the t-major global one, ``t_local *
+    V_total + j * V_local + v_local``; the winner has the largest score and,
+    among the shards that hold it, the smallest global index (the numpy
+    path's earliest round, first subset).  ``(t, j, v_local)`` -> index is
+    injective, so exactly one shard owns the winner and a masked sum
+    gathers its ids.  Returns one int64 tensor ``[feasible, t_star,
+    *sub_ids]``, the only thing that goes back to the shards.  The scores
+    stay float64: the max is exact.
+    """
+    n = len(parts)
+    v_total = v_local * n
+    vals = torch.stack([p[0].to(home, non_blocking=True) for p in parts])
+    idx = torch.stack([p[1].to(home, non_blocking=True) for p in parts])
+    subs = torch.stack([p[2].to(home, non_blocking=True) for p in parts])
+    shard = torch.arange(n, device=home)
+    gidx = (torch.div(idx, v_local, rounding_mode="floor") * v_total
+            + shard * v_local + idx % v_local)
+    vmax = vals.max()
+    cand = torch.where(vals == vmax, gidx, t_cnt * v_total)
+    gbest = cand.min()
+    mine = (cand == gbest)[:, None]
+    sub_ids = torch.where(mine, subs, 0).sum(dim=0)
+    t_star = torch.div(gbest, v_total, rounding_mode="floor")
+    return torch.cat([(vmax > -torch.inf).long().view(1), t_star.view(1),
+                      sub_ids.long()])
+
+
+def _split_loop(gains_tm, weights_m, solo_tm, subs_pos_vk, devices,
+                *, pool: int, pmax: float, noise_power: float, scorer: str):
+    """:func:`_fused_loop` with the enumeration cut into ``len(devices)``
+    contiguous slices of V / n rows, shard j's slice scored on
+    ``devices[j]`` (the reference's ``shard_map`` over its vertex mesh).
+
+    Every shard holds the gains, weights and solo table and its own copy of
+    the state.  Per step each shard scores its slice; :func:`_combine`
+    meets the argmaxes on the run's device, and the winner goes back to
+    every shard, which updates its state.  Device-to-device copies only:
+    nothing is read on the host.  Returns the first shard's state on the
+    run's device (every shard's is the same).
+    """
+    home = gains_tm.device
+    t_cnt, m = gains_tm.shape
+    v_total, kk = subs_pos_vk.shape
+    v_local = v_total // len(devices)
+    shards = []
+    for j, dev in enumerate(devices):
+        shards.append(dict(
+            dev=dev,
+            inputs=tuple(x.to(dev, non_blocking=True)
+                         for x in (gains_tm, weights_m, solo_tm)),
+            subs=subs_pos_vk[j * v_local:(j + 1) * v_local].to(
+                dev, non_blocking=True),
+            state=_initial_state(t_cnt, m, kk, dev),
+        ))
+    for _ in range(min(t_cnt, m // kk)):   # the step-wise driver's bound
+        parts = [_argmax_vertex(*sh["inputs"], sh["subs"], *sh["state"][:2],
+                                pool=pool, pmax=pmax, noise_power=noise_power,
+                                scorer=scorer) for sh in shards]
+        won = _combine(parts, v_local, t_cnt, home)
+        for sh in shards:
+            msg = won.to(sh["dev"], non_blocking=True)
+            sh["state"] = _mark_vertex(msg[0].bool(), msg[1], msg[2:],
+                                       *sh["state"])
+    avail, done, assign = (x.to(home, non_blocking=True)
+                           for x in shards[0]["state"])
     return assign, done, avail
 
 
@@ -238,7 +334,7 @@ def greedy_rounds_fused(
     pmax: float,
     noise_power: float,
     scorer: str = "xla",
-    shards: "int | None" = None,
+    shards=None,
 ):
     """Run the entire GWMIN greedy selection on the inputs' device with no
     host sync; the caller reads the result once per schedule.
@@ -248,13 +344,21 @@ def greedy_rounds_fused(
     the completed-round mask, and the still-available-device mask the host
     tail path resumes from when T*K > M.  ``pool`` must already be clamped
     to M by the caller (the scheduling driver does).
+
+    ``shards`` splits the V axis: an int is clamped to the card count on
+    the inputs' device (1 on the CPU), a sequence of devices is one shard
+    per entry (:func:`repro_torch.sharding.vertex.shard_devices`).  The
+    enumeration is padded with sentinel rows to a multiple of the shard
+    count; more than one shard runs :func:`_split_loop`.  The schedule does
+    not depend on the shard count.
     """
     if scorer not in SCORERS:
         raise ValueError(f"unknown scorer {scorer!r}; known: {SCORERS}")
+    devices = [gains_tm.device]
     if shards is not None:
-        n = max(1, min(int(shards),
-                       vertex_lib.max_vertex_shards(gains_tm.device)))
-        pad = vertex_lib.pad_rows_to_multiple(subs_pos_vk.shape[0], n)
+        devices = vertex_lib.shard_devices(shards, gains_tm.device)
+        pad = vertex_lib.pad_rows_to_multiple(subs_pos_vk.shape[0],
+                                              len(devices))
         if pad:
             # Sentinel rows point at position ``pool``: past every ranked
             # pool, so they are masked infeasible.
@@ -262,7 +366,8 @@ def greedy_rounds_fused(
                 (pad, subs_pos_vk.shape[1]), pool, dtype=subs_pos_vk.dtype,
                 device=subs_pos_vk.device,
             )])
-    return _fused_loop(
-        gains_tm, weights_m, solo_tm, subs_pos_vk,
-        pool=pool, pmax=pmax, noise_power=noise_power, scorer=scorer,
-    )
+    kw = dict(pool=pool, pmax=pmax, noise_power=noise_power, scorer=scorer)
+    if len(devices) > 1:
+        return _split_loop(gains_tm, weights_m, solo_tm, subs_pos_vk,
+                           devices, **kw)
+    return _fused_loop(gains_tm, weights_m, solo_tm, subs_pos_vk, **kw)

@@ -534,8 +534,10 @@ def lazy_greedy_schedule(
     every greedy step.  Both give the numpy backend's schedule.  ``scorer``
     and ``shards`` tune ``"jax"`` only: the vertex scorer (``"xla"``,
     float64 tensor code; ``"pallas"``, the hand-written SIC kernel in
-    float32) and the vertex shard count, which clamps to the cards
-    available (the port scores every vertex on ``device``).
+    float32) and the split of the vertex axis: an int clamps to the cards
+    available (1 on the CPU), a sequence of devices puts one shard on each
+    entry (:func:`repro_torch.core.rates_device.greedy_rounds_fused`); the
+    schedule does not depend on it.
     """
     power_fn = make_power_fn(power_mode, pmax, noise_power)
     rounds = _lazy_gwmin_rounds(
@@ -732,7 +734,8 @@ class PolicyConfig:
     candidate_pool: int = 24        # lazy greedy enumeration bound
     backend: str = "numpy"          # lazy greedy driver (SCHEDULER_BACKENDS)
     scorer: str = "xla"             # fused-backend vertex scorer (xla | pallas)
-    shards: "int | None" = None     # fused-backend vertex shards (clamped)
+    shards: "int | tuple | None" = None  # fused-backend vertex shards: an
+                                    # int (clamped) or a tuple of devices
     device: "str | torch.device | None" = None   # device backends' device;
                                     # None = cuda (repro_torch.device)
     ota_noise: float = 0.0          # OTA receiver noise std (matching-pursuit

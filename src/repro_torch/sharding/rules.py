@@ -178,10 +178,73 @@ def cache_pspec(mesh, cache_shape, *, stacked_dims: int = 1) -> ShardSpec:
     return ShardSpec(*lead, None, None, hspec, None)
 
 
+def named(mesh, spec) -> tuple:
+    """The reference's ``NamedSharding(mesh, spec)``: the ``(mesh,
+    placements)`` pair that ``torch.distributed.tensor.distribute_tensor``
+    takes.  ``spec`` is a :class:`ShardSpec` or a tuple of placements, one
+    per mesh dim (a single placement for a 1-D mesh)."""
+    if isinstance(spec, ShardSpec):
+        return mesh, spec.placements(mesh)
+    return mesh, tuple(spec) if isinstance(spec, (tuple, list)) else (spec,)
+
+
 # --------------------------------------------------------------------------
-# FL simulator cell axis (the scheduler's vertex-mesh sibling).  The
-# reference's shard_map specs of the cell sweep (``cell_sweep_*_specs``)
-# come with the multi-card sweep (ROADMAP.md item 4's residue).
+# FL simulator cell axis (the scheduler's vertex split's sibling)
 # --------------------------------------------------------------------------
 
 CELL_AXIS = "cell"
+# The multi-cell FL sweep's axis (repro_torch.launch.mesh.cell_mesh):
+# whole independent simulations, their per-instance stacks (C, S, ...),
+# are cut into one block of cells per card; cells never communicate.  The
+# four tuples below are the split's positional contracts, one placement
+# over CELL_AXIS per argument: ``Shard(0)`` cuts the leading cell axis into
+# blocks (concatenated back on return), ``Replicate()`` passes the whole
+# argument to every card (repro_torch.sharding.cells.cut_blocks reads
+# them).
+
+
+def _cell_placements():
+    from torch.distributed.tensor import Replicate, Shard
+
+    return Shard(0), Replicate()
+
+
+def cell_sweep_in_specs() -> tuple:
+    """Placements of ``fl_engine.run_horizon_sharded``'s arguments.
+
+    Positional contract: (params_cs, dev, budgets, agg_w, gains,
+    noise_keys, eval_mask, eval_idx, xb, yb, xe, ye): the per-instance
+    stacks (the OTA channel gains and receiver-noise keys among them) are
+    cut along their leading cell axis; the eval cadence mask, the client
+    bank and the test set go whole to every card.
+    """
+    c, r = _cell_placements()
+    return (c, c, c, c, c, c, r, c, r, r, r, r)
+
+
+def cell_sweep_out_specs() -> tuple:
+    """Placements of its results: (final params, bits, kept, accuracies),
+    all cell-stacked."""
+    c, _ = _cell_placements()
+    return (c, c, c, c)
+
+
+def cell_sweep_online_in_specs() -> tuple:
+    """Placements of ``fl_engine.run_horizon_online_sharded``'s arguments.
+
+    Positional contract: (params_cs, solo, gains, noise_keys, eval_mask,
+    eval_idx, weights_m, sizes_m, xb, yb, xe, ye): the per-instance stacks
+    (model inits, solo-rate tables, channel rows, noise keys, eval plans)
+    are cut along their leading cell axis; the eval cadence mask, the
+    shared data weights and sizes, the client bank and the test set go
+    whole to every card.
+    """
+    c, r = _cell_placements()
+    return (c, c, c, c, r, c, r, r, r, r, r, r)
+
+
+def cell_sweep_online_out_specs() -> tuple:
+    """Placements of its results: (final params, device ids, validity
+    masks, bits, kept, accuracies), all cell-stacked."""
+    c, _ = _cell_placements()
+    return (c, c, c, c, c, c)

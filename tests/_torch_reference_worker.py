@@ -261,7 +261,8 @@ def task_horizon_runs(spec, arrays):
     ``run_federated_learning`` with the run's FLConfig fields ``cfg``
     (``horizon="scan"`` among them), ``"seeds"`` is
     ``run_horizon_vmapped(seeds=...)`` and ``"cells"`` is
-    ``run_cell_sweep(num_cells=..., seeds_per_cell=...)``, each on the
+    ``run_cell_sweep(num_cells=..., seeds_per_cell=..., cell_shards=...)``
+    (``cell_shards`` where the run gives it), each on the
     world of ``num_devices`` devices and ``num_samples`` samples with
     ``eval_every``.  A run's arrays are prefixed ``<key>/``, a sweep's
     instances ``<key>/<s>/`` and ``<key>/<c>/<s>/``; every instance draws
@@ -292,7 +293,8 @@ def task_horizon_runs(spec, arrays):
         else:
             grid = fl.run_cell_sweep(
                 ds, shards, cell, cfg, num_cells=int(run["num_cells"]),
-                seeds_per_cell=int(run["seeds_per_cell"]), eval_every=every)
+                seeds_per_cell=int(run["seeds_per_cell"]), eval_every=every,
+                cell_shards=run.get("cell_shards"))
             for c, row in enumerate(grid):
                 for s, res in enumerate(row):
                     out.update(_run_arrays(res, f"{key}/{c}/{s}/"))
@@ -421,6 +423,31 @@ def task_lazy_greedy(spec, arrays):
             rounds[t, :len(grp)] = grp
         out["rounds/" + key] = rounds
         out["wsum/" + key] = np.asarray(sched.weighted_sum_rate)
+    return out
+
+
+SPLIT_HOST_DEVICES = 4
+
+
+def task_split_parts(spec, arrays):
+    """The reference's two splits across devices, on
+    ``SPLIT_HOST_DEVICES`` forced host devices (``XLA_FLAGS`` is set here,
+    before the first use of a JAX backend): ``spec["greedy"]`` is
+    :func:`task_lazy_greedy`'s spec (its runs' ``shards`` shard the vertex
+    axis over a mesh), ``spec["sweeps"]`` :func:`task_horizon_runs`' runs
+    (``cell_shards`` shards the cell axis); also ``device_count``."""
+    import os
+
+    import numpy as np
+
+    os.environ["XLA_FLAGS"] = " ".join(filter(None, (
+        os.environ.get("XLA_FLAGS"),
+        f"--xla_force_host_platform_device_count={SPLIT_HOST_DEVICES}")))
+    import jax
+
+    out = {"device_count": np.asarray(jax.local_device_count())}
+    out.update(task_lazy_greedy(spec["greedy"], arrays))
+    out.update(task_horizon_runs({"runs": spec["sweeps"]}, arrays))
     return out
 
 
@@ -1738,6 +1765,7 @@ TASKS = {
     "qwen2_reference": task_qwen2_reference,
     "sharding_parts": task_sharding_parts,
     "dryrun_parts": task_dryrun_parts,
+    "split_parts": task_split_parts,
 }
 
 

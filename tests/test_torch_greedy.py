@@ -211,12 +211,22 @@ def test_schedule_matches_reference(reference, run):
 
 def test_padded_vertex_shards_give_the_unsharded_schedule(monkeypatch):
     """With four cards the enumeration (C(11, 3) = 165 rows) is padded to
-    168 with sentinel rows; they are masked and the schedule is the
-    unsharded one."""
+    168 with sentinel rows and split into four slices of 42, each scored
+    on its own shard (here the CPU four times over); the sentinels are
+    masked and the schedule is the unsharded one."""
     monkeypatch.setattr(vertex_lib, "max_vertex_shards", lambda device: 4)
+    split = []
+    real = rates_device._split_loop
+
+    def spy(gains, weights, solo, subs, devices, **kw):
+        split.append((subs.shape[0], len(devices)))
+        return real(gains, weights, solo, subs, devices, **kw)
+
+    monkeypatch.setattr(rates_device, "_split_loop", spy)
     run = ((24, 3, 4, 11, 12), "jax", "xla", 4, "max")
     assert vertex_lib.pad_rows_to_multiple(165, 4) == 3
     a = _port_schedule(run)
+    assert split == [(168, 4)]
     b = _port_schedule((run[0], "numpy", "xla", None, "max"))
     assert a.rounds == b.rounds
     assert a.weighted_sum_rate == b.weighted_sum_rate
