@@ -207,7 +207,29 @@ package, and exits non-zero on the first failure.  Phases:
      (``[train:seamless-m4t-medium]``), and the SMOKE SeamlessM4T and
      Llama-3.2-Vision held to tests/torch_reference/
      train_losses_multimodal.json (``[train:seamless-smoke]``,
-     ``[train:llama-vision-smoke]``).
+     ``[train:llama-vision-smoke]``);
+ 18. the example twins and the sanitizers: the paper's own cell (M=300,
+     K=3, T=35, 12,000 samples, seed 0) through
+     ``examples/fl_noma_mnist_torch.py``'s ``main`` on the card for each
+     argv of tests/torch_reference/paper_cell.json, which the reference's
+     examples/fl_noma_mnist.py wrote (``[paper-cell]``: ``--pallas-agg``,
+     ``--uplink tdma --pallas-agg``, ``--uplink ota --ota-noise 1e-9
+     --pallas-agg``, ``--engine legacy``; devices, bits, rates, ratios and
+     times equal to the record's, TDMA's rates within 2 ulps, accuracy
+     within 0.02 in every round; #1 once per round in the NOMA and TDMA
+     runs, the keyed #2 in the OTA run; the four inside ``build_count()``,
+     which must read 0); ``serve_decode_torch.py`` and
+     ``train_llm_torch.py`` at their defaults (``[examples]``: #5 once per
+     leaf per step of the SMOKE Mixtral) and the paper driver's twin at
+     ``--fast --rounds 2`` with ``--seeds 2`` and with ``--horizon scan
+     --scheduler update-aware``; ``[sanitize]``: the T=3 ``--pallas-agg``
+     run with ``--sanitize-nans`` bit-equal to the unguarded one, #1, the
+     keyed #2 and #5 each fed one NaN element under ``nan_guard()``
+     raising ``FloatingPointError`` naming their wrapper, an ATen op
+     naming the op, and ``build_count()`` equal at T=3 and T=6; and
+     ``[trace:lenet]``: torch.profiler over one steady M=300 round of the
+     batched engine and one of the legacy round body (kernels, device-busy
+     and wall ms, the local SGD's ms, the top aten ops, #1's device time).
 
 The last lines are the card's name and power limit as nvidia-smi reports
 them, one JSON object with every kernel's numbers, and the one-line result
@@ -2806,11 +2828,12 @@ def compare_token_kernels(name=QWEN2, label="Qwen2-0.5B",
     return agg_err, ota_err
 
 
-def _profile_round(fn):
+def _profile_round(fn, by_kernel=None):
     """fn() under torch.profiler, with ``fl_engine.sgd_epoch`` timed on the
     host clock (the card synchronised around it).  Returns (fn(), kernels
     launched, device-busy ms, wall ms, local-SGD wall ms, the six aten ops
-    whose kernels took the most device time as (name, ms, calls))."""
+    whose kernels took the most device time as (name, ms, calls)); a dict
+    ``by_kernel`` gets each CUDA kernel's name -> [device ms, launches]."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core import fl_engine
@@ -2834,6 +2857,11 @@ def _profile_round(fn):
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    if by_kernel is not None:
+        for e in kernels:
+            row = by_kernel.setdefault(e.name, [0.0, 0])
+            row[0] += e.self_device_time_total / 1e3
+            row[1] += 1
     # device time by the aten op that launched it
     ops = [(e.key, e.self_device_time_total / 1e3, e.count)
            for e in prof.key_averages()
@@ -4238,6 +4266,332 @@ def run_roofline_phases(preds):
     torch.cuda.empty_cache()
 
 
+# --------------------------------------------------------------------------
+# the example twins, the sanitizers and the paper cell
+# --------------------------------------------------------------------------
+
+PAPER_CELL_RECORD = os.path.join(REPO, "tests", "torch_reference",
+                                 "paper_cell.json")
+TDMA_RATE_ULP = 2           # TDMA's rates: XLA's float32 log (queue 3)
+AGGREGATE_KERNEL = "aggregate_group_kernel"     # #1's device function
+
+
+def _example(name):
+    """``examples/<name>.py`` of the checkout, imported as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(REPO, "examples", f"{name}.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _quiet_main(module, argv):
+    """``module.main(argv)`` with its printed lines kept, timed on the
+    host clock with the card synchronised: (its result, its lines, s)."""
+    import io
+
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    with contextlib.redirect_stdout(buf):
+        out, sec = _timed(lambda: module.main(list(argv)))
+    return out, buf.getvalue().splitlines(), sec
+
+
+def _f32_ulps(a, b):
+    a = np.asarray(a, np.float32).view(np.int32).astype(np.int64)
+    b = np.asarray(b, np.float32).view(np.int32).astype(np.int64)
+    return int(np.abs(a - b).max(initial=0))
+
+
+def _check_against_record(res, run, label, rounds=None):
+    """A run's logs against the reference's record of the same argv:
+    devices, bits, rates, ratios and times equal (TDMA's rates and ratios
+    within 2 float32 ulps), of the record's types, and accuracy within
+    0.02, in the first ``rounds`` (default all); returns the worst
+    accuracy difference."""
+    want = run["rounds"][:rounds]
+    check(len(res.logs) == len(want),
+          f"{label} {len(res.logs)} rounds, the record {len(want)}")
+    ulp = TDMA_RATE_ULP if run["cfg"]["uplink"] == "tdma" else 0
+    for lg, w in zip(res.logs, want):
+        t = lg.round
+        check(list(lg.devices) == w["devices"],
+              f"{label} round {t}: devices {list(lg.devices)}, the record "
+              f"{w['devices']}")
+        check(lg.bits.tolist() == w["bits"]
+              and str(lg.bits.dtype) == run["dtypes"]["bits"],
+              f"{label} round {t}: bits {lg.bits!r}, the record {w['bits']}")
+        for field, key in (("rates", "rates"),
+                           ("compression_ratios", "ratios")):
+            got = np.asarray(getattr(lg, field))
+            same = (_f32_ulps(got, w[key]) <= ulp if ulp else
+                    bool(np.array_equal(got.astype(np.float64), w[key])))
+            check(same and str(got.dtype) == run["dtypes"][key],
+                  f"{label} round {t}: {field} {got!r}, the record "
+                  f"{w[key]}")
+        check(lg.wall_time_s == w["time"],
+              f"{label} round {t}: time {lg.wall_time_s!r}, the record "
+              f"{w['time']!r}")
+    diff = np.abs(res.accuracies() - np.array([w["acc"] for w in want]))
+    worst = float(diff.max())
+    check(worst <= ACC_ATOL, f"{label} accuracy {worst} from the record's "
+          f"in round {int(diff.argmax())}")
+    return worst
+
+
+def _paper_cell_launches(name, nonempty):
+    """Each kernel's launches in one paper-cell run: #1 once per non-empty
+    round of the batched engine, the keyed #2 once per OTA round, LeNet's
+    three initial draws on the Threefry kernel, nothing else (the example
+    schedules on the host, and the legacy round sums on the host)."""
+    want = dict(weighted_aggregate=0, sic_weighted_rates=0, ota_aggregate=0,
+                quantize_codes=0, dequantize_codes=0, quantize_dequantize=0,
+                flash_decode=0, threefry_draw=LENET_WEIGHT_LEAVES)
+    if name in ("noma", "tdma"):
+        want["weighted_aggregate"] = nonempty
+    elif name == "ota":
+        want["ota_aggregate"] = nonempty
+    return want
+
+
+def run_paper_cell(kernels):
+    """``[paper-cell]``: the paper's cell (M=300, K=3, T=35, 12,000
+    samples, seed 0) through the example twin's ``main`` on the card for
+    each argv of tests/torch_reference/paper_cell.json, which the
+    reference's examples/fl_noma_mnist.py wrote; each run held to its
+    record (:func:`_check_against_record`) and its launches counted, all
+    four inside ``build_count()``, which must read 0.  Returns (each run's
+    result, the launches per kernel summed over the runs)."""
+    from repro_torch.utils.sanitizers import build_count
+
+    with open(PAPER_CELL_RECORD, encoding="utf-8") as fh:
+        runs = json.load(fh)["runs"]
+    twin = _example("fl_noma_mnist_torch")
+    results, total = {}, {k["name"]: 0 for k in kernels}
+    with build_count() as tally:
+        for name in ("noma", "tdma", "ota", "legacy"):
+            run, label = runs[name], f"[paper-cell:{name}]"
+            reset_launches(kernels)
+            res, lines, sec = _quiet_main(
+                twin, run["argv"] + ["--device", "cuda"])
+            launches = read_launches(kernels)
+            worst = _check_against_record(res, run, label)
+            nonempty = sum(1 for lg in res.logs if lg.devices)
+            want = _paper_cell_launches(name, nonempty)
+            check(launches == want, f"{label} launches {launches}, expected "
+                                    f"{want}")
+            for kern, n in launches.items():
+                total[kern] += n
+            results[name] = res
+            log(f"{label} {' '.join(run['argv'])}: {sec:.2f} s on the card "
+                f"(the host's schedule included); final accuracy "
+                f"{res.accuracies()[-1]:.4f}, the record's "
+                f"{run['rounds'][-1]['acc']:.4f}; devices, bits, rates, "
+                f"ratios and times equal to the record's in all "
+                f"{len(res.logs)} rounds"
+                + (f" (rates within {TDMA_RATE_ULP} ulps)"
+                   if name == "tdma" else "")
+                + f", accuracy within {worst:.2e}; launches "
+                f"{ {k: n for k, n in launches.items() if n} } ({CARD})")
+            log(f"{label} its last line: {lines[-1]}")
+    check(tally.count == 0, f"[paper-cell] build_count read {tally.count} "
+                            f"({tally.builds} nvcc runs, {tally.loads} "
+                            f"loads): a kernel was built again")
+    log(f"[paper-cell] build_count() over the four runs: {tally.count} "
+        f"(every kernel was built and loaded in phase 2)")
+    return results, total
+
+
+def run_example_phases(kernels):
+    """``[examples]``: the serve and train twins at their defaults on the
+    card (the SMOKE Zamba2, batch 4; the SMOKE Mixtral, 30 steps of batch 8
+    x 128 at 8-bit codes: kernel #5 once per leaf per step, its first
+    step's quantized gradients bit-equal to the plain jitted form), and
+    the paper driver's twin at ``--fast --rounds 2 --seeds 2`` and ``--fast
+    --rounds 2 --horizon scan --scheduler update-aware``.  Returns #5's
+    launches in the train twin."""
+    from repro_torch.kernels import dorefa
+
+    tokens, _, sec = _quiet_main(_example("serve_decode_torch"), [])
+    check(tuple(tokens.shape) == (4, 16) and tokens.device.type == "cuda",
+          f"[examples:serve] tokens {tuple(tokens.shape)} on "
+          f"{tokens.device}")
+    log(f"[examples:serve] serve_decode_torch.py (zamba2-7b SMOKE, batch "
+        f"4, prompt 32, 16 tokens): {sec:.2f} s; first row "
+        f"{tokens[0].tolist()} ({CARD})")
+    dorefa.quantize_dequantize.launches = 0
+    with _checked_quantizer("mixtral-8x22b-example") as seen:
+        losses, _, sec = _quiet_main(_example("train_llm_torch"), [])
+    n = dorefa.quantize_dequantize.launches
+    check(len(losses) == 30 and all(math.isfinite(x) for x in losses),
+          f"[examples:train] losses {losses}")
+    check(n == seen.get("leaves", -1) * len(losses),
+          f"[examples:train] #5 launched {n} times for {len(losses)} steps "
+          f"of {seen.get('leaves')} leaves")
+    log(f"[examples:train] train_llm_torch.py (mixtral-8x22b SMOKE, 30 "
+        f"steps, batch 8 x 128, --fl-bits 8): {sec:.2f} s, "
+        f"{sec / len(losses):.3f} s / step, loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}; #5 launched {n} times ({seen['leaves']} leaves "
+        f"x {len(losses)} steps), step 1's {seen['elements']} quantized "
+        f"gradients bit-equal to the plain jitted form ({CARD})")
+    twin = _example("fl_noma_mnist_torch")
+    for argv in (["--fast", "--rounds", "2", "--seeds", "2"],
+                 ["--fast", "--rounds", "2", "--horizon", "scan",
+                  "--scheduler", "update-aware"]):
+        reset_launches(kernels)
+        out, lines, sec = _quiet_main(twin, argv)
+        results = out if isinstance(out, list) else [out]
+        check(len(results) == (2 if "--seeds" in argv else 1)
+              and all(np.all(np.isfinite(r.accuracies())) for r in results),
+              f"[examples:fl] {argv}: {len(results)} results")
+        log(f"[examples:fl] fl_noma_mnist_torch.py {' '.join(argv)}: "
+            f"{sec:.2f} s, launches "
+            f"{ {k: v for k, v in read_launches(kernels).items() if v} }; "
+            f"{lines[-1].strip()}")
+    return n
+
+
+def _same_run(a, b):
+    """Two runs' logs and final parameters equal to the bit."""
+    from repro_torch.utils.tree import tree_flatten_with_paths
+
+    logs = all(x.devices == y.devices and x.test_accuracy == y.test_accuracy
+               and x.wall_time_s == y.wall_time_s
+               and np.array_equal(x.bits, y.bits)
+               and np.array_equal(x.rates, y.rates)
+               and np.array_equal(x.compression_ratios, y.compression_ratios)
+               for x, y in zip(a.logs, b.logs)) and len(a.logs) == len(b.logs)
+    want = dict(tree_flatten_with_paths(b.final_params))
+    return logs and all(torch.equal(leaf, want[path]) for path, leaf
+                        in tree_flatten_with_paths(a.final_params))
+
+
+def run_sanitize_phase():
+    """``[sanitize]``: the paper cell's ``--pallas-agg`` run at T=3 with
+    ``--sanitize-nans`` gives the unguarded run's logs and parameters to the
+    bit; under ``nan_guard()`` kernel #1, the keyed #2 and #5, each fed
+    one NaN element on the card, raise ``FloatingPointError`` naming their
+    wrapper, and an ATen op making a NaN raises naming the op;
+    ``build_count()`` around a T=3 and a T=6 run reads the same count."""
+    from repro_torch.core import prng
+    from repro_torch.kernels import aggregate, dorefa, ota_aggregate
+    from repro_torch.utils.sanitizers import build_count, nan_guard
+
+    twin = _example("fl_noma_mnist_torch")
+    argv = ["--pallas-agg", "--rounds", "3", "--device", "cuda"]
+    plain, _, sec = _quiet_main(twin, argv)
+    guarded, _, sec_guarded = _quiet_main(twin, argv + ["--sanitize-nans"])
+    check(_same_run(guarded, plain), "[sanitize] the guarded run differs "
+                                     "from the unguarded one")
+    log(f"[sanitize] --pallas-agg --rounds 3 (M=300) with --sanitize-nans: "
+        f"no NaN, logs and final parameters equal to the unguarded run's to "
+        f"the bit; {sec_guarded:.2f} s guarded against {sec:.2f} s ({CARD})")
+
+    dev = torch.device("cuda")
+    n = LENET_PARAMS
+    gen = torch.Generator().manual_seed(28)
+    deltas = torch.randn(3, n, generator=gen).to(dev)
+    deltas[1, n // 2] = float("nan")
+    coeff = torch.tensor([0.5, 0.3, 0.2], device=dev)
+    scale = torch.tensor(1e-3, device=dev)
+    x = deltas[1].contiguous()
+    calls = {
+        "weighted_aggregate": lambda: aggregate.weighted_aggregate_group(
+            [deltas], [coeff]),
+        "ota_aggregate_keyed": lambda: ota_aggregate.ota_aggregate_keyed(
+            deltas, coeff, prng.prng_key(28), scale),
+        "quantize_dequantize": lambda: dorefa.quantize_dequantize(
+            x, torch.tensor(4.0, device=dev), 8),
+    }
+    for name, call in calls.items():
+        unguarded = call()
+        out = unguarded[0] if isinstance(unguarded, list) else unguarded
+        check(bool(torch.isnan(out).any()),
+              f"[sanitize] {name} carried no NaN through unguarded")
+        try:
+            with nan_guard():
+                call()
+        except FloatingPointError as err:
+            check(f"kernel wrapper {name}" in str(err),
+                  f"[sanitize] {name} raised {err}")
+            log(f"[sanitize] {name} fed one NaN element on the card: {err}")
+        else:
+            raise SmokeFailure(f"[sanitize] {name} let a NaN through the "
+                               f"guard")
+    zero = torch.zeros(4, device=dev)
+    try:
+        with nan_guard():
+            zero / zero
+    except FloatingPointError as err:
+        check("aten.div" in str(err), f"[sanitize] 0 / 0 raised {err}")
+        log(f"[sanitize] 0 / 0 on the card: {err}")
+    else:
+        raise SmokeFailure("[sanitize] 0 / 0 passed the guard")
+
+    counts = []
+    for t in (3, 6):
+        with build_count() as tally:
+            _quiet_main(twin, ["--pallas-agg", "--rounds", str(t),
+                               "--device", "cuda"])
+        counts.append(tally.count)
+    check(counts[0] == counts[1], f"[sanitize] build_count {counts} at T=3 "
+                                  f"and T=6")
+    log(f"[sanitize] build_count() at T=3 and T=6: {counts}, constant as "
+        f"the rounds scale")
+
+
+def run_lenet_trace():
+    """``[trace:lenet]``: torch.profiler over one steady round (round 3
+    of 4) of the paper cell's ``--pallas-agg`` run (the batched engine:
+    ``BatchedRoundEngine.run_round``) and of its ``--engine legacy`` run
+    (``fl._legacy_round``): kernels launched, device-busy and wall ms, the
+    local SGD's wall ms, the aten ops with the most device time, and #1's
+    device time by its kernel's name."""
+    from repro_torch.core import fl, fl_engine
+
+    twin = _example("fl_noma_mnist_torch")
+    for label, argv, owner, attr in (
+            ("batched", ["--pallas-agg"], fl_engine.BatchedRoundEngine,
+             "run_round"),
+            ("legacy", ["--engine", "legacy"], fl, "_legacy_round")):
+        body = getattr(owner, attr)
+        seen, traced, by_kernel = [], [], {}
+
+        def trace_round(*args, **kwargs):
+            seen.append(None)
+            if len(seen) != 4:
+                return body(*args, **kwargs)
+            out, *trace = _profile_round(lambda: body(*args, **kwargs),
+                                         by_kernel)
+            traced.append(trace)
+            return out
+
+        setattr(owner, attr, trace_round)
+        try:
+            _quiet_main(twin, argv + ["--rounds", "4", "--device", "cuda"])
+        finally:
+            setattr(owner, attr, body)
+        check(len(traced) == 1, f"[trace:lenet] {label}: traced "
+                                f"{len(traced)} rounds")
+        n_launch, busy, wall, sgd, top = traced[0]
+        agg = [(ms, n) for name, (ms, n) in by_kernel.items()
+               if AGGREGATE_KERNEL in name]
+        agg_ms, agg_n = (sum(a for a, _ in agg), sum(b for _, b in agg))
+        check(agg_n == (1 if label == "batched" else 0),
+              f"[trace:lenet] {label}: #1 launched {agg_n} times in the "
+              f"round")
+        log(f"[trace:lenet] {label} round 3 of {' '.join(argv)} at M=300 "
+            f"(traced by torch.profiler, which slows the host): {n_launch} "
+            f"kernels, device busy {busy:.3f} ms of {wall:.1f} ms wall (idle "
+            f"share {1 - busy / wall:.3f}); local SGD {sgd:.1f} ms of it; "
+            f"#1 ({AGGREGATE_KERNEL}) {agg_ms:.4f} ms in {agg_n} launches; "
+            "the aten ops with the most device time: "
+            + "; ".join(f"{name} {ms:.3f} ms ({n} calls)"
+                        for name, ms, n in top) + f" ({CARD})")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -4372,6 +4726,17 @@ def main() -> int:
     log(f"[time] the mesh slice's phases ([dryrun], [roofline:*]) took "
         f"{time.perf_counter() - t_mesh:.1f} s of the "
         f"{time.perf_counter() - t_start:.1f} s so far")
+
+    t_examples = time.perf_counter()
+    _, cell_launches = run_paper_cell(kernels)
+    for name in ("weighted_aggregate", "ota_aggregate"):
+        launches[name] += cell_launches[name]
+    launches["quantize_dequantize"] += run_example_phases(kernels)
+    run_sanitize_phase()
+    run_lenet_trace()
+    log(f"[time] the examples slice's phases ([paper-cell], [examples], "
+        f"[sanitize], [trace:lenet]) took "
+        f"{time.perf_counter() - t_examples:.1f} s")
 
     rows = []
     for kern in kernels:

@@ -67,6 +67,10 @@ HORIZON_MODES = ("per-round", "scan")
 # the reference's horizon modes, both ported: "per-round" is the host round
 # loop of repro_torch.core.fl, "scan" the whole horizon of _horizon_core
 
+UNSET = -1.0
+# a horizon log's entries before a round writes them (no count, accuracy or
+# bit width is negative); not NaN, which nan_guard would flag
+
 
 # --------------------------------------------------------------------------
 # Local SGD over the client axis
@@ -406,13 +410,14 @@ def _horizon_core(
     batch for every run and the dense aggregation one grouped kernel call.
     Nothing reads the card from the host: the gather index, budgets and
     weights are device tensors, and each round writes its bit widths,
-    kept-coordinate counts (left NaN unless top-k is on) and accuracy (NaN
-    on rounds ``eval_mask_t`` skips; the host forward-fills) into one
-    preallocated (S, T, 2K+1) float64 log on the device.  Returns
-    ``(final params_s, log)``; :func:`horizon_logs` downloads the log.
+    kept-coordinate counts (left ``UNSET`` unless top-k is on) and
+    accuracy (``UNSET`` on rounds ``eval_mask_t`` skips; the host
+    forward-fills) into one preallocated (S, T, 2K+1) float64 log on the
+    device.  Returns ``(final params_s, log)``; :func:`horizon_logs`
+    downloads the log.
     """
     seeds, num_rounds, k = dev_stk.shape
-    logs = torch.full((seeds, num_rounds, 2 * k + 1), float("nan"),
+    logs = torch.full((seeds, num_rounds, 2 * k + 1), UNSET,
                       dtype=torch.float64, device=dev_stk.device)
     for t in range(num_rounds):
         x, y = bank.take(dev_stk[:, t].reshape(-1), nb)
@@ -483,7 +488,7 @@ def horizon_logs(logs: torch.Tensor):
 def _split_log(host: np.ndarray, k: int):
     """The (bits, kept, acc) columns of a downloaded horizon log."""
     kept = host[..., k:2 * k]
-    kept = None if np.isnan(kept).all() else kept.astype(np.int32)
+    kept = None if np.all(kept == UNSET) else kept.astype(np.int32)
     return host[..., :k].astype(np.int32), kept, host[..., 2 * k]
 
 
@@ -682,7 +687,7 @@ def _online_horizon_core(
     seeds, num_rounds, num_devices = solo_stm.shape
     device = solo_stm.device
     k = min(int(pcfg.group_size), num_devices)
-    logs = torch.full((seeds, num_rounds, 4 * k + 1), float("nan"),
+    logs = torch.full((seeds, num_rounds, 4 * k + 1), UNSET,
                       dtype=torch.float64, device=device)
     obs = sched_lib.TracedObservation.initial(
         seeds, num_devices, getattr(policy, "COLD_START_NORM", 1.0),

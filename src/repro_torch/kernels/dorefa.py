@@ -55,6 +55,7 @@ import torch
 from repro_torch.core import errors
 from repro_torch.kernels import cuda_build
 from repro_torch.kernels.fma import fma_f32
+from repro_torch.utils import sanitizers
 
 KERNEL = "dorefa"
 
@@ -265,6 +266,8 @@ def _dequantize_codes_launch(flat, scale, bits):
         )
     _check_launch(lib, status, "dorefa_dequantize_codes")
     dequantize_codes.launches += 1
+    if sanitizers.NAN_CHECK:
+        sanitizers.check_kernel_outputs("dequantize_codes", out)
     return out
 
 
@@ -282,6 +285,8 @@ def _quantize_dequantize_launch(flat, scale, bits):
         )
     _check_launch(lib, status, "dorefa_quantize_dequantize")
     quantize_dequantize.launches += 1
+    if sanitizers.NAN_CHECK:
+        sanitizers.check_kernel_outputs("quantize_dequantize", out)
     return out
 
 
@@ -300,6 +305,9 @@ def _quantize_dequantize_residual_launch(flat, scale, bits):
         )
     _check_launch(lib, status, "dorefa_quantize_dequantize_residual")
     quantize_dequantize.launches += 1
+    if sanitizers.NAN_CHECK:
+        sanitizers.check_kernel_outputs("quantize_dequantize_residual", out,
+                                        res)
     return out, res
 
 

@@ -39,6 +39,7 @@ import torch
 
 from repro_torch.core import errors
 from repro_torch.kernels import cuda_build
+from repro_torch.utils import sanitizers
 
 KERNEL = "flash_decode"
 
@@ -161,6 +162,8 @@ def _launch(q, k, v, valid_len, block_s: int):
                                             reason=reason)
         )
     flash_decode.launches += 1
+    if sanitizers.NAN_CHECK:
+        sanitizers.check_kernel_outputs("flash_decode", out)
     return out
 
 

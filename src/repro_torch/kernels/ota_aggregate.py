@@ -46,6 +46,7 @@ from repro_torch.core import errors, prng
 from repro_torch.kernels import cuda_build
 from repro_torch.kernels.fma import fma_f32
 from repro_torch.kernels.threefry import MASK32, uniform_bounds
+from repro_torch.utils import sanitizers
 
 KERNEL = "ota_aggregate"
 
@@ -166,6 +167,8 @@ def _run(lib, entry: str, flat: torch.Tensor, args, strip=None):
             errors.ERR_KERNEL_LAUNCH.format(name=entry, reason=reason)
         )
     ota_aggregate.launches += 1
+    if sanitizers.NAN_CHECK:
+        sanitizers.check_kernel_outputs(entry.removesuffix("_f32"), out)
     return out
 
 

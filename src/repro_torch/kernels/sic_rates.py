@@ -35,6 +35,7 @@ import torch
 
 from repro_torch.core import errors
 from repro_torch.kernels import cuda_build
+from repro_torch.utils import sanitizers
 
 KERNEL = "sic_rates"
 K_MAX = 8
@@ -116,6 +117,8 @@ def _launch(p, g, w, noise_power) -> torch.Tensor:
             errors.ERR_KERNEL_LAUNCH.format(name=fn_name, reason=reason)
         )
     sic_weighted_rates.launches += 1
+    if sanitizers.NAN_CHECK:
+        sanitizers.check_kernel_outputs("sic_weighted_rates", out)
     return out
 
 

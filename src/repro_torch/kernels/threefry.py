@@ -25,6 +25,7 @@ import torch
 
 from repro_torch.core import errors
 from repro_torch.kernels import cuda_build
+from repro_torch.utils import sanitizers
 
 KERNEL = "threefry"
 MASK32 = 0xFFFFFFFF
@@ -102,6 +103,8 @@ def threefry_draw(key, n: int, minval: float, maxval: float, *,
             errors.ERR_KERNEL_LAUNCH.format(name=name, reason=reason)
         )
     threefry_draw.launches += 1
+    if sanitizers.NAN_CHECK:
+        sanitizers.check_kernel_outputs("threefry_draw", out)
     return out
 
 

@@ -6,6 +6,7 @@
     python tests/_torch_reference_worker.py --write-train-reference <out.json>
     python tests/_torch_reference_worker.py --write-multimodal-reference <dir>
     python tests/_torch_reference_worker.py --write-multimodal-train-reference <out.json>
+    python tests/_torch_reference_worker.py --write-paper-cell-reference <out.json>
 
 The JAX package cannot import ``repro.models`` (and hence ``repro.core.fl``)
 under JAX 0.9.0: ``models/layers.py`` asks ``x not in
@@ -1746,6 +1747,225 @@ def task_dryrun_parts(spec, arrays):
     return out
 
 
+# --------------------------------------------------------------------------
+# the reference's example scripts (examples/*.py), run as a user runs them
+# --------------------------------------------------------------------------
+
+def _examples_dir() -> str:
+    import os
+
+    return os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "examples")
+
+
+@contextlib.contextmanager
+def _patched(module, name, make):
+    """``module.<name>`` replaced by ``make(<the real one>)`` in the
+    block."""
+    real = getattr(module, name)
+    setattr(module, name, make(real))
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+def _run_script(script, argv) -> str:
+    """``python examples/<script> *argv`` in this process (``runpy`` as
+    ``__main__``); returns its standard output."""
+    import io
+    import os
+    import runpy
+
+    path = os.path.join(_examples_dir(), script)
+    buf, argv0 = io.StringIO(), sys.argv
+    sys.argv = [path] + [str(a) for a in argv]
+    try:
+        with contextlib.redirect_stdout(buf):
+            runpy.run_path(path, run_name="__main__")
+    finally:
+        sys.argv = argv0
+    return buf.getvalue()
+
+
+def _keeping(kept):
+    """A ``make`` for :func:`_patched`: the real function, each return
+    value appended to ``kept``."""
+    def make(real):
+        def keep(*args, **kwargs):
+            out = real(*args, **kwargs)
+            kept.append(out)
+            return out
+        return keep
+    return make
+
+
+class _ParserSeen(Exception):
+    pass
+
+
+def parser_actions(parser):
+    """An ``argparse`` parser's arguments as JSON-able dicts: option
+    strings, dest, default, choices, type name, action class, nargs."""
+    return [dict(options=list(a.option_strings), dest=a.dest,
+                 default=a.default,
+                 choices=None if a.choices is None else list(a.choices),
+                 type=None if a.type is None else a.type.__name__,
+                 action=type(a).__name__, nargs=a.nargs)
+            for a in parser._actions]
+
+
+def _example_parser(script):
+    """:func:`parser_actions` of the parser ``examples/<script>`` builds:
+    the script runs up to its ``parse_args``, which stops it."""
+    import argparse
+
+    seen = {}
+
+    def make(real):
+        def stop(self, *args, **kwargs):
+            seen["parser"] = self
+            raise _ParserSeen
+        return stop
+
+    with _patched(argparse.ArgumentParser, "parse_args", make):
+        try:
+            _run_script(script, [])
+        except _ParserSeen:
+            pass
+    return parser_actions(seen["parser"])
+
+
+def fl_example(argv):
+    """``examples/fl_noma_mnist.py``'s run of ``argv`` (its own ``main``):
+    (the FLResults it ran, one per seed; its standard output; the FLConfig
+    and sample count of its call).  ``fl.run_federated_learning`` and
+    ``fl.run_horizon_vmapped`` are wrapped in this process to keep them:
+    ``main`` prints its results and returns nothing."""
+    from repro.core import fl
+
+    calls, results = [], []
+
+    def make(real):
+        def run(dataset, shards, cell, cfg, **kwargs):
+            calls.append((cfg, len(dataset.x_train) + len(dataset.x_test)))
+            out = real(dataset, shards, cell, cfg, **kwargs)
+            results.extend(out if isinstance(out, list) else [out])
+            return out
+        return run
+
+    with _patched(fl, "run_federated_learning", make), \
+            _patched(fl, "run_horizon_vmapped", make):
+        stdout = _run_script("fl_noma_mnist.py", argv)
+    (call,) = calls
+    return results, stdout, call
+
+
+def task_example_runs(spec, arrays):
+    """The reference's example scripts, each run by its own ``main``.
+
+    ``spec["fl"]``: ``examples/fl_noma_mnist.py`` with each case's
+    ``argv``: every FLResult's logs and final parameters (``fl/<key>/<i>/``,
+    i the seed's index, 0 without ``--seeds``) and the script's output
+    lines (``fl/<key>/stdout``, JSON).  ``spec["serve"]``:
+    ``examples/serve_decode.py``: the tokens ``launch.serve.main`` returned
+    (``serve/<key>``).  ``spec["train"]``: ``examples/train_llm.py``: the
+    losses ``launch.train.main`` returned (``train/<key>``), its argv
+    extended by ``--save <the case's save>``.  ``spec["parsers"]``: each
+    script's parser (``parser/<script>``, JSON of :func:`parser_actions`)."""
+    import numpy as np
+
+    from repro.launch import serve, train
+
+    out = {}
+    for case in spec.get("fl", []):
+        results, stdout, _ = fl_example(case["argv"])
+        for i, res in enumerate(results):
+            out.update(_token_run_arrays(res, f"fl/{case['key']}/{i}/"))
+        out[f"fl/{case['key']}/stdout"] = _json_array(stdout.splitlines())
+    for case in spec.get("serve", []):
+        kept = []
+        with _patched(serve, "main", _keeping(kept)):
+            _run_script("serve_decode.py", case["argv"])
+        out[f"serve/{case['key']}"] = np.asarray(kept[0])
+    for case in spec.get("train", []):
+        kept, save = [], ["--save", case["save"]]
+
+        def saving(real):
+            def run(argv):
+                kept.append(real(list(argv) + save))
+                return kept[-1]
+            return run
+
+        with _patched(train, "main", saving):
+            _run_script("train_llm.py", case["argv"])
+        out[f"train/{case['key']}"] = np.asarray(kept[0], np.float64)
+    for script in spec.get("parsers", []):
+        out[f"parser/{script}"] = _json_array(_example_parser(script))
+    return out
+
+
+# the paper cell's runs (no --fast: M=300, K=3, T=35, 12,000 samples, seed
+# 0) recorded by write_paper_cell_reference, name: argv
+PAPER_CELL_RUNS = {
+    "noma": ["--pallas-agg"],
+    "tdma": ["--uplink", "tdma", "--pallas-agg"],
+    "ota": ["--uplink", "ota", "--ota-noise", "1e-9", "--pallas-agg"],
+    "legacy": ["--engine", "legacy"],
+}
+
+
+def write_paper_cell_reference(path: str) -> None:
+    """``examples/fl_noma_mnist.py``'s own ``main`` at the paper cell for
+    each argv of ``PAPER_CELL_RUNS`` (:func:`fl_example`): per round the
+    scheduled devices, bit widths, rates, compression ratios, simulated
+    time and test accuracy (floats through ``json``'s repr, which round-
+    trips them exactly), the config ``main`` built and its output lines,
+    written as JSON to ``path``.  No parameters: the drift at this cell is
+    F1's business (ROADMAP.md queue 3)."""
+    import dataclasses
+    import time
+
+    import numpy as np
+
+    runs = {}
+    for name, argv in PAPER_CELL_RUNS.items():
+        t0 = time.time()
+        (res,), stdout, (cfg, samples) = fl_example(argv)
+        rounds = [dict(devices=[int(d) for d in log.devices],
+                       bits=[int(b) for b in log.bits],
+                       rates=[float(r) for r in log.rates],
+                       ratios=[float(r) for r in log.compression_ratios],
+                       time=float(log.wall_time_s),
+                       acc=float(log.test_accuracy))
+                  for log in res.logs]
+        first = res.logs[0]
+        runs[name] = dict(
+            argv=argv, cfg=dataclasses.asdict(cfg), samples=samples,
+            scheme=res.scheme, rounds=rounds,
+            dtypes=dict(bits=str(np.asarray(first.bits).dtype),
+                        rates=str(np.asarray(first.rates).dtype),
+                        ratios=str(np.asarray(
+                            first.compression_ratios).dtype)),
+            stdout=stdout.splitlines(),
+            seconds=round(time.time() - t0, 1))
+    record = {
+        "_command": ("PYTHONPATH=src JAX_PLATFORMS=cpu python "
+                     "tests/_torch_reference_worker.py "
+                     "--write-paper-cell-reference "
+                     "tests/torch_reference/paper_cell.json"),
+        "_what": ("examples/fl_noma_mnist.py's main(argv) on the CPU at "
+                  "the paper cell: each round's devices, bits, rates, "
+                  "compression ratios, simulated time and test accuracy; "
+                  "cfg: the FLConfig main built; seconds: the run's wall "
+                  "time on the CPU that wrote the record"),
+        "runs": runs,
+    }
+    with open(path, "w", encoding="utf-8") as fh:
+        json.dump(record, fh, indent=1, sort_keys=True)
+        fh.write("\n")
+
+
 TASKS = {
     "lenet_grad": task_lenet_grad,
     "sgd_epoch": task_sgd_epoch,
@@ -1766,6 +1986,7 @@ TASKS = {
     "sharding_parts": task_sharding_parts,
     "dryrun_parts": task_dryrun_parts,
     "split_parts": task_split_parts,
+    "example_runs": task_example_runs,
 }
 
 
@@ -1787,6 +2008,10 @@ def main(argv) -> int:
     if argv[1] == "--write-multimodal-train-reference":
         apply_shim()
         write_multimodal_train_reference(argv[2])
+        return 0
+    if argv[1] == "--write-paper-cell-reference":
+        apply_shim()
+        write_paper_cell_reference(argv[2])
         return 0
     if argv[1] == "--write-qwen2-reference":
         apply_shim()

@@ -353,7 +353,7 @@ def test_port_imports_neither_jax_nor_reference():
                  "optim.optimizers", "optim.schedules",
                  "checkpoint.msgpack_ckpt", "launch.steps", "launch.train",
                  "launch.serve", "launch.mesh", "launch.dryrun",
-                 "launch.roofline", "sharding.rules"):
+                 "launch.roofline", "sharding.rules", "utils.sanitizers"):
         assert "repro_torch." + name in out["modules"]
     assert out["bad"] == []
 

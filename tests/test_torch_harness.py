@@ -72,6 +72,19 @@ PARAM_MEAN_ATOL = 1e-6
 PARAM_MAX_ATOL = 2e-2
 
 
+def load_example(name):
+    """``examples/<name>.py`` imported as a module (examples/ is no
+    package): the port's example twins, whose ``main(argv)`` returns what
+    it ran."""
+    import importlib.util
+
+    path = os.path.join(REPO, "examples", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
 def run_reference(tmp_path, task, spec=None, arrays=None, *, timeout=600):
     """Run reference ``task`` in a shimmed subprocess; returns a dict of
     numpy arrays."""

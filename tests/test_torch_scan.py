@@ -295,11 +295,11 @@ def test_round_ratios_follow_the_per_round_rule(mode, k):
 
 @pytest.mark.parametrize("topk", [True, False], ids=["topk", "dense"])
 def test_horizon_logs_report_kept_counts_only_under_topk(topk):
-    """The log's kept columns stay NaN unless the round body kept counts;
-    the download then gives ``None`` for them, as the per-round engine
-    does."""
+    """The log's kept columns stay ``UNSET`` unless the round body kept
+    counts; the download then gives ``None`` for them, as the per-round
+    engine does."""
     seeds, rounds, k = 2, 3, 2
-    log = torch.full((seeds, rounds, 2 * k + 1), float("nan"),
+    log = torch.full((seeds, rounds, 2 * k + 1), fl_engine.UNSET,
                      dtype=torch.float64)
     log[..., :k] = 4.0
     log[..., 2 * k] = 0.5
