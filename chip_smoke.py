@@ -243,6 +243,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -301,12 +302,16 @@ DECODE_32K = (128, 2, 7, 64, 32_768)
 # contract's 5e-2, which a kernel returning zeros would pass
 FLASH_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-6, 2.0 ** -7)}
 PEAK_FLOPS = {torch.float32: PEAK_F32_FLOPS, torch.bfloat16: PEAK_BF16_FLOPS}
-# operations per normal of the Threefry kernel, counted from its source:
-# the hash 118 integer operations, the uniform 6, erf_inv about 66 (a
-# fused multiply-add counted as two)
-THREEFRY_OPS = 190
-THREEFRY_HASH_OPS = 118
-INT32_OPS_PER_SM_CLOCK = 64     # Hopper: half the float32 lanes
+# Hopper's rates per SM per clock (the CUDA C++ programming guide's
+# instruction throughputs for compute capability 9.0): 4 schedulers issue
+# one warp instruction each (128 lanes); the ALU pipe (xor, shift, funnel
+# shift, integer add, compare, select, byte permute) 64 lanes; the FMA
+# pipes 128 float32 lanes, of which IMAD takes 64; MUFU 16
+ISSUE_LANES = 128
+ALU_LANES = 64
+MUFU_LANES = 16
+# log1p_f32's rational side: |t| < 0x1.a8279ap-2 (threefry.cuh)
+LOG1P_RATIONAL = float.fromhex("0x1.a8279ap-2")
 LENET_WEIGHT_LEAVES = 3     # truncated-normal draws of LeNet's init
 
 
@@ -886,6 +891,184 @@ def _max_sm_clock_hz():
     return float(out.strip().splitlines()[0]) * 1e6
 
 
+def threefry_work(mode, rational=0.0, rare=0.0, clamp=False):
+    """The least work of one value of a Threefry draw, by where Hopper can
+    run it: ``alu`` (the ALU pipe only), ``add`` (the ALU pipe, or the FMA
+    pipe as IMAD), ``fma`` (float32, the FMA pipes), ``mufu`` and ``mem``
+    (load and store instructions).  ``mode`` is "uniform", "normal" or
+    "bf16"; ``rational`` and ``rare`` are the shares of values that take
+    log1p_f32's rational side and erf_inv_f32's w >= 5 side (what this
+    run's data needs: :func:`draw_shares`); ``clamp`` adds a truncated
+    normal's two bounds.
+
+    Counted from csrc/threefry.cuh, each operation once, at the fewest
+    instructions Hopper has for it: the hash is 20 rotates (one funnel
+    shift each) and 21 xors (the 20 rounds' and the final x0 ^ x1, which
+    takes the bf16 index mask in the same LOP3), ALU only, and 27 adds (20
+    rounds, 6 injections into x1 of which one is the counter's own, 1
+    into x0 after the last round; the other 4 injections into x0 merge
+    into the next round's add as one 3-input add; the high word's is once
+    a group).  bf16: one shared-memory lookup at the byte offset the mask
+    gives and half an add packing two bf16 into a word (IMAD), one
+    16-byte store per 8 values; the 128-entry table is once a block and
+    not counted.  Float32: the uniform is one funnel shift (the exponent
+    shifted in), f - 1, the fma and the max; one 16-byte store per 4
+    values.  A normal adds erf_inv: x * -x, the branch test; the rational
+    side of log1p 23 float operations and one MUFU (its correctly rounded
+    divide: the reciprocal, two Newton fmas, the quotient, the residual and
+    its fma), the Cephes side 30 float operations (the clamp, the
+    exponent's conversion, the split and select of the mantissa, the
+    polynomials, the three special-value tests as a compare and a select
+    each), 2 ALU (the exponent's shift, the mantissa's mask) and 1 add;
+    then the w < 5 side's 14 float operations (w, the 8 fmas of the
+    polynomial, the |x| == 1 test and select, x * p, * sqrt 2); the w >= 5
+    side's square root adds one MUFU and 3 fmas."""
+    work = dict(alu=41.0, add=27.0, fma=0.0, mufu=0.0, mem=0.0)
+    if mode == "bf16":
+        work.update(add=27.5, mem=1.0 + 1 / 8)
+        return work
+    work.update(alu=42.0, fma=3.0, mem=0.25)
+    if mode == "normal":
+        work["fma"] += (2 + 23 * rational + 30 * (1 - rational) + 14
+                        + 3 * rare + (2 if clamp else 0))
+        work["alu"] += 2 * (1 - rational)
+        work["add"] += 1 - rational
+        work["mufu"] += rational + rare
+    return work
+
+
+def threefry_bound_ms(work, n, nbytes):
+    """The least ms the card could take for ``n`` values of per-value
+    ``work`` (:func:`threefry_work`, plus what a caller adds) writing and
+    reading ``nbytes``: the largest of the bytes at the HBM rate, the
+    ALU-only operations at ALU_LANES, MUFU at MUFU_LANES and every
+    instruction at the issue rate (ISSUE_LANES), per SM per clock at the
+    card's SM count and maximum SM clock.  The adds may go to either pipe
+    and the float32 operations have 128 lanes, so no pipe bounds them
+    beyond the issue rate.  Returns the times and what bounds them."""
+    props = torch.cuda.get_device_properties(0)
+    lanes = props.multi_processor_count * _max_sm_clock_hz() * 1e-3  # per ms
+    times = {"bytes": nbytes / PEAK_BYTES_PER_S * 1e3,
+             "ALU pipe": n * work["alu"] / (ALU_LANES * lanes),
+             "MUFU": n * work["mufu"] / (MUFU_LANES * lanes),
+             "issue": n * sum(work.values()) / (ISSUE_LANES * lanes)}
+    by = max(times, key=times.get)
+    return dict(times, ms=times[by], by=by,
+                bound_by="bytes" if by == "bytes" else "operations")
+
+
+def _bound_text(bound):
+    return (f"bound {bound['ms'] * 1e3:.4f} us ({bound['by']}; bytes "
+            f"{bound['bytes'] * 1e3:.4f}, ALU pipe "
+            f"{bound['ALU pipe'] * 1e3:.4f}, issue "
+            f"{bound['issue'] * 1e3:.4f} us)")
+
+
+def draw_shares(key, n, minval=None, maxval=1.0):
+    """(rational, rare): the shares of the n uniforms of ``key`` on
+    [minval, maxval) that take log1p_f32's rational side and erf_inv_f32's
+    w >= 5 side, from the uniforms themselves (drawn by the kernel, its
+    launch not counted; w >= 5 read in float64, which can differ from the
+    float32 test only on a value within an ulp of the edge)."""
+    from repro_torch.core import prng
+    from repro_torch.kernels import threefry
+
+    lo = prng.NORMAL_LO if minval is None else minval
+    counted = threefry.threefry_draw.launches
+    u = prng.draw(key, n, lo, maxval, device="cuda")
+    threefry.threefry_draw.launches = counted
+    t = u * -u
+    rational = (t.abs() < LOG1P_RATIONAL).double().mean().item()
+    rare = (torch.log1p(t.double()) <= -5.0).double().mean().item()
+    del u, t
+    return rational, rare
+
+
+SASS_CLASSES = (
+    ("ALU", ("IADD3", "LOP3", "SHF", "PRMT", "ISETP", "SEL", "LEA")),
+    ("FMA", ("FFMA", "FMUL", "FADD", "IMAD")),
+    ("MUFU", ("MUFU",)),
+)
+
+
+def _sass_class(op):
+    base = op.split(".")[0]
+    for name, ops in SASS_CLASSES:
+        if base in ops:
+            return name
+    return "mem" if base[:2] in ("LD", "ST") else "other"
+
+
+def sass_counts(lib_path, function, per):
+    """Static SASS of the kernel whose mangled name holds ``function`` in
+    the library at ``lib_path`` (``cuobjdump -sass``), by class (ALU, FMA
+    pipe, MUFU, loads and stores, other; the opcodes of SASS_CLASSES):
+    ``total`` for the function, ``loop`` for its main loop (the widest
+    backward branch, less any loop nested in it) and ``per_value``, the
+    loop over the ``per`` values one trip draws.  Both sides of a branch
+    inside the loop are in it; a side the compiler moves out of the loop
+    is not.  ``opcodes`` counts the loop's opcodes (their first word)."""
+    from repro_torch.kernels import cuda_build
+
+    tool = os.path.join(os.path.dirname(cuda_build.find_nvcc()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                          text=True, check=True).stdout
+    chunks = [c for c in text.split("Function : ")[1:]
+              if function in c.split("\n", 1)[0]]
+    check(len(chunks) == 1, f"SASS of {function}: {len(chunks)} functions")
+    insts, loops = [], []
+    for line in chunks[0].splitlines():
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if not m:
+            continue
+        addr, body = int(m.group(1), 16), m.group(2)
+        op = re.sub(r"^@!?U?P\w+\s+", "", body).split()[0]
+        if op == "NOP":
+            continue
+        insts.append((addr, op))
+        target = re.findall(r"0x([0-9a-f]+)", body)
+        if op.startswith("BRA") and target and int(target[-1], 16) < addr:
+            loops.append((int(target[-1], 16), addr))
+    outer = max(loops, key=lambda lp: lp[1] - lp[0]) if loops else None
+    inner = [lp for lp in loops if outer and lp != outer
+             and outer[0] <= lp[0] and lp[1] <= outer[1]]
+
+    def tally(keep):
+        out = {}
+        for addr, op in insts:
+            if keep(addr):
+                cls = _sass_class(op)
+                out[cls] = out.get(cls, 0) + 1
+        return out
+
+    total = tally(lambda a: True)
+    loop = tally(lambda a: outer is not None and outer[0] <= a <= outer[1]
+                 and not any(lo <= a <= hi for lo, hi in inner))
+    opcodes = {}
+    for addr, op in insts:
+        if outer and outer[0] <= addr <= outer[1] and not any(
+                lo <= addr <= hi for lo, hi in inner):
+            base = op.split(".")[0]
+            opcodes[base] = opcodes.get(base, 0) + 1
+    return dict(total=total, loop=loop,
+                per_value={k: v / per for k, v in loop.items()},
+                opcodes=opcodes, per=per)
+
+
+def _sass_text(counts, work):
+    """SASS per value by class beside the minimal count's."""
+    per = counts["per_value"]
+    mine = {"ALU": work["alu"], "FMA": work["fma"], "MUFU": work["mufu"],
+            "mem": work["mem"], "add (ALU or IMAD)": work["add"]}
+    return ("SASS per value " + ", ".join(
+        f"{k} {v:.2f}" for k, v in sorted(per.items()))
+        + f" ({sum(per.values()):.2f} issued) against the minimal "
+        + ", ".join(f"{k} {v:.2f}" for k, v in mine.items())
+        + f" ({sum(work.values()):.2f}); by opcode "
+        + ", ".join(f"{k} {v / counts['per']:.2f}" for k, v in sorted(
+            counts["opcodes"].items(), key=lambda kv: -kv[1])[:14]))
+
+
 def time_ota(mod, k=3, n=LENET_PARAMS):
     """One OTA round's reduction at the path's shape (K=3 clients, the
     whole LeNet payload, in the path's spaced row layout), warm in L2 as
@@ -893,8 +1076,7 @@ def time_ota(mod, k=3, n=LENET_PARAMS):
     the round key in registers) beside what it replaces, the three-launch
     sequence of the strip path (the Threefry draw, ``scale * z``, the
     strip kernel), beside its plain version and its bound in both forms
-    (bytes; operations by THREEFRY_OPS, and the hash's integer operations
-    alone at Hopper's INT32 rate); the strip kernel beside ``torch.addmv``
+    (:func:`keyed_bound`); the strip kernel beside ``torch.addmv``
     on the same strip (the strip kernel's library yardstick, never on the
     path) and in contiguous rows (one element per thread, since n % 4 == 2
     at LeNet's P).  Device time behind a sleep kernel and host-inclusive
@@ -956,15 +1138,7 @@ def time_ota(mod, k=3, n=LENET_PARAMS):
     mod.ota_aggregate.launches = counted    # timing launches don't count
     threefry.threefry_draw.launches = drawn
     attrs = mod.keyed_attributes()
-    # keyed: updates + coeff + scale in, out; the hash and erf_inv per element
-    k_bytes = (k + 1) * n * 4 + k * 4 + 4
-    k_ops = (THREEFRY_OPS + 2 * k) * n
-    kb, ko = k_bytes / PEAK_BYTES_PER_S * 1e3, k_ops / PEAK_F32_FLOPS * 1e3
-    bound = max(kb, ko)
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    clock = _max_sm_clock_hz()
-    int_rate = sms * INT32_OPS_PER_SM_CLOCK * clock     # per second
-    t_int = THREEFRY_HASH_OPS * n / int_rate * 1e3
+    bound, sass = keyed_bound(mod, key, k, n)
     # strip: updates + noise + coeff in, out
     s_bytes = (k + 2) * n * 4 + k * 4
     s_bound = max(s_bytes / PEAK_BYTES_PER_S, 2 * k * n / PEAK_F32_FLOPS) * 1e3
@@ -975,14 +1149,9 @@ def time_ota(mod, k=3, n=LENET_PARAMS):
         f"{dev['sequence2'] * 1e3:.3f}); plain {dev['plain'] * 1e3:.3f} us; "
         f"host-inclusive keyed {host['keyed'] * 1e3:.3f} us  sequence "
         f"{host['sequence'] * 1e3:.3f} us  plain {host['plain'] * 1e3:.3f} us")
-    log(f"[time] ota_aggregate keyed bound: bytes {k_bytes} B -> "
-        f"{kb * 1e3:.4f} us; operations ({THREEFRY_OPS} + 2K) x n = {k_ops} "
-        f"at the float32 peak -> {ko * 1e3:.4f} us; bound {bound * 1e3:.4f} "
-        f"us ({'bytes' if kb >= ko else 'operations'}), "
-        f"{dev['keyed'] / bound:.2f}x; the hash alone, {THREEFRY_HASH_OPS} "
-        f"integer operations per element at {INT32_OPS_PER_SM_CLOCK} per SM "
-        f"per clock x {sms} SMs x {clock / 1e9:.3f} GHz -> {t_int * 1e3:.4f} "
-        f"us ({dev['keyed'] / t_int:.2f}x); kernel {_attributes_text(attrs)}")
+    log(f"[time] ota_aggregate keyed {_bound_text(bound)}, "
+        f"{dev['keyed'] / bound['ms']:.2f}x; {sass}; kernel "
+        f"{_attributes_text(attrs)} ({CARD})")
     log(f"[time] ota_aggregate K={k} n={n} strip entry: device 16-byte loads "
         f"(spaced rows) {dev['strip'] * 1e3:.3f} us; one element per thread "
         f"(contiguous rows) {dev['dense'] * 1e3:.3f} us; plain "
@@ -993,9 +1162,26 @@ def time_ota(mod, k=3, n=LENET_PARAMS):
         f"bound {s_bound * 1e3:.4f} us (bytes), "
         f"{dev['strip'] / s_bound:.2f}x; addmv max abs diff {lib_err!r}")
     return dict(ms=dev["keyed"], plain_ms=dev["plain"], library_ms=None,
-                bound_ms=bound, host_ms=host["keyed"],
-                plain_host_ms=host["plain"],
-                bound_by="bytes" if kb >= ko else "operations")
+                bound_ms=bound["ms"], host_ms=host["keyed"],
+                plain_host_ms=host["plain"], bound_by=bound["bound_by"])
+
+
+def keyed_bound(mod, key, k, n):
+    """The keyed OTA kernel's least time on K rows of n (the updates, the
+    coefficients and the scale read once, the sum written once; each
+    element a normal of ``key`` without clamp, its ``scale *`` and K
+    fmas, a 16-byte load a row and a store per 4 elements) and its SASS
+    per element beside that count."""
+    rational, rare = draw_shares(key, n)
+    work = threefry_work("normal", rational, rare)
+    work["fma"] += 1 + k
+    work["mem"] += k / 4
+    bound = threefry_bound_ms(work, n, (k + 1) * n * 4 + k * 4 + 4)
+    from repro_torch.kernels import cuda_build
+
+    counts = sass_counts(cuda_build.library_path(mod.KERNEL),
+                         "ota_vec4ILb1E", 4)
+    return bound, _sass_text(counts, work)
 
 
 def check_noise(mod, n=LENET_PARAMS):
@@ -1029,9 +1215,8 @@ def check_noise(mod, n=LENET_PARAMS):
     # the plain version's ~1,300 launches per call exceed the queue
     dev["plain"], plain_launches = _busy_ms(plain_fn)
     mod.threefry_draw.launches = counted    # timing launches don't count
-    t_bytes = 4 * n / PEAK_BYTES_PER_S * 1e3
-    t_ops = THREEFRY_OPS * n / PEAK_F32_FLOPS * 1e3
-    bound = max(t_bytes, t_ops)
+    work = threefry_work("normal", *draw_shares(key, n))
+    bound = threefry_bound_ms(work, n, 4 * n)
     log(f"[noise] round key {key.tolist()}: {n} bits equal on the card and "
         f"the CPU; normals of the Threefry kernel bit-equal to its plain "
         f"version on the card and the CPU (max abs err {err!r}); draw of "
@@ -1039,12 +1224,33 @@ def check_noise(mod, n=LENET_PARAMS):
         f"(again {dev['kernel2'] * 1e3:.3f})  plain {dev['plain'] * 1e3:.1f} "
         f"us busy in {plain_launches:.0f} launches (torch.profiler); "
         f"host-inclusive kernel {host * 1e3:.3f} us  plain "
-        f"{plain_host * 1e3:.1f} us; bound {bound * 1e3:.4f} us "
-        f"({'bytes' if t_bytes >= t_ops else 'operations'}: {4 * n} B, "
-        f"{THREEFRY_OPS * n} op); {dev['kernel'] / bound:.2f}x the bound")
+        f"{plain_host * 1e3:.1f} us; {_bound_text(bound)}, "
+        f"{dev['kernel'] / bound['ms']:.2f}x the bound; "
+        f"{threefry_sass_text(mod, 'normal', n, work)} ({CARD})")
     return dict(ms=dev["kernel"], plain_ms=dev["plain"], library_ms=None,
-                bound_ms=bound, host_ms=host, plain_host_ms=plain_host,
-                bound_by="bytes" if t_bytes >= t_ops else "operations"), err
+                bound_ms=bound["ms"], host_ms=host, plain_host_ms=plain_host,
+                bound_by=bound["bound_by"]), err
+
+
+def threefry_function(mode, per):
+    """The mangled name's mark of the draw kernel of ``mode`` drawing
+    ``per`` values a thread, in cuobjdump's listing."""
+    if mode == "bf16":
+        return f"threefry_normal_bf16_kernelILi{per}E"
+    return f"threefry_drawILb{int(mode == 'normal')}ELi{per}E"
+
+
+def threefry_sass_text(mod, mode, n, work):
+    """The draw kernel that draws ``n`` values of ``mode``: SASS per value
+    beside ``work``, and its registers and occupancy."""
+    from repro_torch.kernels import cuda_build
+
+    attrs = mod.attributes(mode, n)
+    per = attrs["values_per_thread"]
+    counts = sass_counts(cuda_build.library_path(mod.KERNEL),
+                         threefry_function(mode, per), per)
+    return (f"{_sass_text(counts, work)}; kernel "
+            f"{_attributes_text(attrs)}, {per} values a thread")
 
 
 # --------------------------------------------------------------------------
@@ -2670,6 +2876,43 @@ def check_draws(seed=0, m=300, t=35):
         f"uniforms, normals and truncated normals: the card's (the Threefry "
         f"kernel) equal the plain version's on the card and the CPU to the "
         f"bit")
+    check_long_streams(key)
+
+
+LONG_STREAM = 1 << 26       # draws: 99.97% of the 2^23 uniforms expected
+
+
+def check_long_streams(key, n=LONG_STREAM):
+    """A normal and a truncated-normal stream of ``n`` float32 values, the
+    kernel against its plain version on the card, bit for bit; each covers
+    at least 99.9% of the 2^23 uniforms its 23 hash bits can make, so both
+    sides of log1p_f32 and of erf_inv_f32, the uniform's max and the
+    truncated bounds are held at nearly every input they can take."""
+    from repro_torch.core import prng
+
+    bits = prng.random_bits(key, n, device="cuda")
+    covered = int((torch.bincount((bits >> 9).long(), minlength=1 << 23)
+                   > 0).sum())
+    del bits
+    check(covered >= 0.999 * (1 << 23),
+          f"[draws] the long stream covers {covered} of 2^23 uniforms")
+    a, b = prng.ERF_BOUNDS[(-3.0, 3.0)]
+    clip = (float(np.nextafter(np.float32(-3), 0)),
+            float(np.nextafter(np.float32(3), 0)))
+    for lo, hi, cut, what in ((prng.NORMAL_LO, 1.0, None, "normal"),
+                              (a, b, clip, "truncated normal")):
+        got = prng.draw(key, n, lo, hi, normal=True, clip=cut, device="cuda")
+        try:
+            _bits_equal(got, prng.draw_plain(key, n, lo, hi, normal=True,
+                                             clip=cut, device="cuda"))
+        except SmokeFailure as exc:
+            raise SmokeFailure(f"[draws] long {what} stream: {exc}")
+        del got
+        torch.cuda.empty_cache()
+    log(f"[draws] {n} float32 normals and truncated normals of key "
+        f"{key.tolist()}: the kernel equals its plain version on the card to "
+        f"the bit; the stream covers {covered} of the 2^23 uniforms "
+        f"({covered / (1 << 23):.5f})")
 
 
 # --------------------------------------------------------------------------
@@ -2813,16 +3056,13 @@ def compare_token_kernels(name=QWEN2, label="Qwen2-0.5B",
     d_plain = _busy_ms(keyed_plain_fn, iters=1)[0]
     ota_aggregate.ota_aggregate.launches = counted
     threefry.threefry_draw.launches = drawn
-    k_bytes = (k + 1) * n * 4 + k * 4 + 4
-    kb = k_bytes / PEAK_BYTES_PER_S * 1e3
-    ko = (THREEFRY_OPS + 2 * k) * n / PEAK_F32_FLOPS * 1e3
+    bound, sass = keyed_bound(ota_aggregate, key, k, n)
     log(f"[{phase}] ota_aggregate keyed on the {label} embedding leaf "
         f"K={k} n={n}: bit-equal to its plain version and to the strip "
         f"kernel fed the drawn noise, max abs err {ota_err!r}; device "
         f"{d_keyed:.4f} ms, plain (device-busy) {d_plain:.4f} ms, "
-        f"host-inclusive {host_keyed:.4f} ms; bound {max(kb, ko):.4f} ms "
-        f"({'bytes' if kb >= ko else 'operations'}), "
-        f"{d_keyed / max(kb, ko):.2f}x")
+        f"host-inclusive {host_keyed:.4f} ms; {_bound_text(bound)}, "
+        f"{d_keyed / bound['ms']:.2f}x; {sass} ({CARD})")
     del x
     torch.cuda.empty_cache()
     return agg_err, ota_err
@@ -3812,13 +4052,16 @@ def check_bf16_draws():
                                         dtype=torch.bfloat16))
     plain_ms, _ = _busy_ms(lambda: prng.normal_bf16_plain(key, n,
                                                           device="cuda"))
-    bound = max(2 * n / PEAK_BYTES_PER_S,
-                n * THREEFRY_OPS / PEAK_F32_FLOPS) * 1e3
+    from repro_torch.kernels import threefry
+
+    work = threefry_work("bf16")
+    bound = threefry_bound_ms(work, n, 2 * n)
     log(f"[draws:bf16] {len(BF16_DRAWS)} draws of jax.random's bf16 normals "
         f"(1 to {n} values): the kernel equals its plain version on the "
         f"card and the CPU's bits, one launch each; the image features' "
         f"draw ({n} values) {ms:.4f} ms on the card, plain {plain_ms:.4f} "
-        f"ms, bound {bound:.4f} ms (operations) ({CARD})")
+        f"ms, {_bound_text(bound)}, {ms / bound['ms']:.2f}x; "
+        f"{threefry_sass_text(threefry, 'bf16', n, work)} ({CARD})")
     torch.cuda.empty_cache()
 
 

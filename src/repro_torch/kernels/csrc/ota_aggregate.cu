@@ -34,9 +34,10 @@
 // K * N * 4 bytes of updates and N * 4 of noise and writes N * 4: at K = 3
 // and LeNet-300-100's 266,610 parameters that is 5.3 MB, 1.6 us at 3.35
 // TB/s.  The keyed entry reads (K + 1) * N * 4 bytes in all, 4.3 MB, 1.27
-// us, but hashes each counter: 118 integer operations per element at
-// Hopper's INT32 rate (64 per SM per clock, half the float32 lanes) take
-// about 2 us at that size, and erf_inv adds about 66 float32 operations.
+// us, but hashes each counter and forms its normal: the hash's 41
+// ALU-only operations and 27 adds and erf_inv's ~45 float32 operations
+// per element take at least 0.96 us at that size at Hopper's issue rate
+// (chip_smoke.py:threefry_work and keyed_bound count them).
 // The design streams each byte once: a 1-D grid over N, each thread takes
 // four contiguous elements, loads them as one 16-byte vector per row
 // (the first kRowsAhead rows all issued before the noise is formed, so

@@ -1,10 +1,10 @@
 // Threefry-2x32 draws of jax.random's streams, as device functions.
 //
-// The one copy of the draw's arithmetic: threefry.cu's draw kernel and the
-// keyed OTA reduction of ota_aggregate.cu (which forms the receiver noise
-// in the registers of the thread that adds it) both include this header,
-// so the two cannot drift apart.  cuda_build.py hashes every csrc/*.cuh
-// into each library's name, so an edit here rebuilds both.
+// The one copy of the draw's arithmetic: threefry.cu's draw kernels and
+// the keyed OTA reduction of ota_aggregate.cu (which forms the receiver
+// noise in the registers of the thread that adds it) both include this
+// header, so the two cannot drift apart.  cuda_build.py hashes every
+// csrc/*.cuh into each library's name, so an edit here rebuilds both.
 //
 // For the flat index i the draw hashes the counter pair (i >> 32,
 // i & 0xFFFFFFFF) under the key (k0, k1) with Threefry-2x32 (20 rounds, as
@@ -22,9 +22,16 @@
 // never contracts: so the kernels, core/prng.py's plain version and
 // jax.random agree to the bit.
 //
-// Cost per normal: the hash 118 integer operations, the uniform 6,
-// erf_inv about 66 (a fused multiply-add counted as two).  A bfloat16
-// normal (normal_bf16_value) takes the same hash and erf_inv.
+// Cost per value, counted from this source (chip_smoke.py:threefry_work
+// holds the count): the hash 20 rotates (one funnel shift each) and 21
+// xors, which only the ALU pipe runs, and 27 adds, which the ALU or the
+// FMA pipe (as IMAD) runs; the uniform 1 shift and 3 float32 operations;
+// erf_inv about 40 float32 operations on the path a value takes.  The
+// w >= 5 side of erf_inv (about 0.34% of uniforms) is a branch, so a warp
+// whose lanes all stay below pays neither its square root nor its
+// coefficient selects.  A bfloat16 normal takes the same hash and one of
+// 128 values (bf16_normal_of_k), which threefry.cu tabulates once a
+// block.
 
 #pragma once
 
@@ -40,7 +47,20 @@ namespace {
 constexpr uint32_t kParity = 0x1BD11BDAu;
 
 __device__ __forceinline__ uint32_t rotl(uint32_t x, int r) {
-  return (x << r) | (x >> (32 - r));
+  return __funnelshift_l(x, x, r);
+}
+
+// x + y as IMAD x * 1 + y, for the hash's adds: ptxas, left to choose,
+// puts about 10 of a value's 27 adds on the ALU pipe (IADD3) beside the
+// rotates and xors, which only that pipe runs; as IMAD all issue to the
+// FMA pipe, which the hash leaves idle.  The 1 is blockDim.z, a value
+// ptxas cannot fold: every kernel that includes this header launches
+// 1-D blocks.
+__device__ __forceinline__ uint32_t imad_add(uint32_t x, uint32_t y) {
+  uint32_t d;
+  asm("mad.lo.u32 %0, %1, %2, %3;" : "=r"(d) : "r"(x), "r"(blockDim.z),
+      "r"(y));
+  return d;
 }
 
 // Threefry-2x32, 20 rounds, of the counter pair (x0, x1); returns x0 ^ x1.
@@ -48,17 +68,17 @@ __device__ __forceinline__ uint32_t threefry_bits(uint32_t k0, uint32_t k1,
                                                   uint32_t x0, uint32_t x1) {
   const uint32_t ks[3] = {k0, k1, k0 ^ k1 ^ kParity};
   const int rot[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
-  x0 += ks[0];
-  x1 += ks[1];
+  x0 = imad_add(x0, ks[0]);
+  x1 = imad_add(x1, ks[1]);
 #pragma unroll
   for (int i = 0; i < 5; ++i) {
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      x0 += x1;
+      x0 = imad_add(x0, x1);
       x1 = rotl(x1, rot[i % 2][j]) ^ x0;
     }
-    x0 += ks[(i + 1) % 3];
-    x1 += ks[(i + 2) % 3] + (uint32_t)(i + 1);
+    x0 = imad_add(x0, ks[(i + 1) % 3]);
+    x1 = imad_add(x1, ks[(i + 2) % 3] + (uint32_t)(i + 1));
   }
   return x0 ^ x1;
 }
@@ -111,7 +131,18 @@ __device__ float log1p_f32(float t) {
   return __fadd_rn(t, d);
 }
 
-// XLA's float32 ErfInv as compiled on the CPU.
+// Giles' polynomial in w, from its two leading coefficients on.
+template <int N>
+__device__ __forceinline__ float erf_inv_poly(float w, const float (&c)[N]) {
+  float p = __fmaf_rn(w, c[0], c[1]);
+#pragma unroll
+  for (int i = 2; i < N; ++i) p = __fmaf_rn(w, p, c[i]);
+  return p;
+}
+
+// XLA's float32 ErfInv as compiled on the CPU.  XLA selects between the
+// two sides of w = 5 after computing both; a side's value does not depend
+// on the other, so taking only the chosen one gives the same bits.
 __device__ float erf_inv_f32(float x) {
   const float lt5_c[9] = {
       0x1.e2cb1p-26f,  0x1.70966cp-22f, -0x1.d8e6aep-19f,
@@ -122,47 +153,53 @@ __device__ float erf_inv_f32(float x) {
       -0x1.e17bcep-9f,  0x1.7824f6p-8f,  -0x1.f38baep-8f,
       0x1.354afcp-7f,   0x1.006db6p+0f,  0x1.6a9efcp+1f};
   const float lp = log1p_f32(__fmul_rn(x, -x));      // -w
-  const bool lt5 = lp > -5.0f;
-  const float w = lt5 ? __fsub_rn(-2.5f, lp)
-                      : __fadd_rn(__fsqrt_rn(-lp), -3.0f);
-  float p = __fmaf_rn(w, lt5 ? lt5_c[0] : ge5_c[0], lt5 ? lt5_c[1] : ge5_c[1]);
-#pragma unroll
-  for (int i = 2; i < 9; ++i) p = __fmaf_rn(w, p, lt5 ? lt5_c[i] : ge5_c[i]);
+  float p;
+  if (__builtin_expect(lp > -5.0f, 1)) {
+    p = erf_inv_poly(__fsub_rn(-2.5f, lp), lt5_c);
+  } else {   // w >= 5, or a NaN
+    p = erf_inv_poly(__fadd_rn(__fsqrt_rn(-lp), -3.0f), ge5_c);
+  }
   if (fabsf(x) == 1.0f) p = INFINITY;
   return __fmul_rn(x, p);
 }
 
-// The uniform of flat index i: max(lo, fma(f, span, lo)), f in [0, 1)
-// from the top 23 bits of the hash; a NaN would stay NaN (never drawn).
+// The uniform of the hash `bits`: max(lo, fma(f, span, lo)), f in [0, 1)
+// from its top 23 bits; a NaN would stay NaN (never drawn).
+__device__ __forceinline__ float uniform_of_bits(uint32_t bits, float lo,
+                                                 float span) {
+  const float f = __fsub_rn(__uint_as_float((bits >> 9) | 0x3F800000u), 1.0f);
+  const float u = __fmaf_rn(f, span, lo);
+  return u < lo ? lo : u;
+}
+
+// sqrt(2) * erf_inv(u), unclamped.
+__device__ __forceinline__ float normal_of_uniform(float u) {
+  return __fmul_rn(erf_inv_f32(u), 0x1.6a09e6p+0f);
+}
+
+// The uniform of flat index i.
 __device__ __forceinline__ float uniform_f32(uint32_t k0, uint32_t k1,
                                              int64_t i, float lo,
                                              float span) {
-  const uint32_t bits = threefry_bits(k0, k1, (uint32_t)(i >> 32),
-                                      (uint32_t)(i & 0xFFFFFFFF));
-  const float f = __fsub_rn(__int_as_float((bits >> 9) | 0x3F800000u), 1.0f);
-  const float u = __fmaf_rn(f, span, lo);
-  return u < lo ? lo : u;
+  return uniform_of_bits(threefry_bits(k0, k1, (uint32_t)(i >> 32),
+                                       (uint32_t)(i & 0xFFFFFFFF)),
+                         lo, span);
 }
 
 // The normal of flat index i: sqrt(2) * erf_inv(u), unclamped.
 __device__ __forceinline__ float normal_f32(uint32_t k0, uint32_t k1,
                                             int64_t i, float lo, float span) {
-  return __fmul_rn(erf_inv_f32(uniform_f32(k0, k1, i, lo, span)),
-                   0x1.6a09e6p+0f);
+  return normal_of_uniform(uniform_f32(k0, k1, i, lo, span));
 }
 
-// jax.random's bfloat16 normal of flat index i, as the float32 value of a
+// jax.random's bfloat16 normal of the 7-bit k, as the float32 value of a
 // bf16: bf16 has 7 mantissa bits, so the draw takes the low byte of the
-// hash and the 7-bit k = byte >> 1 makes the exact uniform
-// u = k / 64 - 255 / 256 (the bf16 span 1 - lo rounds to 2); the normal is
+// hash and k = byte >> 1 makes the exact uniform u = k / 64 - 255 / 256
+// (the bf16 span 1 - lo rounds to 2); the normal is
 // bf16(bf16(erf_inv(u)) * 1.4140625), sqrt(2) rounded to bf16.
-__device__ __forceinline__ float normal_bf16_value(uint32_t k0, uint32_t k1,
-                                                  int64_t i) {
-  const uint32_t bits = threefry_bits(k0, k1, (uint32_t)(i >> 32),
-                                      (uint32_t)(i & 0xFFFFFFFF));
-  const float k = (float)((bits & 0xFFu) >> 1);
+__device__ __forceinline__ float bf16_normal_of_k(uint32_t k) {
   const float lo = -0x1.fep-1f;                     // -255 / 256
-  const float u = fmaxf(__fmaf_rn(k, 0x1p-6f, lo), lo);   // exact
+  const float u = fmaxf(__fmaf_rn((float)k, 0x1p-6f, lo), lo);   // exact
   const float e = __bfloat162float(__float2bfloat16_rn(erf_inv_f32(u)));
   return __fmul_rn(e, 0x1.6ap+0f);   // exact: two 8-bit significands
 }

@@ -55,6 +55,25 @@ def _library() -> ctypes.CDLL:
     return _lib
 
 
+MODES = ("uniform", "normal", "bf16")
+
+
+def attributes(mode: str, n: int) -> dict:
+    """Registers, shared and local bytes, CTA size and CTAs per SM of the
+    kernel that draws ``n`` values of ``mode`` (one of :data:`MODES`), and
+    ``values_per_thread``, the values its threads draw as one group."""
+    lib = _library()
+    which = MODES.index(mode)
+    lib.threefry_attributes.argtypes = [ctypes.c_int, ctypes.c_int64,
+                                        ctypes.c_void_p]
+    lib.threefry_attributes.restype = ctypes.c_int
+    lib.threefry_group.argtypes = [ctypes.c_int, ctypes.c_int64]
+    lib.threefry_group.restype = ctypes.c_int
+    out = cuda_build.read_attributes(lib.threefry_attributes, which, n)
+    out["values_per_thread"] = lib.threefry_group(which, n)
+    return out
+
+
 def uniform_bounds(minval: float, maxval: float):
     """(lo, span) as the kernels take a uniform's bounds: ``minval`` in
     float32 and ``maxval - minval`` rounded to float32, as jax.random

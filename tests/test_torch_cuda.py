@@ -425,7 +425,16 @@ def test_noise_bits_on_the_card_equal_the_cpu(cuda, p):
     _same_bits(z, prng.normal(key, p, device="cpu"))
 
 
-@pytest.mark.parametrize("n", [0, 1, 255, 266_610, (1 << 20) + 3])
+# sizes about the kernels' edges: a group of 4 float32 or 8 bf16 values a
+# thread, a block's 1,024 / 2,048 values, the H100's 270,336 resident
+# threads (below them a thread draws one value), a grid pass of groups
+# (1,081,344 float32, 2,162,688 bf16 values) walked again
+THREEFRY_SIZES = [0, 1, 3, 4, 5, 7, 8, 9, 127, 128, 129, 255, 1023, 1024,
+                  1025, 2047, 2048, 2049, 266_610, 270_335, 270_337,
+                  (1 << 20) + 3, 2_162_689, 4_325_377]
+
+
+@pytest.mark.parametrize("n", THREEFRY_SIZES)
 @pytest.mark.parametrize("kind", ["uniform", "normal", "truncated"])
 def test_threefry_kernel_matches_plain_bit_for_bit(cuda, kind, n):
     """One launch per draw, the plain version's bits on the card and on
@@ -449,7 +458,7 @@ def test_threefry_kernel_matches_plain_bit_for_bit(cuda, kind, n):
                                     clip=clip, device="cpu"))
 
 
-@pytest.mark.parametrize("n", [0, 1, 255, 65_537, (1 << 20) + 3])
+@pytest.mark.parametrize("n", THREEFRY_SIZES + [65_537])
 def test_threefry_bf16_normals_match_plain_bit_for_bit(cuda, n):
     """The kernel's bf16 mode (jax.random's bfloat16 normal): one launch
     per draw, the plain version's bits on the card and on the CPU; it
@@ -468,6 +477,21 @@ def test_threefry_bf16_normals_match_plain_bit_for_bit(cuda, n):
     with pytest.raises(ValueError, match="unclamped normals"):
         threefry.threefry_draw(key, 4, 0.0, 1.0, dtype=torch.bfloat16,
                                device=cuda)
+
+
+@pytest.mark.parametrize("mode", ["uniform", "normal", "bf16"])
+def test_threefry_kernel_attributes(cuda, mode):
+    """Each draw kernel spills nothing and fits a block on an SM; a draw
+    larger than the card's resident threads takes a group of values a
+    thread (4 float32, 8 bf16: one 16-byte store), a smaller one 1."""
+    from repro_torch.kernels import threefry
+
+    small, large = threefry.attributes(mode, 1000), threefry.attributes(
+        mode, 1 << 24)
+    assert small["values_per_thread"] == 1
+    assert large["values_per_thread"] == (8 if mode == "bf16" else 4)
+    for attrs in (small, large):
+        assert attrs["local_bytes"] == 0 and attrs["ctas_per_sm"] >= 1
 
 
 @pytest.mark.parametrize("seed", [0, 3])

@@ -14,6 +14,8 @@ tests/test_torch_fl.py.
 initial weights and the FL runs come from one shimmed reference subprocess
 for the whole file (test_torch_harness).
 """
+import re
+
 import numpy as np
 import pytest
 
@@ -200,8 +202,32 @@ def test_the_draw_has_one_copy_in_its_header():
     for src in cuda_build.CSRC.glob("*.cu"):
         text = src.read_text()
         for fn in ("uint32_t threefry_bits(", "float erf_inv_f32(",
-                   "float log1p_f32(", "float normal_f32("):
+                   "float log1p_f32(", "float normal_f32(",
+                   "float bf16_normal_of_k("):
             assert fn not in text, f"{src.name} defines {fn}"
+    # the bf16 kernel's table: the header's bf16_normal_of_k, which takes
+    # the header's erf_inv_f32; threefry.cu holds no coefficient of its own
+    body = header.split("float bf16_normal_of_k(", 1)[1].split("\n}\n", 1)[0]
+    assert "erf_inv_f32(" in body
+    draw = (cuda_build.CSRC / "threefry.cu").read_text()
+    assert "bf16_normal_of_k(" in draw
+    assert not re.search(r"0x[0-9a-fA-F]*\.[0-9a-fA-F]*p", draw)
+    assert not re.search(r"float\s+\w+\[\w*\]\s*=", draw)
+
+
+@pytest.mark.parametrize("seed", [0, 4])
+def test_bf16_normal_table_equals_jax(seed):
+    """The bf16 kernel's table is ``prng.bf16_normal_table``'s function:
+    at indices whose 7-bit k = (bits & 0xFF) >> 1 takes all 128 values,
+    ``jax.random.normal(key, (n,), bfloat16)`` is the table at k."""
+    key = jax.random.fold_in(jax.random.PRNGKey(seed), 3)
+    n = 4096
+    want = np.asarray(jax.random.normal(key, (n,), jnp.bfloat16))
+    k = ((prng.random_bits(np.asarray(key), n, device="cpu") & 0xFF)
+         >> 1).numpy()
+    assert set(k.tolist()) == set(range(128))
+    table = prng.bf16_normal_table("cpu").numpy()
+    _assert_bit_equal(table[k], want.astype(np.float32))
 
 
 @pytest.mark.parametrize("edit", ["header", "source", "other"])
