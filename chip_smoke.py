@@ -185,7 +185,13 @@ package, and exits non-zero on the first failure.  Phases:
      (``[ref:mamba2-130m]``); ``launch.serve`` at the published widths
      on Mamba2-130M, Zamba2-7B cut to 6 layers and Mixtral-8x22B cut to 2
      (``[serve:*]``: initial weights held to the reference's recorded
-     elements, tokens to the plain per-token forward); ``launch.train`` at
+     elements; prompts, greedy tokens and one teacher-forced forward's
+     logits held to the reference's serving record,
+     tests/torch_reference/serve_<arch>.json, by ``check_serve_record``:
+     tokens equal through each row's first near-tie, logits within
+     ``SERVE_LOGIT_ULPS``; steps after a near-tie divergence held to the
+     plain per-token forward; the Threefry kernel's launches counted);
+     ``launch.train`` at
      full width on Qwen2-0.5B (also with error feedback) and Mamba2-130M
      (each step's loss held to the reference's record), a save / resume
      round trip, and the SMOKE Mixtral (``[train:*]``);
@@ -201,8 +207,8 @@ package, and exits non-zero on the first failure.  Phases:
      (``[ref:seamless-m4t-medium]``), and on Llama-3.2-Vision-90B at its
      published widths cut to 5 layers (one site), its weights and image
      features against the record (``[ref:llama-3.2-vision-90b]``), once at
-     init and once with its gates set non-zero (``[serve:*]``, tokens
-     held to the plain per-token forward); ``launch.train`` on
+     init and once with its gates set non-zero (``[serve:*]``, each held
+     to its serving record as in 16); ``launch.train`` on
      SeamlessM4T-medium at full width with the reference's defaults
      (``[train:seamless-m4t-medium]``), and the SMOKE SeamlessM4T and
      Llama-3.2-Vision held to tests/torch_reference/
@@ -3397,6 +3403,20 @@ TRAIN_LOSS_LIMITS = {"mamba2-130m": FAMILY_LOSS_RTOL,
 TRAIN_DRIFT_LIMITS = {"mamba2-130m": 3e-5}
 SERVE_RUNS = (("mamba2-130m", None), ("zamba2-7b", 6), ("mixtral-8x22b", 2))
 SERVE_TIE_ULPS = 4          # tests/test_torch_launch.py's near-tie bound
+# [serve:*]'s teacher-forced logits against the reference's serving record
+# (tests/torch_reference/serve_<arch>.json), in bf16 ulps of each row's
+# largest |logit|.  Each limit lies between the port's sound reading on the
+# CPU at full width and the wrong runs' (tests/_serve_measure.py): sound
+# Mamba2 3.5, Zamba2 2.5, Mixtral 1, SeamlessM4T 2, Llama-Vision 1.25 /
+# 1.625 gated; the last layer dropped 30.88, 94.81, 266, 38.5, 83.5 / 110.8;
+# Mamba2's D zeroed 258; the vlm's gates at 0 against the gated record
+# 172.6.  At these widths the forward at init cannot tell a sound run from
+# Zamba2's shared block read at head_dim 128 (2.5), Mixtral at the default
+# rope_theta (3) or at one expert (4), SeamlessM4T's encoder a layer short
+# (2.625) or the vlm at the default rope_theta (2 / 2.375): ROADMAP.md
+# queue 3; tests/test_torch_serve_records.py rejects each at SMOKE
+SERVE_LOGIT_ULPS = {"mamba2_130m": 8, "zamba2_7b": 8, "mixtral_8x22b": 8,
+                    "seamless_m4t_medium": 8, "llama_3_2_vision_90b": 8}
 CARD = ""                   # the card's name and power limit (nvidia-smi)
 
 
@@ -3629,67 +3649,202 @@ def _bf16_ulp(x):
     return 2.0 ** (math.floor(math.log2(x)) - 7)
 
 
+def record_name(arch):
+    """An arch id's name in tests/torch_reference/."""
+    return arch.replace("-", "_").replace(".", "_")
+
+
+def serve_record(name):
+    """tests/torch_reference/serve_<name>.json, the reference's record of
+    the serving runs of ``name`` (a :func:`record_name`; written by the
+    JAX package, its command in the file)."""
+    return _record(f"serve_{name}")
+
+
+def teacher_forced_logits(model, params, want, extras):
+    """The port's uncached forward over the record's prompts and served
+    tokens (``want``: a run of :func:`serve_record`; the last served token
+    is not fed), on ``params``' device, at the record's positions over the
+    real vocabulary: (gen, batch, vocab_size) float32."""
+    device = _leaves(params)[0].device
+    seq = torch.cat([torch.tensor(want["prompts"], dtype=torch.int32),
+                     torch.tensor(want["tokens"], dtype=torch.int32)[:, :-1]],
+                    dim=1).to(device)
+    pos = want["positions"]
+    with torch.no_grad():
+        logits = model.module.forward(params, seq, model.cfg, **extras)[0]
+    return logits[:, pos[0]:pos[-1] + 1, :want["vocab_size"]].transpose(0, 1)
+
+
+def serve_readings(tokens, prompts, logits, want):
+    """A serving run's readings against ``want``, its run in the
+    reference's record: ``tokens`` (batch, gen) and ``prompts`` the run's,
+    ``logits`` (gen, batch, vocab) its teacher-forced logits
+    (:func:`teacher_forced_logits`).  A near-tie is a position whose
+    recorded top-2 gap is at most SERVE_TIE_ULPS bf16 ulps.  Returns
+
+    - ``prompts_equal``;
+    - ``first_tie``: per row, the first near-tie step (gen where none);
+    - ``diverged``: per row, the first step whose token differs from the
+      reference's (gen where none); ``early``: the rows that differ before
+      their first near-tie;
+    - ``worst``: the largest |logit - reference's| over the recorded top-8
+      and fixed ids, in bf16 ulps of the row's largest recorded |logit|;
+    - ``flips``: the positions whose argmax is not the reference's top-1,
+      and ``flip_gap``: the largest gap, in bf16 ulps of the row's largest
+      |logit|, between such a position's best logit and its logit at the
+      reference's top-1."""
+    tokens = np.asarray(torch.as_tensor(tokens).cpu())
+    gaps = np.asarray(want["gap_ulps"])
+    gen, batch = gaps.shape
+    tie = gaps <= SERVE_TIE_ULPS
+    first_tie = np.where(tie.any(0), tie.argmax(0), gen)
+    differ = tokens != np.asarray(want["tokens"])
+    diverged = np.where(differ.any(1), differ.argmax(1), gen)
+    device = logits.device
+    ids = torch.tensor(want["ids"], device=device).expand(gen, batch, -1)
+    top = torch.tensor(want["top_ids"], device=device)
+    got = torch.cat([logits.gather(-1, top), logits.gather(-1, ids)], -1)
+    ref = torch.cat([torch.tensor(want["top_values"]),
+                     torch.tensor(want["values"])], -1).to(device)
+    absmax = torch.tensor(want["absmax"], dtype=torch.float64)
+    ulp = torch.exp2(torch.floor(torch.log2(absmax.clamp_min(
+        float(np.finfo(np.float32).tiny)))) - 7).to(device)
+    worst = float(((got - ref).abs().amax(-1).double() / ulp).max())
+    best = logits.max(-1)
+    flipped = best.indices != top[..., 0]
+    own = torch.exp2(torch.floor(torch.log2(logits.abs().amax(-1).double()
+                                            .clamp_min(1e-38))) - 7)
+    gap = (best.values - got[..., 0]).double() / own
+    flip_gap = float(gap[flipped].max()) if bool(flipped.any()) else 0.0
+    return dict(prompts_equal=np.array_equal(
+                    np.asarray(torch.as_tensor(prompts).cpu()),
+                    np.asarray(want["prompts"])),
+                first_tie=first_tie, diverged=diverged,
+                early=[r for r in range(batch) if diverged[r] < first_tie[r]],
+                worst=worst, flips=int(flipped.sum()), flip_gap=flip_gap)
+
+
+def check_serve_record(out, logits, record, run, limit):
+    """A serving run (``out``: ``launch.serve.run``'s) held against run
+    ``run`` of the reference's ``record`` (:func:`serve_record`), its
+    teacher-forced ``logits`` from :func:`teacher_forced_logits`: the
+    prompts equal the record's bit for bit; each row's served tokens equal
+    the reference's up to the row's first near-tie (a difference before it
+    fails); at every position the argmax is the reference's top-1 or lies
+    within SERVE_TIE_ULPS bf16 ulps of the logit there; the recorded ids'
+    logits within ``limit`` bf16 ulps of the row's largest |logit|.
+    Returns :func:`serve_readings`' readings, with ``equal_through``: the
+    steps every row's tokens equal the reference's."""
+    want = record["runs"][run]
+    got = serve_readings(out["tokens"], out["prompts"], logits, want)
+    label = f"[serve:{run}]"
+    check(got["prompts_equal"], f"{label} the prompts differ from the "
+                                f"record's")
+    check(not got["early"], f"{label} rows {got['early']} leave the "
+          f"reference's tokens at steps {got['diverged'].tolist()}, before "
+          f"their first near-tie {got['first_tie'].tolist()}")
+    check(got["flip_gap"] <= SERVE_TIE_ULPS,
+          f"{label} an argmax {got['flip_gap']:.3g} bf16 ulps above the "
+          f"logit of the reference's top-1")
+    check(got["worst"] <= limit, f"{label} teacher-forced logits "
+          f"{got['worst']:.3g} bf16 ulps from the reference's (limit "
+          f"{limit})")
+    got["equal_through"] = int(got["diverged"].min())
+    return got
+
+
 def run_serve_phase(arch, num_layers, gen=16, gates=None, checks=None):
     """``[serve:<arch>]``: ``launch.serve`` at the published widths (depth
     cut to ``num_layers`` where given), batch 4, prompt 32, 16 tokens, on
     the card; a vlm's initial gates set to ``gates`` where given (its
     cross layers are the identity at init).  The initial weights at the
     record's indices equal the reference's (at init; ``checks(out)`` reads
-    the run's output further); the greedy tokens are held against the
-    plain per-token forward on the card (each step's full forward over the
-    sequence so far, no cache, with the run's modality inputs): every
-    token is that forward's best logit within 4 bf16 ulps (a near-tie may
-    flip a choice, as in the CPU tests).  Prints the prefill seconds and
-    the decode tokens per second."""
+    the run's output further); the run is held against the reference's
+    serving record by :func:`check_serve_record` (one uncached forward over
+    the reference's sequence); where a row left the reference's tokens at
+    a near-tie, the steps from there on are held against the plain
+    per-token forward on the card over the card's own sequence (no cache,
+    the run's modality inputs): every token that forward's best logit
+    within SERVE_TIE_ULPS bf16 ulps.  The Threefry kernel's launches in
+    the run are counted (from 0) and must equal the schema's drawn leaves
+    plus the modality draw.  Prints the prefill seconds and the decode
+    tokens per second."""
+    from repro_torch.kernels import threefry
     from repro_torch.launch import serve
 
     argv = ["--arch", arch, "--batch", "4", "--prompt-len", "32", "--gen",
             str(gen), "--device", "cuda"]
     if num_layers:
         argv += ["--num-layers", str(num_layers)]
-    label = f"[serve:{arch}{'-gated' if gates else ''}]"
+    run = f"{arch}{'-gated' if gates else ''}"
+    label = f"[serve:{run}]"
     torch.cuda.reset_peak_memory_stats()
+    counted, threefry.threefry_draw.launches = (
+        threefry.threefry_draw.launches, 0)
     with _gated_init(gates):
         out, wall = _timed(lambda: serve.run(argv))
+    draws = threefry.threefry_draw.launches
+    threefry.threefry_draw.launches = counted + draws
     peak = torch.cuda.max_memory_allocated()
     model, params, tokens = out["model"], out["params"], out["tokens"]
     extras = out["extras"]
     cfg = model.cfg
+    want_draws = _weight_draws(model.schema) + bool(extras)
+    check(draws == want_draws, f"{label} {draws} Threefry launches, "
+                               f"{want_draws} expected")
     if gates is None:
-        record = _record(arch.replace("-", "_").replace(".", "_"))
+        record = _record(record_name(arch))
         check(record["num_layers"] == cfg.num_layers,
               f"{label} record has {record['num_layers']} layers")
         _check_record_elements(params, record, label)
     if checks is not None:
         checks(out)
-    seq = torch.cat([out["prompts"], tokens[:, :-1]], dim=1)
-    flips, worst = 0, 0.0
-    with torch.no_grad():
-        for i in range(gen):
-            logits = model.module.forward(params, seq[:, :32 + i], cfg,
-                                          **extras)[0]
-            last = logits[:, -1, : cfg.vocab_size]
-            best = last.max(-1).values
-            chosen = torch.gather(last, -1, tokens[:, i:i + 1].long())[:, 0]
-            gap = float((best - chosen).max())
-            tol = SERVE_TIE_ULPS * _bf16_ulp(float(last.abs().max()))
-            check(gap <= tol, f"{label} token {i}: {gap} below the best "
-                              f"logit (tolerance {tol})")
-            flips += int((last.argmax(-1).to(torch.int32)
-                          != tokens[:, i]).sum())
-            worst = max(worst, gap)
+    record = serve_record(record_name(arch))
+    check(record["runs"][run]["num_layers"] == cfg.num_layers,
+          f"{label} the serving record has another depth")
+    limit = SERVE_LOGIT_ULPS[record["model"]]
+    held = check_serve_record(
+        out, teacher_forced_logits(model, params, record["runs"][run], extras),
+        record, run, limit)
+    after = ""
+    start = held["equal_through"]
+    if start < gen:
+        seq = torch.cat([out["prompts"], tokens[:, :-1]], dim=1)
+        worst = 0.0
+        with torch.no_grad():
+            for i in range(start, gen):
+                logits = model.module.forward(params, seq[:, :32 + i], cfg,
+                                              **extras)[0]
+                last = logits[:, -1, : cfg.vocab_size]
+                best = last.max(-1).values
+                chosen = torch.gather(last, -1,
+                                      tokens[:, i:i + 1].long())[:, 0]
+                gap = float((best - chosen).max())
+                tol = SERVE_TIE_ULPS * _bf16_ulp(float(last.abs().max()))
+                check(gap <= tol, f"{label} token {i}: {gap} below the best "
+                                  f"logit (tolerance {tol})")
+                worst = max(worst, gap)
+        after = (f"; steps {start}-{gen - 1} against the card's own "
+                 f"uncached forward: worst gap {worst:.3g}")
+    tie = int(held["first_tie"].min())
     n_params = sum(leaf.numel() for leaf in _leaves(params))
     log(f"{label} {cfg.name} at full width, {cfg.num_layers} layers "
         f"({n_params} parameters), batch 4, prompt 32, {gen} tokens: prefill "
         f"{out['prefill_s']:.3f} s, decode {out['decode_s']:.3f} s "
         f"({gen * 4 / out['decode_s']:.1f} tok/s), whole run {wall:.1f} s "
-        f"(the initial draw included), peak {peak / 2**30:.2f} GiB; "
+        f"(the initial draw included, {draws} Threefry launches), peak "
+        f"{peak / 2**30:.2f} GiB; "
         + ("the record's initial elements equal the reference's; "
            if gates is None else f"gates (attn, mlp) set to {gates}; ")
-        + f"tokens against the plain per-token forward: {flips} near-tie "
-        f"flips, worst gap {worst:.3g} ({CARD})")
-    del out, model, params, tokens, seq, extras
+        + f"against the reference's record: tokens equal through step "
+        f"{start} (first near-tie: "
+        + (f"step {tie}" if tie < gen else "none")
+        + f"), worst logit gap {held['worst']:.3g} bf16 ulps (limit "
+        f"{limit}), flips {held['flips']}{after} ({CARD})")
+    del out, model, params, tokens, extras
     torch.cuda.empty_cache()
+    return draws
 
 
 def _leaves(tree):
@@ -3969,6 +4124,10 @@ def run_family_phases(kernels):
 
 MULTIMODAL = ("seamless_m4t_medium", "llama_3_2_vision_90b")
 VLM_GATES = [0.5, -0.7]     # tests/test_torch_multimodal*.py's GATES
+# [serve:*] of this slice: (arch, depth cut, the vlm's initial gates)
+MULTIMODAL_SERVE_RUNS = (("seamless-m4t-medium", None, None),
+                         ("llama-3.2-vision-90b", 5, None),
+                         ("llama-3.2-vision-90b", 5, VLM_GATES))
 # (seed, fold_in data, n): odd sizes, sizes above 2^16, and the image
 # features of [serve:llama-3.2-vision-90b] (4 x 1600 x 8192)
 BF16_DRAWS = ((0, 2, 1), (0, 3, 65_537), (3, 7, 12_345), (1, 0, 131_075),
@@ -4281,10 +4440,11 @@ def run_multimodal_phases():
     """The encdec and vlm slice's phases, in order."""
     check_bf16_draws()
     compare_multimodal_cpu_and_card()
-    run_serve_phase("seamless-m4t-medium", None,
-                    checks=check_seamless_reference)
-    run_serve_phase("llama-3.2-vision-90b", 5, checks=check_vision_reference)
-    run_serve_phase("llama-3.2-vision-90b", 5, gates=VLM_GATES)
+    checks = {"seamless-m4t-medium": check_seamless_reference,
+              "llama-3.2-vision-90b": check_vision_reference}
+    for arch, num_layers, gates in MULTIMODAL_SERVE_RUNS:
+        run_serve_phase(arch, num_layers, gates=gates,
+                        checks=None if gates else checks[arch])
     losses = run_train_phase("seamless-m4t-medium", [
         "--arch", "seamless-m4t-medium", "--steps", "20", "--batch", "8",
         "--seq", "128"])

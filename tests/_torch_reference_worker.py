@@ -7,6 +7,7 @@
     python tests/_torch_reference_worker.py --write-multimodal-reference <dir>
     python tests/_torch_reference_worker.py --write-multimodal-train-reference <out.json>
     python tests/_torch_reference_worker.py --write-paper-cell-reference <out.json>
+    python tests/_torch_reference_worker.py --write-serve-reference <dir> [--smoke]
 
 The JAX package cannot import ``repro.models`` (and hence ``repro.core.fl``)
 under JAX 0.9.0: ``models/layers.py`` asks ``x not in
@@ -1966,6 +1967,255 @@ def write_paper_cell_reference(path: str) -> None:
         fh.write("\n")
 
 
+# chip_smoke.py's serving runs ([serve:*]): per record file, its runs as
+# (arch id, depth cut, the vlm's initial gates); every run serves batch 4,
+# a 32-token prompt and 16 tokens from seed 0 (SERVE_ARGV)
+SERVE_RECORDS = {
+    "mamba2_130m": (("mamba2-130m", None, None),),
+    "zamba2_7b": (("zamba2-7b", 6, None),),
+    "mixtral_8x22b": (("mixtral-8x22b", 2, None),),
+    "seamless_m4t_medium": (("seamless-m4t-medium", None, None),),
+    "llama_3_2_vision_90b": (("llama-3.2-vision-90b", 5, None),
+                             ("llama-3.2-vision-90b", 5, [0.5, -0.7])),
+}
+SERVE_ARGV = ["--batch", "4", "--prompt-len", "32", "--gen", "16",
+              "--seed", "0"]
+SERVE_TOP = 8            # the largest logits recorded per position
+SERVE_LOGIT_IDS = 64     # fixed ids recorded per position (serve_logit_ids)
+# leaves above this many elements are drawn this many at a time
+SERVE_CHUNK = 1 << 26
+
+
+def serve_logit_ids(vocab: int):
+    """``SERVE_LOGIT_IDS`` token ids spread evenly over ``[0, vocab)``,
+    both ends included."""
+    n = SERVE_LOGIT_IDS - 1
+    return sorted({(i * (vocab - 1)) // n for i in range(n + 1)})
+
+
+def _f32(v) -> float:
+    """A float32 value as the shortest decimal that reads back to it."""
+    import numpy as np
+
+    return float(str(np.float32(v)))
+
+
+def chunked_materialize(spec, key, chunk=SERVE_CHUNK):
+    """``params._materialize(spec, key)`` drawn ``chunk`` elements at
+    a time (:func:`sampled_materialize` over consecutive flat ranges): the
+    same array without the whole draw's transient buffers, which reach
+    ~16 bytes an element (a 1.6e9-element Mixtral leaf drawn whole takes
+    ~25 GB)."""
+    import jax.numpy as jnp
+    import numpy as np
+
+    n = int(np.prod(spec.shape))
+    if n <= chunk or spec.init in ("zeros", "ones"):
+        return _REAL_MATERIALIZE[0](spec, key)
+    out = np.empty(n, np.float32)
+    for lo in range(0, n, chunk):
+        hi = min(n, lo + chunk)
+        out[lo:hi] = sampled_materialize(spec, key, np.arange(lo, hi))
+    return jnp.asarray(out.reshape(spec.shape), jnp.dtype(spec.dtype))
+
+
+_REAL_MATERIALIZE = []
+
+
+@contextlib.contextmanager
+def _chunked_init(chunk=SERVE_CHUNK):
+    """The reference's ``init_params`` drawing every large leaf by
+    :func:`chunked_materialize`."""
+    import functools
+
+    from repro.models import params as P
+
+    _REAL_MATERIALIZE[:] = [P._materialize]
+    P._materialize = functools.partial(chunked_materialize, chunk=chunk)
+    try:
+        yield
+    finally:
+        P._materialize = _REAL_MATERIALIZE[0]
+
+
+def serve_record_run(arch, num_layers, gates, smoke):
+    """One serving run of the reference: ``repro.launch.serve.main`` on
+    ``arch`` (``--smoke`` where asked, the SMOKE config at the published
+    config's rope_theta, so that a non-default theta shows; depth cut to
+    ``num_layers`` by replacing ``serve.get_config`` with
+    ``dataclasses.replace(cfg, num_layers=n)``, as the reference's server
+    has no such flag; a vlm's gates set after init where given), then one
+    uncached ``module.forward`` over the prompts and the served tokens
+    (teacher forcing) read at the positions that predict each served
+    token.  Returns the record's run entry."""
+    import dataclasses
+
+    import jax.numpy as jnp
+    import numpy as np
+
+    from repro.launch import serve
+
+    argv = ["--arch", arch] + (["--smoke"] if smoke else []) + SERVE_ARGV
+    prompt_len, gen = 32, 16                      # SERVE_ARGV's
+    seen = {}
+    real_get, real_build = serve.get_config, serve.build_model
+    real_smoke = serve.get_smoke
+
+    def get_config(name):
+        return dataclasses.replace(real_get(name), num_layers=num_layers)
+
+    def get_smoke(name):
+        return dataclasses.replace(real_smoke(name),
+                                   rope_theta=real_get(name).rope_theta)
+
+    def build_model(cfg):
+        model = real_build(cfg)
+        module, real_fwd = model.module, model.module.forward
+        seen.update(model=model, module=module, forward=real_fwd)
+
+        def forward(params, tokens, cfg, **kw):
+            if "params" not in seen and kw.get("caches") is not None:
+                seen.update(params=params, prompts=tokens, kw={
+                    k: v for k, v in kw.items()
+                    if k in ("img_feats", "enc_out")})
+            return real_fwd(params, tokens, cfg, **kw)
+
+        module.forward = forward
+        return model
+
+    if num_layers:
+        serve.get_config = get_config
+    serve.get_smoke = get_smoke
+    serve.build_model = build_model
+    try:
+        with _gated_init(gates), _chunked_init():
+            tokens = np.asarray(serve.main(argv))
+    finally:
+        serve.get_config, serve.build_model = real_get, real_build
+        serve.get_smoke = real_smoke
+        if "module" in seen:
+            seen["module"].forward = seen["forward"]
+    cfg = seen["model"].cfg
+    prompts = np.asarray(seen["prompts"])
+    seq = jnp.concatenate([seen["prompts"], jnp.asarray(tokens[:, :-1])], 1)
+    out = seen["forward"](seen["params"], seq, cfg, remat=False, **seen["kw"])
+    logits = np.asarray(out[0][:, prompt_len - 1:prompt_len - 1 + gen,
+                               :cfg.vocab_size], np.float32)
+    del out, seen
+    logits = logits.transpose(1, 0, 2)            # (gen, batch, vocab)
+    order = np.argsort(-logits, axis=-1, kind="stable")[..., :SERVE_TOP]
+    top = np.take_along_axis(logits, order, -1)
+    ids = serve_logit_ids(cfg.vocab_size)
+    absmax = np.abs(logits).max(-1)
+    ulp = 2.0 ** (np.floor(np.log2(np.maximum(
+        absmax.astype(np.float64), np.finfo(np.float32).tiny))) - 7)
+    return {
+        "argv": argv, "gates": gates, "num_layers": cfg.num_layers,
+        "vocab_size": cfg.vocab_size,
+        "prompts": prompts.tolist(), "tokens": tokens.tolist(),
+        "positions": list(range(prompt_len - 1, prompt_len - 1 + gen)),
+        "top_ids": order.tolist(),
+        "top_values": [[[_f32(v) for v in r] for r in s] for s in top],
+        "ids": ids,
+        "values": [[[_f32(v) for v in r[ids]] for r in s] for s in logits],
+        "absmax": [[_f32(v) for v in s] for s in absmax],
+        "gap_ulps": ((top[..., 0].astype(np.float64) - top[..., 1]) / ulp
+                     ).tolist(),
+    }
+
+
+def write_serve_records(directory, names, smoke):
+    """The records of ``SERVE_RECORDS[name]`` for each of ``names``, one
+    ``serve_<name>.json`` each in ``directory`` (``--smoke``: the SMOKE
+    configs at the published rope_theta, no depth cut; their leaves are
+    never drawn in chunks, so the check of :func:`chunked_materialize`
+    against whole draws is left out)."""
+    import os
+
+    import jax
+    import numpy as np
+
+    from repro.models import params as P
+
+    key = jax.random.PRNGKey(0)
+    for probe in () if smoke else (
+            P.ParamSpec((3, 50, 999), (None,) * 3),
+            P.ParamSpec((500, 64), (None, None), init="embed")):
+        with _chunked_init(chunk=1 << 14):
+            got = np.asarray(P._materialize(probe, key))
+        assert np.array_equal(got, np.asarray(P._materialize(probe, key)))
+    for name in names:
+        runs = {}
+        for arch, layers, gates in SERVE_RECORDS[name]:
+            label = f"{arch}{'-gated' if gates else ''}"
+            runs[label] = serve_record_run(arch, None if smoke else layers,
+                                           gates, smoke)
+        record = {
+            "_command": ("PYTHONPATH=src JAX_PLATFORMS=cpu python "
+                         "tests/_torch_reference_worker.py "
+                         "--write-serve-reference tests/torch_reference"
+                         + (" --smoke" if smoke else "")),
+            "_what": (
+                "repro.launch.serve.main(argv) on the CPU (the config's "
+                "depth cut to num_layers where argv's model is deeper; a "
+                "vlm's gates set after init where 'gates' is given): "
+                "'prompts' and the greedy 'tokens' of the cached decode; "
+                "then one uncached module.forward over prompts + tokens[:, "
+                ":-1] (teacher forcing) read at 'positions', the positions "
+                "that predict each served token, over [:vocab_size]: per "
+                "(step, row) the top_ids / top_values (float32, ties by "
+                "the lower id), the values at the fixed 'ids', the row's "
+                "largest |logit| 'absmax' and the top-2 gap in bf16 ulps "
+                "of it (2^(floor(log2 absmax) - 7))"
+                + ("; Mixtral's sliding_window=4096 is never reached in "
+                   "these 48 positions, so nothing here holds it"
+                   if name == "mixtral_8x22b" else "")),
+            "model": name, "seed": 0, "runs": runs,
+        }
+        with open(os.path.join(directory, f"serve_{name}.json"), "w",
+                  encoding="utf-8") as fh:
+            json.dump(record, fh, sort_keys=True, separators=(",", ":"))
+            fh.write("\n")
+
+
+def write_serve_reference(argv) -> int:
+    """``--write-serve-reference DIR [--smoke] [--arch NAME]``: with
+    ``--smoke``, every SMOKE record in this process; with ``--arch``, that
+    record; else every full-width record, each in its own subprocess (one
+    model's arrays are freed before the next), printing each one's peak
+    RSS and seconds."""
+    import os
+    import resource
+    import subprocess
+    import time
+
+    directory = argv[0]
+    if "--smoke" in argv:
+        write_serve_records(directory, list(SERVE_RECORDS), True)
+        return 0
+    if "--arch" in argv:
+        t0 = time.time()
+        write_serve_records(directory, [argv[argv.index("--arch") + 1]],
+                            False)
+        peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 20
+        print(f"peak RSS {peak:.2f} GiB, {time.time() - t0:.1f} s",
+              flush=True)
+        return 0
+    for name in SERVE_RECORDS:
+        t0 = time.time()
+        proc = subprocess.Popen([sys.executable, __file__,
+                                 "--write-serve-reference", directory,
+                                 "--arch", name])
+        _, status, usage = os.wait4(proc.pid, 0)
+        proc.returncode = os.waitstatus_to_exitcode(status)
+        print(f"serve_{name}.json: peak RSS {usage.ru_maxrss / 2**20:.2f} "
+              f"GiB, {time.time() - t0:.1f} s, exit {proc.returncode}",
+              flush=True)
+        if proc.returncode:
+            return proc.returncode
+    return 0
+
+
 TASKS = {
     "lenet_grad": task_lenet_grad,
     "sgd_epoch": task_sgd_epoch,
@@ -2013,6 +2263,9 @@ def main(argv) -> int:
         apply_shim()
         write_paper_cell_reference(argv[2])
         return 0
+    if argv[1] == "--write-serve-reference":
+        apply_shim()
+        return write_serve_reference(argv[2:])
     if argv[1] == "--write-qwen2-reference":
         apply_shim()
         write_qwen2_reference(argv[2])
