@@ -183,10 +183,13 @@ package, and exits non-zero on the first failure.  Phases:
      (``[cpu-vs-card:families]``); the card's full-width Mamba2 weights
      and one batch's loss against tests/torch_reference/mamba2_130m.json
      (``[ref:mamba2-130m]``); ``launch.serve`` at the published widths
-     on Mamba2-130M, Zamba2-7B cut to 6 layers and Mixtral-8x22B cut to 2
-     (``[serve:*]``: initial weights held to the reference's recorded
-     elements; prompts, greedy tokens and one teacher-forced forward's
-     logits held to the reference's serving record,
+     on Mamba2-130M, Zamba2-7B cut to 6 layers, Mixtral-8x22B cut to 2,
+     and the dense family and Llama-4-Scout: Qwen2-0.5B whole (once at
+     init, once with its QKV biases drawn), Qwen3-8B cut to 4 layers,
+     Granite-34B cut to 2 and Llama-4-Scout-17B-16E cut to 2, the card's
+     memory freed between models (``[serve:*]``: initial weights held to
+     the reference's recorded elements; prompts, greedy tokens and one
+     teacher-forced forward's logits held to the reference's serving record,
      tests/torch_reference/serve_<arch>.json, by ``check_serve_record``:
      tokens equal through each row's first near-tie, logits within
      ``SERVE_LOGIT_ULPS``; steps after a near-tie divergence held to the
@@ -3401,7 +3404,18 @@ FAMILY_LOSS_RTOL = 5e-4     # tests/test_torch_families.py's loss bound
 TRAIN_LOSS_LIMITS = {"mamba2-130m": FAMILY_LOSS_RTOL,
                      "mixtral-8x22b-smoke": 4e-4}
 TRAIN_DRIFT_LIMITS = {"mamba2-130m": 3e-5}
-SERVE_RUNS = (("mamba2-130m", None), ("zamba2-7b", 6), ("mixtral-8x22b", 2))
+# the seeded draw that sets Qwen2-0.5B's QKV biases after init in
+# [serve:qwen2-0.5b-biased] (zero at init, where a forward that ignores
+# them reads the same): (seed, scale) of serve_bias_values, the worker's
+# QWEN2_BIASES
+QWEN2_BIASES = (31, 1.0)
+# [serve:*] of the family and dense phases: (arch, depth cut, what is set
+# after init: None, or the QKV biases' draw {"biases": (seed, scale)})
+SERVE_RUNS = (("mamba2-130m", None, None), ("zamba2-7b", 6, None),
+              ("mixtral-8x22b", 2, None), ("qwen2-0.5b", None, None),
+              ("qwen2-0.5b", None, {"biases": QWEN2_BIASES}),
+              ("qwen3-8b", 4, None), ("granite-34b", 2, None),
+              ("llama4-scout-17b-a16e", 2, None))
 SERVE_TIE_ULPS = 4          # tests/test_torch_launch.py's near-tie bound
 # [serve:*]'s teacher-forced logits against the reference's serving record
 # (tests/torch_reference/serve_<arch>.json), in bf16 ulps of each row's
@@ -3414,9 +3428,18 @@ SERVE_TIE_ULPS = 4          # tests/test_torch_launch.py's near-tie bound
 # Zamba2's shared block read at head_dim 128 (2.5), Mixtral at the default
 # rope_theta (3) or at one expert (4), SeamlessM4T's encoder a layer short
 # (2.625) or the vlm at the default rope_theta (2 / 2.375): ROADMAP.md
-# queue 3; tests/test_torch_serve_records.py rejects each at SMOKE
+# queue 3; tests/test_torch_serve_records.py rejects each at SMOKE.  The
+# dense family and Scout (PR 31): sound Qwen2-0.5B 1.5 / 1.188 with its
+# biases drawn, Qwen3-8B 1.5, Granite-34B 1, Scout 1; the last layer
+# dropped 23 / 26, 68.5, 181, 117; Qwen2's biases ignored against the
+# biased record 224.5, Qwen3 without qk-norm 140.5, Granite's K and V
+# swapped 313 and its rope over interleaved pairs 11.69, Scout without its
+# shared expert 247.5 (its chunked mask is never reached in 48 positions:
+# held at SMOKE)
 SERVE_LOGIT_ULPS = {"mamba2_130m": 8, "zamba2_7b": 8, "mixtral_8x22b": 8,
-                    "seamless_m4t_medium": 8, "llama_3_2_vision_90b": 8}
+                    "seamless_m4t_medium": 8, "llama_3_2_vision_90b": 8,
+                    "qwen2_0_5b": 8, "qwen3_8b": 8, "granite_34b": 8,
+                    "llama4_scout_17b_a16e": 8}
 CARD = ""                   # the card's name and power limit (nvidia-smi)
 
 
@@ -3754,13 +3777,16 @@ def check_serve_record(out, logits, record, run, limit):
     return got
 
 
-def run_serve_phase(arch, num_layers, gen=16, gates=None, checks=None):
+def run_serve_phase(arch, num_layers, gen=16, setting=None, checks=None):
     """``[serve:<arch>]``: ``launch.serve`` at the published widths (depth
     cut to ``num_layers`` where given), batch 4, prompt 32, 16 tokens, on
-    the card; a vlm's initial gates set to ``gates`` where given (its
-    cross layers are the identity at init).  The initial weights at the
-    record's indices equal the reference's (at init; ``checks(out)`` reads
-    the run's output further); the run is held against the reference's
+    the card; ``setting`` set after init where given (:func:`serve_init`:
+    a vlm's gates, whose cross layers are the identity at init, or a dense
+    model's QKV biases, zero at init).  The initial weights at the record's
+    indices equal the reference's (the serving record's own ``leaves``
+    where it has them, the served weights with the setting applied; else
+    the init record's, at init; ``checks(out)`` reads the run's output
+    further); the run is held against the reference's
     serving record by :func:`check_serve_record` (one uncached forward over
     the reference's sequence); where a row left the reference's tokens at
     a near-tie, the steps from there on are held against the plain
@@ -3777,12 +3803,12 @@ def run_serve_phase(arch, num_layers, gen=16, gates=None, checks=None):
             str(gen), "--device", "cuda"]
     if num_layers:
         argv += ["--num-layers", str(num_layers)]
-    run = f"{arch}{'-gated' if gates else ''}"
+    run = serve_run_label(arch, setting)
     label = f"[serve:{run}]"
     torch.cuda.reset_peak_memory_stats()
     counted, threefry.threefry_draw.launches = (
         threefry.threefry_draw.launches, 0)
-    with _gated_init(gates):
+    with serve_init(setting):
         out, wall = _timed(lambda: serve.run(argv))
     draws = threefry.threefry_draw.launches
     threefry.threefry_draw.launches = counted + draws
@@ -3793,7 +3819,10 @@ def run_serve_phase(arch, num_layers, gen=16, gates=None, checks=None):
     want_draws = _weight_draws(model.schema) + bool(extras)
     check(draws == want_draws, f"{label} {draws} Threefry launches, "
                                f"{want_draws} expected")
-    if gates is None:
+    served = serve_record(record_name(arch))["runs"][run]
+    if "leaves" in served:
+        _check_record_elements(params, served, label)
+    elif setting is None:
         record = _record(record_name(arch))
         check(record["num_layers"] == cfg.num_layers,
               f"{label} record has {record['num_layers']} layers")
@@ -3836,7 +3865,8 @@ def run_serve_phase(arch, num_layers, gen=16, gates=None, checks=None):
         f"(the initial draw included, {draws} Threefry launches), peak "
         f"{peak / 2**30:.2f} GiB; "
         + ("the record's initial elements equal the reference's; "
-           if gates is None else f"gates (attn, mlp) set to {gates}; ")
+           if setting is None or "leaves" in served else "")
+        + (f"{serve_setting_text(setting)}; " if setting else "")
         + f"against the reference's record: tokens equal through step "
         f"{start} (first near-tie: "
         + (f"step {tie}" if tie < gen else "none")
@@ -4111,8 +4141,8 @@ def run_family_phases(kernels):
     torch.cuda.empty_cache()
     compare_families_cpu_and_card(kernels)
     check_mamba2_reference()
-    for arch, num_layers in SERVE_RUNS:
-        run_serve_phase(arch, num_layers)
+    for arch, num_layers, setting in SERVE_RUNS:
+        run_serve_phase(arch, num_layers, setting=setting)
     with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as tmp:
         q_launches = run_train_phases(tmp)
     return errs + (q_launches,)
@@ -4169,6 +4199,63 @@ def _gated_init(gates):
         yield
     finally:
         registry.Model.init = real
+
+
+def serve_bias_values(shapes, seed, scale):
+    """The QKV biases a serving run sets after init, for ``shapes`` = the
+    shapes of (bq, bk, bv): standard normals of
+    ``np.random.default_rng(seed)`` in that order, float32, times
+    ``scale`` (the reference's record draws the same arrays)."""
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(tuple(shape), dtype=np.float32)
+            * np.float32(scale) for shape in shapes]
+
+
+@contextlib.contextmanager
+def serve_init(setting):
+    """``Model.init`` changed inside the block as a serving run's
+    ``setting`` asks: None, a vlm's gates (a list, :func:`_gated_init`),
+    or a dense model's stacked QKV biases set to :func:`serve_bias_values`
+    (``{"biases": (seed, scale)}``)."""
+    if not isinstance(setting, dict):
+        with _gated_init(setting):
+            yield
+        return
+    from repro_torch.models import registry
+
+    real = registry.Model.init
+    seed, scale = setting["biases"]
+
+    def init(model, key, *, device=None):
+        params = real(model, key, device=device)
+        attn = params["layers"]["attn"]
+        names = ("bq", "bk", "bv")
+        for name, value in zip(names, serve_bias_values(
+                [attn[n].shape for n in names], seed, scale)):
+            attn[name] = torch.from_numpy(value).to(attn[name].device)
+        return params
+
+    registry.Model.init = init
+    try:
+        yield
+    finally:
+        registry.Model.init = real
+
+
+def serve_run_label(arch, setting):
+    """A serving run's name: the arch id, ``-gated`` where a vlm's gates
+    are set, ``-biased`` where the QKV biases are."""
+    if isinstance(setting, dict):
+        return f"{arch}-biased"
+    return f"{arch}{'-gated' if setting else ''}"
+
+
+def serve_setting_text(setting):
+    """What ``setting`` sets after init, in words for a run's line."""
+    if isinstance(setting, dict):
+        return (f"QKV biases set to standard normals x {setting['biases'][1]}"
+                f" (seed {setting['biases'][0]})")
+    return f"gates (attn, mlp) set to {setting}"
 
 
 def _bf16_bits(x):
@@ -4443,7 +4530,7 @@ def run_multimodal_phases():
     checks = {"seamless-m4t-medium": check_seamless_reference,
               "llama-3.2-vision-90b": check_vision_reference}
     for arch, num_layers, gates in MULTIMODAL_SERVE_RUNS:
-        run_serve_phase(arch, num_layers, gates=gates,
+        run_serve_phase(arch, num_layers, setting=gates,
                         checks=None if gates else checks[arch])
     losses = run_train_phase("seamless-m4t-medium", [
         "--arch", "seamless-m4t-medium", "--steps", "20", "--batch", "8",

@@ -730,7 +730,7 @@ def run_horizon_vmapped(
     Each seed gets its own initial weights, channel draws, schedule, eval
     plan and receiver noise (``dataclasses.replace(cfg, seed=s)``); the
     client bank and test set are shared.  The seed axis folds into the
-    client rows (:func:`repro_torch.core.fl_engine._horizon_core`):
+    client rows (:func:`repro_torch.core.fl_engine.run_horizon_vmapped`):
     one local-SGD pass for all S*K rows per batch, and the dense rounds'
     S x 6 (seed, leaf) sums through kernel #1, up to 16 to a launch.
     Returns one :class:`FLResult` per seed, in order; row s is the program
@@ -751,7 +751,7 @@ def run_horizon_vmapped(
     eval_mask = _eval_mask(cfg.num_rounds, eval_every)
     params_s, dev_stk, bud, agg, gains, keys, eidx, nb = _stack_plans(
         plans, bank, dev)
-    final_s, log = fl_engine._horizon_core(
+    final_s, log = fl_engine.run_horizon_vmapped(
         params_s, dev_stk, bud, agg, gains, keys, eval_mask, eidx, bank,
         ebank, nb=nb, **_horizon_statics(cfg, plans[0].payload, cell, uplink),
     )
@@ -1047,7 +1047,7 @@ def _run_horizon_vmapped_online(dataset, shards, cell, cfg: FLConfig, cfgs,
     params_s, solo, gains, weights, sizes, keys, eidx = _stack_online_plans(
         plans, device)
     policy = scheduling.get_policy(cfg.scheduler)
-    final_s, log = fl_engine._online_horizon_core(
+    final_s, log = fl_engine.run_horizon_online_vmapped(
         params_s, solo, gains, weights, sizes, keys, eval_mask, eidx, bank,
         ebank, nb=bank.n_batches_for(range(cell.num_devices)),
         **_online_statics(cfg, cell, uplink, policy),

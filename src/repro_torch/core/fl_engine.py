@@ -34,7 +34,12 @@ Scheduling, power allocation, budgets, timing and logging stay in the
 horizons: :func:`_horizon_core` runs a host-planned schedule from device
 tensors, and :func:`_online_horizon_core` runs an online policy's
 selection, its closed-form powers, the rates and the bit budgets on the
-device, round by round, reading nothing back.
+device, round by round, reading nothing back.  Their entries are the
+reference's: :func:`run_horizon` and :func:`run_horizon_online` for one
+horizon, :func:`run_horizon_vmapped` and :func:`run_horizon_online_vmapped`
+for a seed sweep (S horizons folded into the client rows of one program),
+:func:`run_horizon_sharded` and :func:`run_horizon_online_sharded` for a
+cell sweep split across devices.
 """
 from __future__ import annotations
 
@@ -476,6 +481,22 @@ def run_horizon(params, dev_tk, budgets_tk, agg_tk, gains_tk, keys_t,
     return _run_of(final_s, 0), logs[0]
 
 
+def run_horizon_vmapped(params_s, dev_stk, budgets_stk, agg_stk, gains_stk,
+                        keys_st, eval_mask_t, eval_idx_stn, bank, ebank, *,
+                        nb, **statics):
+    """A whole seed sweep of S independent precomputed-schedule horizons,
+    one program (:func:`_horizon_core`, the seed axis folded into the
+    client rows): leading axis S on ``params_s``, the (S, T, K) plans, the
+    (S, T, 2) noise keys and the (S, T, n) eval plans (or ``None``); the
+    client bank, test set and eval cadence ``eval_mask_t`` are shared.
+    Row s is the program :func:`run_horizon` runs for that seed alone.
+    Returns ``(final params_s, log (S, T, 2K+1))`` on the device."""
+    return _horizon_core(
+        params_s, dev_stk, budgets_stk, agg_stk, gains_stk, keys_st,
+        eval_mask_t, eval_idx_stn, bank, ebank, nb=nb, **statics,
+    )
+
+
 def horizon_logs(logs: torch.Tensor):
     """A horizon log (..., T, 2K+1) -> host ``(bits, kept, acc)`` numpy
     arrays ((..., T, K) int32, (..., T, K) int32 or ``None`` where the
@@ -757,6 +778,22 @@ def run_horizon_online(params, solo_tm, gains_tm, weights_m, sizes_m,
         nb=nb, **statics,
     )
     return _run_of(final_s, 0), logs[0]
+
+
+def run_horizon_online_vmapped(params_s, solo_stm, gains_stm, weights_m,
+                               sizes_m, keys_st, eval_mask_t, eval_idx_stn,
+                               bank, ebank, *, nb, **statics):
+    """An online-policy seed sweep of S independent horizons, one program
+    (:func:`_online_horizon_core`): leading axis S on ``params_s``, the
+    (S, T, M) solo tables and gains, the (S, T, 2) noise keys and the
+    (S, T, n) eval plans (or ``None``); the (M,) data weights and shard
+    sizes, eval cadence, client bank and test set are shared.  Row s is
+    the program :func:`run_horizon_online` runs for that seed alone.
+    Returns ``(final params_s, log (S, T, 4K+1))`` on the device."""
+    return _online_horizon_core(
+        params_s, solo_stm, gains_stm, weights_m, sizes_m, keys_st,
+        eval_mask_t, eval_idx_stn, bank, ebank, nb=nb, **statics,
+    )
 
 
 def online_horizon_logs(logs: torch.Tensor):

@@ -8,8 +8,11 @@ rate ``log2(1 + SINR)`` (Eq. 6).  :func:`sinr`, :func:`rates` and
 :func:`bit_budget` take float32 tensors and compute in float32, as the
 reference's jnp functions do without x64 (``launch/train.py`` reads
 :func:`bit_budget`); their logs follow the rule of :func:`tdma_rates`
-below.  The reference's ``sic_order`` and ``weighted_sum_rate`` have no
-caller in the port yet.
+below.  :func:`sic_order` is the decode order alone, and
+:func:`weighted_sum_rate` one group's objective term (Eq. 8a), the sum of
+the weighted :func:`rates` added in input order (tests/test_torch_tdma.py
+holds both to the reference: the order exactly, ties included; the
+SINRs exactly, the rates within 2 ulp and their weighted sum within 4).
 
 ``tdma_rates`` is the port's copy of ``repro.core.noma.tdma_rates``.  The
 reference computes it with jnp ops outside any jit and without x64, so in
@@ -42,16 +45,47 @@ def _f32(x, like=None) -> torch.Tensor:
     return t if like is None else t.to(like.device)
 
 
+def _decode_order(rx: torch.Tensor) -> torch.Tensor:
+    """Indices of ``rx`` strongest first, ties in input order: the
+    reference's stable ``jnp.argsort(-rx)``, whose sort holds -0.0 equal
+    to 0.0 (a zero received power negates to -0.0, which a radix sort on
+    the card would put first)."""
+    key = -rx
+    return torch.argsort(torch.where(key == 0, 0.0, key), stable=True)
+
+
+def _suffix_sums(x: torch.Tensor) -> torch.Tensor:
+    """``x[i] + x[i+1] + ... + x[-1]`` for each i of a (K,) float32 tensor,
+    added one at a time from the end in float32: the reference's
+    ``cumsum(x[::-1])[::-1]``, which XLA's CPU runs as a sequential
+    reduce-window below 18 elements (a group is at most a few devices).
+    ``torch.cumsum`` accumulates float32 in float64 on the CPU, which rounds
+    the partial sums otherwise."""
+    out = torch.empty_like(x)
+    acc = torch.zeros((), dtype=x.dtype, device=x.device)
+    for i in range(x.shape[0] - 1, -1, -1):
+        acc = acc + x[i]
+        out[i] = acc
+    return out
+
+
+def sic_order(powers, gains) -> torch.Tensor:
+    """Decode order (indices into the group, strongest received power
+    p g^2 first, ties in input order), int64 (K,)."""
+    powers = _f32(powers)
+    gains = _f32(gains, powers)
+    return _decode_order(powers * (gains * gains))
+
+
 def sinr(powers, gains, noise_power: float) -> torch.Tensor:
     """Per-user SINR under SIC decoding, in the input user order, float32
     (K,): each user is interfered only by the users decoded after it."""
     powers = _f32(powers)
     gains = _f32(gains, powers)
     rx = powers * (gains * gains)
-    order = torch.argsort(-rx, stable=True)
+    order = _decode_order(rx)
     rx_sorted = rx[order]
-    tail = torch.flip(torch.cumsum(torch.flip(rx_sorted, (0,)), 0), (0,)) \
-        - rx_sorted
+    tail = _suffix_sums(rx_sorted) - rx_sorted
     # tensor by tensor: the reference's quotient, correctly rounded
     sinr_sorted = rx_sorted / (tail + torch.full_like(tail, noise_power))
     out = torch.zeros_like(sinr_sorted)
@@ -71,6 +105,20 @@ def bit_budget(powers, gains, noise_power: float, bandwidth_hz: float,
     r = rates(powers, gains, noise_power)
     return r * float(np.float32(bandwidth_hz)) * float(np.float32(
         slot_seconds))
+
+
+def weighted_sum_rate(powers, gains, weights, noise_power: float
+                      ) -> torch.Tensor:
+    """Objective inner term sum_k w_k R_k for one NOMA group (Eq. 8a), a
+    float32 0-d tensor.  The products are summed one after another in
+    input order, as XLA's CPU reduction of a short vector does
+    (``torch.sum`` adds in another order)."""
+    rates_k = rates(powers, gains, noise_power)
+    terms = _f32(weights, rates_k) * rates_k
+    total = torch.zeros((), dtype=torch.float32, device=terms.device)
+    for term in terms:
+        total = total + term
+    return total
 
 
 def tdma_rates(powers, gains, noise_power: float):

@@ -46,7 +46,9 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
-from typing import Callable, NamedTuple, Sequence
+from typing import (
+    Any, Callable, NamedTuple, Protocol, Sequence, runtime_checkable,
+)
 
 import numpy as np
 import torch
@@ -113,6 +115,26 @@ def score_subsets(
     w = weights_m[subsets_vk]
     p = _batched_powers(power_fn, g, w)
     return rates_lib.batched_weighted_rates(p, g, w, noise_power)
+
+
+def group_weighted_rate(
+    subset: Sequence[int],
+    t: int,
+    gains_tm: np.ndarray,
+    weights_m: np.ndarray,
+    power_fn: PowerFn,
+    noise_power: float,
+):
+    """Weighted sum rate (and powers, rates) of scheduling ``subset`` at
+    round t: ``(float, powers (K,), rates (K,))``, numpy float64 through
+    :func:`repro_torch.core.rates.sic_rates`, the per-subset form of
+    :func:`score_subsets`."""
+    idx = np.asarray(subset, dtype=np.intp)
+    g = gains_tm[t, idx]
+    w = weights_m[idx]
+    p = power_fn(g, w)
+    rates = rates_lib.sic_rates(p, g, noise_power)
+    return float(np.sum(w * rates)), p, rates
 
 
 def validate_group(group, num_devices: int, k: int, *, label: str = "group"):
@@ -834,7 +856,45 @@ def _norm_estimates_traced(obs: TracedObservation, cold_start: float):
                        default)
 
 
-_REGISTRY: "dict[str, type]" = {}
+@runtime_checkable
+class SchedulerPolicy(Protocol):
+    """The scheduling policy protocol, the reference's.
+
+    ``online`` declares whether ``select_round`` reads FL state from the
+    :class:`Observation` (live mode inside the training loop) or replays a
+    precomputed plan; ``respects_c1`` whether the policy schedules each
+    device at most once over the horizon (the paper's C1).  Online
+    policies may also declare ``needs_norms`` (default True): False tells
+    the FL loop not to compute the update norms the policy never reads.
+
+    Online policies that run inside the scanned horizon implement the
+    traced protocol on top (``traced_protocol = True``):
+
+        aux = policy.init_traced(gains_tm, weights_m, cfg)   # host, once
+        dev, mask = policy.select_round_traced(
+            t, solo_m, gains_m, weights_m, obs, cfg)         # on tensors
+
+    ``init_traced`` returns the host float32 (T, M) weighted solo-rate
+    table (computed in float64, cast once); ``select_round_traced`` takes
+    that table's round-t rows, the round's gains and a
+    :class:`TracedObservation`, all with a leading run axis, and returns
+    (S, K) int64 device ids with (S, K) bool validity masks (lanes masked
+    False are padding: the engine drops their scatter updates and zeroes
+    their aggregation weights), reading nothing back from the device.
+    """
+
+    name: str
+    online: bool
+    respects_c1: bool
+
+    def init_state(self, gains_tm: np.ndarray, weights_m: np.ndarray,
+                   cfg: "PolicyConfig") -> Any: ...
+
+    def select_round(self, t: int, state: Any,
+                     obs: "Observation") -> "tuple[tuple, Any]": ...
+
+
+_REGISTRY: "dict[str, type[SchedulerPolicy]]" = {}
 
 
 def register_policy(name: str):
@@ -854,7 +914,7 @@ def register_policy(name: str):
     return deco
 
 
-def get_policy(name: str, **options):
+def get_policy(name: str, **options) -> SchedulerPolicy:
     """Instantiate the policy registered under ``name``.
 
     ``options`` are forwarded to the policy constructor.
@@ -891,7 +951,7 @@ def policy_is_traced(name: str) -> bool:
 
 
 def build_schedule(
-    policy, gains_tm, weights_m, cfg: PolicyConfig
+    policy: SchedulerPolicy, gains_tm, weights_m, cfg: PolicyConfig
 ) -> Schedule:
     """Drive any policy over the whole horizon and finalize the result.
 
@@ -938,7 +998,7 @@ def build_schedule(
     return sched
 
 
-class _PrecomputedPolicy:
+class _PrecomputedPolicy(SchedulerPolicy):
     """Base for offline policies: plan the whole horizon in ``init_state``
     (selection depends only on channel realizations), replay per round."""
 
@@ -1016,7 +1076,7 @@ class ProportionalFairPolicy(_PrecomputedPolicy):
         )
 
 
-class _ScoreTopKPolicy:
+class _ScoreTopKPolicy(SchedulerPolicy):
     """Base for the top-K online policies: rank all devices by a per-round
     score and take the top K (stable sort, ties to the lower device id).
     Subclasses implement ``_score(t, solo, obs) -> (M,)``, where ``solo`` is
@@ -1123,7 +1183,7 @@ class AgeFairPolicy(_ScoreTopKPolicy):
 
 
 @register_policy("matching-pursuit")
-class MatchingPursuitPolicy:
+class MatchingPursuitPolicy(SchedulerPolicy):
     """Greedy residual-error device selection for over-the-air aggregation.
 
     The analog PS estimate misses the updates of unscheduled devices and

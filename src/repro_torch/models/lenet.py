@@ -18,6 +18,17 @@ LAYERS = (("fc1", 784, 300), ("fc2", 300, 100), ("fc3", 100, 10))
 NUM_PARAMS = sum(i * o + o for _, i, o in LAYERS)   # 266,610
 
 
+def schema(cfg=None, *, shards: int = 1):
+    """The parameter tree's specs, the reference's: (in, out) weights of
+    the default ``normal`` init and zero biases (``cfg`` and ``shards``
+    are read by no LeNet leaf; they keep the families' signature)."""
+    from repro_torch.models.params import ParamSpec
+
+    return {name: {"w": ParamSpec((fan_in, fan_out), (None, None)),
+                   "b": ParamSpec((fan_out,), (None,), init="zeros")}
+            for name, fan_in, fan_out in LAYERS}
+
+
 def forward(params, x: torch.Tensor) -> torch.Tensor:
     """x: (..., B, 784) -> logits (..., B, 10); params may carry the same
     leading client axis as x."""
@@ -28,6 +39,15 @@ def forward(params, x: torch.Tensor) -> torch.Tensor:
         if i < len(LAYERS) - 1:
             h = torch.relu(h)
     return h
+
+
+def loss_fn(params, batch) -> torch.Tensor:
+    """Mean cross-entropy of ``forward(params, batch["x"])`` against the
+    integer labels ``batch["y"]``."""
+    logits = forward(params, batch["x"])
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, batch["y"].long().unsqueeze(-1))[..., 0]
+    return torch.mean(logz - gold)
 
 
 def accuracy(params, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

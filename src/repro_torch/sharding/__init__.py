@@ -14,6 +14,8 @@ from repro_torch.sharding.rules import (
     translate,
 )
 from repro_torch.sharding.vertex import (
+    VERTEX_AXIS,
     max_vertex_shards,
     pad_rows_to_multiple,
+    vertex_devices,
 )

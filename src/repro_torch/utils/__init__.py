@@ -4,7 +4,8 @@ from repro_torch.utils.tree import (
     tree_count,
     tree_flatten_with_paths,
     tree_global_norm,
+    tree_zeros_like,
 )
 
 __all__ = ["tree_bytes", "tree_count", "tree_flatten_with_paths",
-           "tree_global_norm"]
+           "tree_global_norm", "tree_zeros_like"]

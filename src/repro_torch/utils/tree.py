@@ -35,6 +35,12 @@ def tree_bytes(tree) -> int:
     return sum(_size(x) * _itemsize(x) for x in tree_lib.tree_flatten(tree)[0])
 
 
+def tree_zeros_like(tree):
+    """A tree of zero tensors shaped as ``tree``'s, each leaf keeping its
+    dtype and device."""
+    return tree_lib.tree_map(torch.zeros_like, tree)
+
+
 def tree_global_norm(tree) -> torch.Tensor:
     """sqrt of the sum over leaves of each leaf's float32 sum of squares."""
     leaves = tree_lib.tree_flatten(tree)[0]

@@ -41,7 +41,8 @@ import types
 TESTS = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(TESTS)
 NAMES = ("mamba2_130m", "zamba2_7b", "mixtral_8x22b", "seamless_m4t_medium",
-         "llama_3_2_vision_90b")
+         "llama_3_2_vision_90b", "qwen2_0_5b", "qwen3_8b", "granite_34b",
+         "llama4_scout_17b_a16e")
 
 
 def _slice(tree, index):
@@ -96,15 +97,44 @@ def _with_cfg(model, **changes):
         cfg=dataclasses.replace(model.cfg, **changes), module=model.module)
 
 
-def wrong_runs(name, model, params, extras, gates=None):
+def swapped_kv(params):
+    """Dense params with the K and V projections exchanged."""
+    attn = dict(params["layers"]["attn"])
+    attn["wk"], attn["wv"] = attn["wv"], attn["wk"]
+    return dict(params, layers=dict(params["layers"], attn=attn))
+
+
+def interleaved_rope(params):
+    """Dense params whose Q and K head dimensions are reordered so that
+    the model's rope, which rotates the two halves of a head, rotates
+    neighbouring pairs instead (the other rope convention): dimension
+    2i goes to i and 2i + 1 to half + i."""
+    import torch
+
+    attn = dict(params["layers"]["attn"])
+    hd = attn["wq"].shape[-1]
+    perm = torch.cat([torch.arange(0, hd, 2), torch.arange(1, hd, 2)])
+    for k in ("wq", "wk"):
+        attn[k] = attn[k][..., perm]
+    return dict(params, layers=dict(params["layers"], attn=attn))
+
+
+def wrong_runs(name, model, params, extras, setting=None, seq_len=None):
     """The wrong runs read beside ``name``'s sound run, as (label, model,
     params, extras): the last layer dropped (:func:`drop_last_layer`), and
     one change of the model's own: Mamba2's D skip term zeroed, Zamba2's
     shared attention block read with head_dim 128 (28 heads), Mixtral at
     the default rope_theta and at one expert a token, SeamlessM4T's
     encoder output from one layer fewer, Llama-3.2-Vision at the default
-    rope_theta and, against the gated record, with its gates left at
-    0."""
+    rope_theta and, against the gated record, with its gates left at 0;
+    Qwen2-0.5B's QKV biases ignored (where the run's ``setting`` sets
+    them, ``{"biases": ...}``), Qwen3-8B without its qk-norm,
+    Granite-34B with its K and V projections swapped (its one K/V head
+    serves all 48 query heads, so no grouping of heads can be wrong) or
+    its rope over interleaved pairs (:func:`interleaved_rope`),
+    Llama-4-Scout without its shared expert and,
+    where ``seq_len`` crosses its attention_chunk, with the chunked mask
+    ignored."""
     import torch
 
     from repro_torch.config import ModelConfig
@@ -145,13 +175,52 @@ def wrong_runs(name, model, params, extras, gates=None):
             memory = encdec.encode(enc, extras["feats"], short)
         out.append(("encoder's last layer dropped", model, params,
                     dict(extras, enc_out=memory)))
-    if gates:
+    if name == "qwen2_0_5b" and isinstance(setting, dict):
+        out.append(("QKV biases ignored", _with_cfg(model, qkv_bias=False),
+                    params, extras))
+    if name == "qwen3_8b":
+        out.append(("qk-norm left out", _with_cfg(model, qk_norm=False),
+                    params, extras))
+    if name == "granite_34b":
+        out.append(("K and V projections swapped", model, swapped_kv(params),
+                    extras))
+        out.append(("rope over interleaved pairs", model,
+                    interleaved_rope(params), extras))
+    if name == "llama4_scout_17b_a16e":
+        out.append(("shared expert left out",
+                    _with_cfg(model, moe_shared_expert=False), params,
+                    extras))
+        if seq_len and seq_len > cfg.attention_chunk:
+            out.append(("chunked mask ignored",
+                        _with_cfg(model, attention_chunk=None), params,
+                        extras))
+    if isinstance(setting, list):
         cross = dict(params["cross_layers"])
         for k in ("gate_attn", "gate_mlp"):
             cross[k] = torch.zeros_like(cross[k])
         out.append(("gates left at 0", model,
                     dict(params, cross_layers=cross), extras))
     return out
+
+
+def run_setting(want):
+    """What a record's run sets after init: its QKV biases' draw
+    (``{"biases": (seed, scale)}``), a vlm's gates, or None."""
+    if "biases" in want:
+        return {"biases": tuple(want["biases"])}
+    return want["gates"]
+
+
+def smoke_argv(arch):
+    """The port's CPU serve argv of ``arch``'s SMOKE run, at the prompt
+    length the worker's SMOKE record serves."""
+    sys.path.insert(0, TESTS)
+    import _torch_reference_worker as worker
+
+    argv = ["--arch", arch, "--smoke", "--device", "cpu"]
+    if arch in worker.SERVE_SMOKE_PROMPT:
+        argv += ["--prompt-len", str(worker.SERVE_SMOKE_PROMPT[arch])]
+    return argv
 
 
 def _reference_params(schema, record):
@@ -244,6 +313,9 @@ def measure(name):
     record = chip_smoke.serve_record(name)
     init_path = os.path.join(TESTS, "torch_reference", f"{name}.json")
     init = chip_smoke._record(name) if os.path.exists(init_path) else None
+    first = next(iter(record["runs"].values()))
+    if "leaves" in first:       # the served shapes' own init elements
+        init = first
     params = None
     for run, want in record["runs"].items():
         argv = want["argv"]
@@ -253,13 +325,26 @@ def measure(name):
         t0 = time.time()
         if params is None:
             params = _reference_params(model.schema, init)
-        gates = want["gates"]
+        setting = run_setting(want)
         run_params = params
-        if gates:
+        if isinstance(setting, list):
             cross = dict(params["cross_layers"])
-            for k, v in zip(("gate_attn", "gate_mlp"), gates):
+            for k, v in zip(("gate_attn", "gate_mlp"), setting):
                 cross[k] = torch.full_like(cross[k], v)
             run_params = dict(params, cross_layers=cross)
+        if isinstance(setting, dict):
+            attn = dict(params["layers"]["attn"])
+            names = ("bq", "bk", "bv")
+            for k, v in zip(names, chip_smoke.serve_bias_values(
+                    [attn[n].shape for n in names], *setting["biases"])):
+                attn[k] = torch.from_numpy(v)
+            run_params = dict(params, layers=dict(params["layers"],
+                                                  attn=attn))
+            for k in names:
+                want_leaf = want["leaves"][f"layers/attn/{k}"]
+                assert np.array_equal(
+                    attn[k].reshape(-1)[want_leaf["index"]].numpy(),
+                    np.asarray(want_leaf["values"], np.float32)), k
         key = prng.prng_key(0)
         prompts = prng.randint(prng.fold_in(key, 1), (4, 32), 0,
                                cfg.vocab_size, device="cpu")
@@ -282,7 +367,7 @@ def measure(name):
               f"the least", flush=True)
         ref_tokens = torch.tensor(want["tokens"])
         for label, wmodel, wparams, wextras in wrong_runs(
-                name, model, run_params, extras, gates):
+                name, model, run_params, extras, setting, seq_len=48):
             wserving = {k: v for k, v in wextras.items() if k != "feats"}
             logits = chip_smoke.teacher_forced_logits(wmodel, wparams, want,
                                                       wserving)
@@ -334,8 +419,7 @@ def measure_smoke():
 
     from repro_torch.launch import serve
 
-    runs = [(a, n, None) for a, n in chip_smoke.SERVE_RUNS]
-    runs += list(chip_smoke.MULTIMODAL_SERVE_RUNS)
+    runs = list(chip_smoke.SERVE_RUNS) + list(chip_smoke.MULTIMODAL_SERVE_RUNS)
     with tempfile.TemporaryDirectory() as tmp:
         env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
                    JAX_PLATFORMS="cpu")
@@ -348,13 +432,12 @@ def measure_smoke():
                       encoding="utf-8") as fh:
                 records[name] = json.load(fh)
     outs = {}
-    for arch, _, gates in runs:
-        run = f"{arch}{'-gated' if gates else ''}"
+    for arch, _, setting in runs:
+        run = chip_smoke.serve_run_label(arch, setting)
         want = records[chip_smoke.record_name(arch)]["runs"][run]
-        with chip_smoke._gated_init(gates), published_theta(), \
+        with chip_smoke.serve_init(setting), published_theta(), \
                 contextlib.redirect_stdout(io.StringIO()):
-            out = outs[run] = serve.run(["--arch", arch, "--smoke",
-                                         "--device", "cpu"])
+            out = outs[run] = serve.run(smoke_argv(arch))
         logits = chip_smoke.teacher_forced_logits(
             out["model"], out["params"], want, out["extras"])
         got = chip_smoke.serve_readings(out["tokens"], out["prompts"],
@@ -368,7 +451,7 @@ def measure_smoke():
             extras["feats"] = smoke_frames(out["model"].cfg)
         for label, model, params, wextras in wrong_runs(
                 chip_smoke.record_name(arch), out["model"], out["params"],
-                extras, gates):
+                extras, setting, seq_len=want["positions"][-1] + 2):
             logits = chip_smoke.teacher_forced_logits(
                 model, params, want,
                 {k: v for k, v in wextras.items() if k != "feats"})

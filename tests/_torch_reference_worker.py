@@ -113,6 +113,27 @@ def task_lenet_grad(spec, arrays):
     return out
 
 
+def task_lenet_parts(spec, arrays):
+    """``repro.models.lenet``'s ``schema`` (per leaf its shape, axes,
+    init, scale and dtype) and ``loss_fn`` of the weights ``p/...`` on the
+    batch ``x``, ``y``."""
+    import jax.numpy as jnp
+    import numpy as np
+
+    from repro.models import lenet
+    from repro.utils.tree import tree_flatten_with_paths
+
+    out = {}
+    for path, leaf in tree_flatten_with_paths(lenet.schema()):
+        out[f"schema/{path}"] = np.asarray(json.dumps(
+            [list(leaf.shape), list(leaf.axes), leaf.init, leaf.scale,
+             leaf.dtype]))
+    params = _params_from_arrays(arrays, "p/")
+    out["loss"] = np.asarray(lenet.loss_fn(params, {
+        "x": jnp.asarray(arrays["x"]), "y": jnp.asarray(arrays["y"])}))
+    return out
+
+
 def task_sgd_epoch(spec, arrays):
     """fl_engine.sgd_epoch over one client's (nb, bs, D) padded shard."""
     import jax.numpy as jnp
@@ -1967,9 +1988,15 @@ def write_paper_cell_reference(path: str) -> None:
         fh.write("\n")
 
 
+# the seeded draw that sets a dense model's QKV biases after init (they
+# start at zero, where a forward that ignores them reads the same):
+# (seed, scale) of serve_bias_values
+QWEN2_BIASES = (31, 1.0)
 # chip_smoke.py's serving runs ([serve:*]): per record file, its runs as
-# (arch id, depth cut, the vlm's initial gates); every run serves batch 4,
-# a 32-token prompt and 16 tokens from seed 0 (SERVE_ARGV)
+# (arch id, depth cut, what is set after init: a vlm's gates (attn, mlp)
+# as a list, or the QKV biases' draw as {"biases": (seed, scale)});
+# every run serves batch 4, a 32-token prompt and 16 tokens from seed 0
+# (SERVE_ARGV)
 SERVE_RECORDS = {
     "mamba2_130m": (("mamba2-130m", None, None),),
     "zamba2_7b": (("zamba2-7b", 6, None),),
@@ -1977,9 +2004,22 @@ SERVE_RECORDS = {
     "seamless_m4t_medium": (("seamless-m4t-medium", None, None),),
     "llama_3_2_vision_90b": (("llama-3.2-vision-90b", 5, None),
                              ("llama-3.2-vision-90b", 5, [0.5, -0.7])),
+    "qwen2_0_5b": (("qwen2-0.5b", None, None),
+                   ("qwen2-0.5b", None, {"biases": QWEN2_BIASES})),
+    "qwen3_8b": (("qwen3-8b", 4, None),),
+    "granite_34b": (("granite-34b", 2, None),),
+    "llama4_scout_17b_a16e": (("llama4-scout-17b-a16e", 2, None),),
 }
+# the records that also hold the served model's initial weights at
+# sample_indices ('leaves'): these models have no init record of their
+# own at the served shapes
+SERVE_INIT_LEAVES = ("qwen2_0_5b", "qwen3_8b", "granite_34b",
+                     "llama4_scout_17b_a16e")
 SERVE_ARGV = ["--batch", "4", "--prompt-len", "32", "--gen", "16",
               "--seed", "0"]
+# SMOKE runs served with a longer prompt: Llama-4-Scout's SMOKE
+# attention_chunk is 64, so 72 + 16 positions cross a chunk boundary
+SERVE_SMOKE_PROMPT = {"llama4-scout-17b-a16e": 72}
 SERVE_TOP = 8            # the largest logits recorded per position
 SERVE_LOGIT_IDS = 64     # fixed ids recorded per position (serve_logit_ids)
 # leaves above this many elements are drawn this many at a time
@@ -2038,16 +2078,94 @@ def _chunked_init(chunk=SERVE_CHUNK):
         P._materialize = _REAL_MATERIALIZE[0]
 
 
-def serve_record_run(arch, num_layers, gates, smoke):
+def serve_bias_values(shapes, seed, scale):
+    """The QKV biases set after init, for ``shapes`` = the shapes of
+    (bq, bk, bv): standard normals of ``np.random.default_rng(seed)`` in
+    that order, float32, times ``scale``.  chip_smoke.py's
+    ``serve_bias_values`` draws the same arrays."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(tuple(shape), dtype=np.float32)
+            * np.float32(scale) for shape in shapes]
+
+
+def _set_biases(params, seed, scale):
+    """A dense parameter tree with its stacked QKV biases set to
+    :func:`serve_bias_values`."""
+    import jax.numpy as jnp
+
+    attn = dict(params["layers"]["attn"])
+    names = ("bq", "bk", "bv")
+    for name, value in zip(names, serve_bias_values(
+            [attn[n].shape for n in names], seed, scale)):
+        attn[name] = jnp.asarray(value, attn[name].dtype)
+    return dict(params, layers=dict(params["layers"], attn=attn))
+
+
+@contextlib.contextmanager
+def _serve_init(setting):
+    """``repro.models.registry.Model.init`` changed as a serving run's
+    ``setting`` asks: a vlm's gates (a list, :func:`_gated_init`), or a
+    dense model's QKV biases (``{"biases": (seed, scale)}``)."""
+    if not isinstance(setting, dict):
+        with _gated_init(setting):
+            yield
+        return
+    from repro.models import registry
+
+    real = registry.Model.init
+    seed, scale = setting["biases"]
+
+    def init(self, key):
+        return _set_biases(real(self, key), seed, scale)
+
+    registry.Model.init = init
+    try:
+        yield
+    finally:
+        registry.Model.init = real
+
+
+def serve_run_label(arch, setting):
+    """A serving run's name: the arch id, ``-gated`` where a vlm's gates
+    are set, ``-biased`` where the QKV biases are."""
+    if isinstance(setting, dict):
+        return f"{arch}-biased"
+    return f"{arch}{'-gated' if setting else ''}"
+
+
+def _init_leaves(params):
+    """Per leaf of ``params``: its shape and its float32 elements at
+    :func:`sample_indices`."""
+    import numpy as np
+
+    from repro.utils.tree import tree_flatten_with_paths
+
+    leaves = {}
+    for path, leaf in tree_flatten_with_paths(params):
+        flat = np.asarray(leaf).reshape(-1)
+        ix = sample_indices(flat.size)
+        leaves[path] = {"shape": [int(d) for d in leaf.shape],
+                        "index": [int(i) for i in ix],
+                        "values": [_f32(v) for v in
+                                   flat[ix].astype(np.float32)]}
+    return leaves
+
+
+def serve_record_run(arch, num_layers, setting, smoke, leaves=False):
     """One serving run of the reference: ``repro.launch.serve.main`` on
     ``arch`` (``--smoke`` where asked, the SMOKE config at the published
-    config's rope_theta, so that a non-default theta shows; depth cut to
-    ``num_layers`` by replacing ``serve.get_config`` with
+    config's rope_theta, so that a non-default theta shows, and at the
+    prompt length of SERVE_SMOKE_PROMPT where it names the arch; depth cut
+    to ``num_layers`` by replacing ``serve.get_config`` with
     ``dataclasses.replace(cfg, num_layers=n)``, as the reference's server
-    has no such flag; a vlm's gates set after init where given), then one
-    uncached ``module.forward`` over the prompts and the served tokens
-    (teacher forcing) read at the positions that predict each served
-    token.  Returns the record's run entry."""
+    has no such flag; a vlm's gates or a dense model's QKV biases set after
+    init as ``setting`` asks, :func:`_serve_init`), then one uncached
+    ``module.forward`` over the prompts and the served tokens (teacher
+    forcing) read at the positions that predict each served token.  Returns
+    the record's run entry; with ``leaves``, it also holds the served
+    weights at sample_indices (:func:`_init_leaves`)."""
     import dataclasses
 
     import jax.numpy as jnp
@@ -2056,7 +2174,10 @@ def serve_record_run(arch, num_layers, gates, smoke):
     from repro.launch import serve
 
     argv = ["--arch", arch] + (["--smoke"] if smoke else []) + SERVE_ARGV
-    prompt_len, gen = 32, 16                      # SERVE_ARGV's
+    if smoke and arch in SERVE_SMOKE_PROMPT:
+        argv[argv.index("--prompt-len") + 1] = str(SERVE_SMOKE_PROMPT[arch])
+    prompt_len = int(argv[argv.index("--prompt-len") + 1])
+    gen = int(argv[argv.index("--gen") + 1])
     seen = {}
     real_get, real_build = serve.get_config, serve.build_model
     real_smoke = serve.get_smoke
@@ -2088,7 +2209,7 @@ def serve_record_run(arch, num_layers, gates, smoke):
     serve.get_smoke = get_smoke
     serve.build_model = build_model
     try:
-        with _gated_init(gates), _chunked_init():
+        with _serve_init(setting), _chunked_init():
             tokens = np.asarray(serve.main(argv))
     finally:
         serve.get_config, serve.build_model = real_get, real_build
@@ -2097,6 +2218,7 @@ def serve_record_run(arch, num_layers, gates, smoke):
             seen["module"].forward = seen["forward"]
     cfg = seen["model"].cfg
     prompts = np.asarray(seen["prompts"])
+    init = _init_leaves(seen["params"]) if leaves else None
     seq = jnp.concatenate([seen["prompts"], jnp.asarray(tokens[:, :-1])], 1)
     out = seen["forward"](seen["params"], seq, cfg, remat=False, **seen["kw"])
     logits = np.asarray(out[0][:, prompt_len - 1:prompt_len - 1 + gen,
@@ -2109,8 +2231,9 @@ def serve_record_run(arch, num_layers, gates, smoke):
     absmax = np.abs(logits).max(-1)
     ulp = 2.0 ** (np.floor(np.log2(np.maximum(
         absmax.astype(np.float64), np.finfo(np.float32).tiny))) - 7)
-    return {
-        "argv": argv, "gates": gates, "num_layers": cfg.num_layers,
+    entry = {
+        "argv": argv, "gates": None if isinstance(setting, dict) else setting,
+        "num_layers": cfg.num_layers,
         "vocab_size": cfg.vocab_size,
         "prompts": prompts.tolist(), "tokens": tokens.tolist(),
         "positions": list(range(prompt_len - 1, prompt_len - 1 + gen)),
@@ -2122,6 +2245,22 @@ def serve_record_run(arch, num_layers, gates, smoke):
         "gap_ulps": ((top[..., 0].astype(np.float64) - top[..., 1]) / ulp
                      ).tolist(),
     }
+    if isinstance(setting, dict):
+        entry["biases"] = list(setting["biases"])
+    if init is not None:
+        entry["leaves"] = init
+    return entry
+
+
+_SERVE_WHAT = {
+    "mixtral_8x22b": "; Mixtral's sliding_window=4096 is never reached in "
+                     "these 48 positions, so nothing here holds it",
+    "llama4_scout_17b_a16e": (
+        "; Llama-4-Scout's attention_chunk=8192 is never reached in these "
+        "48 positions, so nothing here holds the chunked mask: the SMOKE "
+        "record (attention_chunk 64) serves a 72-token prompt, whose 88 "
+        "positions cross it"),
+}
 
 
 def write_serve_records(directory, names, smoke):
@@ -2146,10 +2285,10 @@ def write_serve_records(directory, names, smoke):
         assert np.array_equal(got, np.asarray(P._materialize(probe, key)))
     for name in names:
         runs = {}
-        for arch, layers, gates in SERVE_RECORDS[name]:
-            label = f"{arch}{'-gated' if gates else ''}"
-            runs[label] = serve_record_run(arch, None if smoke else layers,
-                                           gates, smoke)
+        for arch, layers, setting in SERVE_RECORDS[name]:
+            runs[serve_run_label(arch, setting)] = serve_record_run(
+                arch, None if smoke else layers, setting, smoke,
+                leaves=name in SERVE_INIT_LEAVES)
         record = {
             "_command": ("PYTHONPATH=src JAX_PLATFORMS=cpu python "
                          "tests/_torch_reference_worker.py "
@@ -2167,9 +2306,12 @@ def write_serve_records(directory, names, smoke):
                 "the lower id), the values at the fixed 'ids', the row's "
                 "largest |logit| 'absmax' and the top-2 gap in bf16 ulps "
                 "of it (2^(floor(log2 absmax) - 7))"
-                + ("; Mixtral's sliding_window=4096 is never reached in "
-                   "these 48 positions, so nothing here holds it"
-                   if name == "mixtral_8x22b" else "")),
+                + ("; a run with 'biases' (seed, scale) has its QKV biases "
+                   "set after init to serve_bias_values (standard normals "
+                   "of numpy's default_rng(seed), bq, bk, bv in turn, times "
+                   "scale); 'leaves' holds the served weights at "
+                   "sample_indices" if name in SERVE_INIT_LEAVES else "")
+                + ("" if smoke else _SERVE_WHAT.get(name, ""))),
             "model": name, "seed": 0, "runs": runs,
         }
         with open(os.path.join(directory, f"serve_{name}.json"), "w",
@@ -2218,6 +2360,7 @@ def write_serve_reference(argv) -> int:
 
 TASKS = {
     "lenet_grad": task_lenet_grad,
+    "lenet_parts": task_lenet_parts,
     "sgd_epoch": task_sgd_epoch,
     "init_params": task_init_params,
     "fl_run": task_fl_run,

@@ -121,6 +121,37 @@ def test_mapel_exact(k):
                                   ref_power.max_power(gains[0], pmax))
 
 
+@pytest.mark.parametrize("power_mode", ["max", "mapel", "ota-align"])
+@pytest.mark.parametrize("k", [1, 2, 3, 4])
+def test_group_weighted_rate_exact(power_mode, k):
+    """``group_weighted_rate`` of the three power functions on subsets of
+    size k, among them devices whose gains and weights tie (equal received
+    powers under max power): the weighted sum rate, powers and rates equal
+    the reference's to the bit."""
+    m = 10
+    gains, _ = _gains(3, m, seed=60 + k)
+    w = _weights(m, seed=k)
+    gains[:, 4] = gains[:, 1]
+    gains[:, 7] = gains[:, 1]
+    w[4] = w[7] = w[1]
+    nz, pmax = CELL.noise_power_w, CELL.max_power_w
+    fn = scheduling.make_power_fn(power_mode, pmax, nz)
+    ref_fn = ref_sched.make_power_fn(power_mode, pmax, nz)
+    rng = np.random.default_rng(k)
+    subsets = [(1, 4, 7, 0)[:k], (7, 4, 1, 9)[:k],
+               tuple(rng.choice(m, k, replace=False))]
+    cases = [(t, s) for t in range(3) for s in subsets]
+    if power_mode == "mapel":       # ~1-3 s a polyblock solve at k >= 3
+        cases = cases[:2 if k < 4 else 1]
+    for t, subset in cases:
+        got = scheduling.group_weighted_rate(subset, t, gains, w, fn, nz)
+        want = ref_sched.group_weighted_rate(subset, t, gains, w, ref_fn, nz)
+        assert isinstance(got[0], float) and got[0] == want[0]
+        for a, b in zip(got[1:], want[1:]):
+            assert a.dtype == np.asarray(b).dtype == np.float64
+            np.testing.assert_array_equal(a, b)
+
+
 def _assert_same_schedule(a, b):
     assert a.rounds == b.rounds
     for pa, pb in zip(a.powers, b.powers):

@@ -214,6 +214,38 @@ def test_registry_holds_every_precomputed_policy_of_the_reference():
         == ref_sched.RandomPolicy.SEED_OFFSET == 17
 
 
+def test_scheduler_policy_protocol_is_the_references():
+    """``SchedulerPolicy`` declares the reference protocol's attributes and
+    methods."""
+    def members(proto):
+        return set(proto.__annotations__) | {
+            k for k, v in vars(proto).items()
+            if callable(v) and not k.startswith("_")}
+
+    assert members(scheduling.SchedulerPolicy) \
+        == members(ref_sched.SchedulerPolicy) \
+        == {"name", "online", "respects_c1", "init_state", "select_round"}
+
+
+@pytest.mark.parametrize("name", sorted(ref_sched.available_policies()))
+def test_every_policy_has_what_the_reference_registry_requires(name):
+    """The policy registered under ``name`` is a ``SchedulerPolicy`` (its
+    registry and ``get_policy`` name the type) with the reference policy's
+    attributes and values (``online``, ``respects_c1``, ``needs_norms``,
+    ``traced_protocol``) and, where the reference's implements the traced
+    protocol, ``init_traced`` and ``select_round_traced``."""
+    got, want = scheduling.get_policy(name), ref_sched.get_policy(name)
+    assert isinstance(got, scheduling.SchedulerPolicy)
+    assert scheduling.SchedulerPolicy in scheduling._REGISTRY[name].__mro__
+    assert got.name == want.name == name
+    for attr in ("online", "respects_c1", "needs_norms", "traced_protocol"):
+        assert getattr(got, attr, None) == getattr(want, attr, None), attr
+    for method in ("init_state", "select_round", "init_traced",
+                   "select_round_traced"):
+        assert callable(getattr(got, method, None)) \
+            == callable(getattr(want, method, None)), method
+
+
 @pytest.mark.parametrize("power_mode", ["max", "mapel"])
 @pytest.mark.parametrize("seed", [0, 5])
 @pytest.mark.parametrize("name", PRECOMPUTED)

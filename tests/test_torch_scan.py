@@ -26,6 +26,7 @@ equals the single scan at its seed to the bit (tests/test_fl_scan.py:129,
 :153).
 """
 import dataclasses
+import math
 
 import numpy as np
 import pytest
@@ -41,18 +42,24 @@ from repro_torch.core import channel, compression, fl, fl_engine  # noqa: E402
 from repro_torch.core import quantization as qlib  # noqa: E402
 from repro_torch.data import dirichlet_partition, make_mnist_like  # noqa: E402
 from repro_torch.data.client_bank import ClientBank  # noqa: E402
+from repro_torch.kernels import aggregate  # noqa: E402
 from repro_torch.sharding import cells  # noqa: E402
 
 TDMA_RATE_ULP = 2
 SAMPLES = 400
 T = 3
-WORLDS = {"m6": (6, 3), "m4k3": (4, 3), "m4k2": (4, 2)}   # M, K
+WORLDS = {"m6": (6, 3), "m4k3": (4, 3), "m4k2": (4, 2),   # M, K
+          "m30": (30, 3)}
 SEEDS = [0, 1, 2]
 GRID = [(uplink, compression, scheduler)
         for uplink in ("noma", "tdma", "ota")
         for compression in ("adaptive", "none")
         for scheduler in ("lazy-gwmin", "random")
         if not (uplink == "ota" and compression == "adaptive")]
+# the engine's public seed-sweep entry each scheduler's sweep goes through
+# (a precomputed schedule; an online policy with the traced protocol)
+ENGINE_SWEEPS = {"lazy-gwmin": "run_horizon_vmapped",
+                 "age-fair": "run_horizon_online_vmapped"}
 # name -> (world, FLConfig fields beyond _cfg's, eval_every)
 CASES = {
     **{f"{u}-{c}-{s}": ("m6", dict(uplink=u, compression=c, scheduler=s), 1)
@@ -103,6 +110,9 @@ def reference(tmp_path_factory):
     runs.append(_spec("seeds", "seeds", "m6", _cfg("m6"), seeds=SEEDS))
     runs.append(_spec("cells", "cells", "m4k2", _cfg("m4k2"), num_cells=2,
                       seeds_per_cell=2))
+    for scheduler in ENGINE_SWEEPS:
+        runs.append(_spec(f"seeds30-{scheduler}", "seeds", "m30",
+                          _cfg("m30", scheduler=scheduler), seeds=SEEDS))
     return run_reference(tmp_path_factory.mktemp("scan"), "horizon_runs",
                          {"runs": runs})
 
@@ -207,6 +217,96 @@ def test_seed_sweep_rows_equal_single_scans(worlds):
     assert any([lg.devices for lg in res.logs] != [lg.devices for lg in r0.logs]
                or not np.array_equal(res.accuracies(), r0.accuracies())
                for res in sweep[1:])
+
+
+@pytest.fixture(scope="module")
+def engine_sweeps(worlds):
+    """``fl.run_horizon_vmapped`` at M=30 for each scheduler of
+    ENGINE_SWEEPS, with the engine's entry and kernel #1's wrapper
+    watched: per scheduler the results, the entry's calls (their inputs
+    cloned, their outputs) and the matrices of each #1 call."""
+    out = {}
+    for scheduler, entry_name in ENGINE_SWEEPS.items():
+        entry = getattr(fl_engine, entry_name)
+        group = fl_engine.weighted_aggregate_group
+        calls, groups = [], []
+
+        def spy(*args, _entry=entry, **kwargs):
+            kept = [a.clone() if isinstance(a, torch.Tensor) else a
+                    for a in args]
+            kept[0] = {k: {n: v.clone() for n, v in layer.items()}
+                       for k, layer in args[0].items()}
+            result = _entry(*args, **kwargs)
+            calls.append((kept, kwargs, result))
+            return result
+
+        def count(codes, coeffs, _group=group):
+            groups.append(len(codes))
+            return _group(codes, coeffs)
+
+        ds, cell, shards = worlds["m30"]
+        setattr(fl_engine, entry_name, spy)
+        fl_engine.weighted_aggregate_group = count
+        try:
+            sweep = fl.run_horizon_vmapped(
+                ds, shards, cell, _cfg("m30", scheduler=scheduler),
+                seeds=SEEDS, device="cpu")
+        finally:
+            setattr(fl_engine, entry_name, entry)
+            fl_engine.weighted_aggregate_group = group
+        out[scheduler] = (sweep, calls, groups)
+    return out
+
+
+@pytest.mark.parametrize("scheduler", list(ENGINE_SWEEPS))
+def test_engine_seed_sweep_matches_the_reference_at_m30(reference,
+                                                        engine_sweeps,
+                                                        scheduler):
+    """The driver's seed sweep is one call of the engine's public entry
+    (``run_horizon_vmapped``, or ``run_horizon_online_vmapped`` for an
+    online policy) over (S, ...) stacks, whose rows equal the reference's
+    ``fl.run_horizon_vmapped`` at M=30 under _assert_equal_runs; kernel
+    #1's wrapper takes the 6 S (seed, leaf) matrices of a round in one
+    call, ceil(6 S / 16) launches a round on the card ([sweep:seeds])."""
+    sweep, calls, groups = engine_sweeps[scheduler]
+    assert len(calls) == 1
+    args, kwargs, (final_s, log) = calls[0]
+    assert args[0]["fc1"]["w"].shape[0] == len(SEEDS)
+    assert log.shape[:2] == (len(SEEDS), T)
+    assert groups == [6 * len(SEEDS)] * T
+    assert [math.ceil(n / aggregate.MAX_SEGMENTS) for n in groups] == [2] * T
+    for s, res in enumerate(sweep):
+        assert_equal_runs(res, _want(reference, f"seeds30-{scheduler}/{s}/"),
+                          T)
+
+
+@pytest.mark.parametrize("scheduler", list(ENGINE_SWEEPS))
+def test_engine_seed_sweep_rows_are_single_horizons(engine_sweeps,
+                                                    scheduler):
+    """Row s of the engine's sweep is the engine's single horizon
+    (``run_horizon`` / ``run_horizon_online``) on row s of its inputs, to
+    the bit: the final parameters and the whole device log."""
+    _, calls, _ = engine_sweeps[scheduler]
+    args, kwargs, (final_s, log) = calls[0]
+    online = scheduler == "age-fair"
+    for s in range(len(SEEDS)):
+        params = fl_engine._run_of(args[0], s)
+        eidx = args[7]
+        if online:
+            final, one = fl_engine.run_horizon_online(
+                params, args[1][s], args[2][s], args[3], args[4], args[5][s],
+                args[6], None if eidx is None else eidx[s], args[8], args[9],
+                **kwargs)
+        else:
+            final, one = fl_engine.run_horizon(
+                params, args[1][s], args[2][s], args[3][s], args[4][s],
+                args[5][s], args[6], None if eidx is None else eidx[s],
+                args[8], args[9], **kwargs)
+        assert torch.equal(one, log[s])
+        row = fl_engine._run_of(final_s, s)
+        for name, layer in final.items():
+            for leaf, v in layer.items():
+                assert torch.equal(v, row[name][leaf]), (s, name, leaf)
 
 
 def test_cell_sweep_matches_the_reference_sweep(reference, worlds):

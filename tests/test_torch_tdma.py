@@ -35,6 +35,7 @@ from repro_torch.data import dirichlet_partition, make_mnist_like  # noqa: E402
 from repro_torch.models import lenet  # noqa: E402
 
 RATE_ULP = 2
+WSR_ULP = 4
 PAYLOAD = lenet.NUM_PARAMS * 32
 
 
@@ -60,6 +61,72 @@ def test_tdma_rates_within_two_ulp_of_reference(powers):
         (got * scale).astype(np.float64)))
     want_bits = ref_qlib.adaptive_bits(PAYLOAD, jnp.asarray(want * scale))
     np.testing.assert_array_equal(got_bits.numpy(), np.asarray(want_bits))
+
+
+def _noma_groups():
+    """(powers, gains) float32 groups of 1 to 6 devices at the paper
+    cell's channels: random powers, then equal received powers (a lane's
+    gain and power copied to another lane) and zero powers (received power
+    0, negated to -0.0), each several times."""
+    cell = channel.CellConfig()
+    gains = channel.sample_channels(0, cell, 4).gains
+    rng = np.random.default_rng(7)
+    out = []
+    for i in range(240):
+        k = 1 + i % 6
+        g = gains[i % 4, rng.choice(gains.shape[1], k, replace=False)]
+        p = rng.uniform(0.0, cell.max_power_w, k).astype(np.float32)
+        if i % 3 == 1 and k > 1:
+            a, b = rng.choice(k, 2, replace=False)
+            g[b], p[b] = g[a], p[a]
+        if i % 3 == 2:
+            p[rng.random(k) < 0.5] = 0.0
+        out.append((p, g))
+    return out
+
+
+def test_sic_order_equals_the_reference():
+    """The decode order, strongest received power first, equals the
+    reference's stable ``argsort`` exactly, equal received powers and
+    zero powers included."""
+    ties = zeros = 0
+    for p, g in _noma_groups():
+        got = noma.sic_order(torch.from_numpy(p), torch.from_numpy(g))
+        want = np.asarray(ref_noma.sic_order(jnp.asarray(p), jnp.asarray(g)))
+        assert got.dtype == torch.int64
+        np.testing.assert_array_equal(got.numpy(), want)
+        rx = p * g * g
+        ties += len(np.unique(rx)) < len(rx)
+        zeros += int((rx == 0).sum() > 1)
+    assert ties >= 20 and zeros >= 20
+
+
+def test_noma_rates_and_weighted_sum_rate_against_the_reference():
+    """The SIC SINRs equal the reference's bit for bit (the tail sums are
+    added one at a time in float32, as XLA's short cumsum does; torch's CPU
+    cumsum accumulates float32 in float64, which left them up to 4 ulps
+    off), the rates are within RATE_ULP (the log of ``tdma_rates``), and
+    one group's weighted sum rate (Eq. 8a) within WSR_ULP: each rate's 2
+    ulps carried through a convex sum are at most 2 * 2^-23 of it, 4 ulps
+    (3 read at the worst of these groups)."""
+    cell = channel.CellConfig()
+    nz = cell.noise_power_w
+    rng = np.random.default_rng(8)
+    worst = 0
+    for p, g in _noma_groups():
+        pt, gt = torch.from_numpy(p), torch.from_numpy(g)
+        pj, gj = jnp.asarray(p), jnp.asarray(g)
+        np.testing.assert_array_equal(noma.sinr(pt, gt, nz).numpy(),
+                                      np.asarray(ref_noma.sinr(pj, gj, nz)))
+        assert _ulps(noma.rates(pt, gt, nz).numpy(), np.asarray(
+            ref_noma.rates(pj, gj, nz))).max() <= RATE_ULP
+        w = rng.dirichlet(np.ones(len(p))).astype(np.float32)
+        got = noma.weighted_sum_rate(pt, gt, torch.from_numpy(w), nz)
+        want = np.asarray(ref_noma.weighted_sum_rate(pj, gj, jnp.asarray(w),
+                                                     nz))
+        assert got.dtype == torch.float32 and got.shape == ()
+        worst = max(worst, int(_ulps(got.numpy(), want)))
+    assert worst <= WSR_ULP
 
 
 def test_tdma_round_physics():
