@@ -186,18 +186,22 @@ package, and exits non-zero on the first failure.  Phases:
      on Mamba2-130M, Zamba2-7B cut to 6 layers, Mixtral-8x22B cut to 2,
      and the dense family and Llama-4-Scout: Qwen2-0.5B whole (once at
      init, once with its QKV biases drawn), Qwen3-8B cut to 4 layers,
-     Granite-34B cut to 2 and Llama-4-Scout-17B-16E cut to 2, the card's
-     memory freed between models (``[serve:*]``: initial weights held to
+     Granite-34B cut to 2, Llama-4-Scout-17B-16E cut to 2 and
+     Mistral-Large-123B cut to 2, the card's memory freed between models
+     (``[serve:*]``: initial weights held to
      the reference's recorded elements; prompts, greedy tokens and one
      teacher-forced forward's logits held to the reference's serving record,
      tests/torch_reference/serve_<arch>.json, by ``check_serve_record``:
      tokens equal through each row's first near-tie, logits within
      ``SERVE_LOGIT_ULPS``; steps after a near-tie divergence held to the
      plain per-token forward; the Threefry kernel's launches counted);
-     ``launch.train`` at
-     full width on Qwen2-0.5B (also with error feedback) and Mamba2-130M
-     (each step's loss held to the reference's record), a save / resume
-     round trip, and the SMOKE Mixtral (``[train:*]``);
+     ``launch.train`` at published widths, each run's losses held to
+     the reference's own record of it: at 4-bit codes Qwen2-0.5B whole
+     (also with error feedback), Granite-34B cut to 1 layer, Zamba2-7B to
+     6 and Qwen3-8B to 1 (tests/torch_reference/train_<name>.json; #5
+     launched once a leaf a step, the Threefry kernel once a drawn leaf),
+     Mamba2-130M at adaptive codes (its final parameters' drift held too),
+     a save / resume round trip, and the SMOKE Mixtral (``[train:*]``);
  17. the encdec and vlm families with their modality inputs: the Threefry
      kernel's bf16 normals (jax.random's bfloat16 draw, one launch) equal
      its plain version's on the card and the CPU's bits, the image
@@ -3396,14 +3400,26 @@ FAMILY_WORLDS = {
 FAMILY_LIMITS = {"mamba2_130m": (5e-5, 1.5e-2), "zamba2_7b": (1.5e-4, 4e-3)}
 FAMILY_LOSS_RTOL = 5e-4     # tests/test_torch_families.py's loss bound
 # [train:*] against the reference's record (tests/torch_reference/
-# train_losses.json): each step's loss, relative; Mamba2's final
-# parameters' worst leaf mean drift over the sampled elements.  Each limit
-# lies between the card's sound run and the record's dropped-step run
-# (Mixtral's losses 1.1e-4 / 7.9e-4; Mamba2's drift 2.2e-5 / 3.7e-5), but
+# train_losses.json, train_<name>.json): each step's loss, relative;
+# Mamba2's final parameters' worst leaf mean drift over the sampled
+# elements.  Each limit lies between the card's sound run and the record's
+# dropped-step run (Mixtral's losses 1.1e-4 / 7.9e-4; Mamba2's drift
+# 2.2e-5 / 3.7e-5; the losses of Qwen2-0.5B 2.4e-4 / 0.070, with --ef
+# 1.4e-3 / 0.072, Zamba2-7B at 6 layers 5.2e-4 / 0.022, Qwen3-8B at 1
+# 1.8e-3 / 0.13, Granite-34B at 1 1.2e-3 / 0.35), but
 # Mamba2's losses, whose wrong run's 1.3e-4 is inside the card's 2.2e-4
 TRAIN_LOSS_LIMITS = {"mamba2-130m": FAMILY_LOSS_RTOL,
-                     "mixtral-8x22b-smoke": 4e-4}
+                     "mixtral-8x22b-smoke": 4e-4,
+                     "qwen2-0.5b": 4e-3, "qwen2-0.5b-ef": 1e-2,
+                     "granite-34b-1": 2e-2, "zamba2-7b-6": 3e-3,
+                     "qwen3-8b-1": 1.5e-2}
 TRAIN_DRIFT_LIMITS = {"mamba2-130m": 3e-5}
+# the full-width [train:<name>] runs held to their own records
+# (tests/torch_reference/train_<name>.json): (name, depth cut), the
+# worker's TRAIN_ARCH_RECORDS
+TRAIN_ARCH_RUNS = (("qwen2-0.5b", None), ("qwen2-0.5b-ef", None),
+                   ("granite-34b-1", 1), ("zamba2-7b-6", 6),
+                   ("qwen3-8b-1", 1))
 # the seeded draw that sets Qwen2-0.5B's QKV biases after init in
 # [serve:qwen2-0.5b-biased] (zero at init, where a forward that ignores
 # them reads the same): (seed, scale) of serve_bias_values, the worker's
@@ -3415,7 +3431,8 @@ SERVE_RUNS = (("mamba2-130m", None, None), ("zamba2-7b", 6, None),
               ("mixtral-8x22b", 2, None), ("qwen2-0.5b", None, None),
               ("qwen2-0.5b", None, {"biases": QWEN2_BIASES}),
               ("qwen3-8b", 4, None), ("granite-34b", 2, None),
-              ("llama4-scout-17b-a16e", 2, None))
+              ("llama4-scout-17b-a16e", 2, None),
+              ("mistral-large-123b", 2, None))
 SERVE_TIE_ULPS = 4          # tests/test_torch_launch.py's near-tie bound
 # [serve:*]'s teacher-forced logits against the reference's serving record
 # (tests/torch_reference/serve_<arch>.json), in bf16 ulps of each row's
@@ -3435,11 +3452,13 @@ SERVE_TIE_ULPS = 4          # tests/test_torch_launch.py's near-tie bound
 # biased record 224.5, Qwen3 without qk-norm 140.5, Granite's K and V
 # swapped 313 and its rope over interleaved pairs 11.69, Scout without its
 # shared expert 247.5 (its chunked mask is never reached in 48 positions:
-# held at SMOKE)
+# held at SMOKE).  Mistral-Large-123B at 2 layers (PR 32): sound 1.25, the
+# last layer dropped 203.6, Qwen3's qk-norm switched on 280.8; its default
+# rope_theta reads 3.75, inside the spread: held at SMOKE
 SERVE_LOGIT_ULPS = {"mamba2_130m": 8, "zamba2_7b": 8, "mixtral_8x22b": 8,
                     "seamless_m4t_medium": 8, "llama_3_2_vision_90b": 8,
                     "qwen2_0_5b": 8, "qwen3_8b": 8, "granite_34b": 8,
-                    "llama4_scout_17b_a16e": 8}
+                    "llama4_scout_17b_a16e": 8, "mistral_large_123b": 8}
 CARD = ""                   # the card's name and power limit (nvidia-smi)
 
 
@@ -3883,14 +3902,16 @@ def _leaves(tree):
     return tree_lib.tree_flatten(tree)[0]
 
 
-def run_train_phase(label, argv, final=None):
+def run_train_phase(label, argv, seen=None):
     """``[train:<label>]``: ``launch.train.main(argv)`` on the card: its
-    losses finite, seconds per step and the peak device memory printed.
-    Returns the losses; with a dict ``final``, the last step's parameters
-    land in ``final["params"]``."""
-    import contextlib
+    losses finite; seconds per step, the peak device memory and the run's
+    launches of #5 (the uplink's quantizer) and of the Threefry kernel (the
+    initial draw) printed.  Returns the losses; with a dict ``seen``, the
+    last step's parameters land in ``seen["params"]`` and the two launch
+    counts in ``seen["quantized"]`` and ``seen["draws"]``."""
     import io
 
+    from repro_torch.kernels import dorefa, threefry
     from repro_torch.launch import steps, train
 
     make = steps.make_train_step
@@ -3900,14 +3921,16 @@ def run_train_phase(label, argv, final=None):
 
         def kept(params, state, batch):
             out = step(params, state, batch)
-            final["params"] = out[0]
+            seen["params"] = out[0]
             return out
 
         return kept
 
     torch.cuda.reset_peak_memory_stats()
     buf = io.StringIO()
-    if final is not None:
+    q0 = dorefa.quantize_dequantize.launches
+    draws0 = threefry.threefry_draw.launches
+    if seen is not None:
         steps.make_train_step = keeping
     try:
         with contextlib.redirect_stdout(buf):
@@ -3916,6 +3939,10 @@ def run_train_phase(label, argv, final=None):
     finally:
         steps.make_train_step = make
     peak = torch.cuda.max_memory_allocated()
+    quantized = dorefa.quantize_dequantize.launches - q0
+    draws = threefry.threefry_draw.launches - draws0
+    if seen is not None:
+        seen.update(quantized=quantized, draws=draws)
     check(len(losses) > 0 and all(math.isfinite(x) for x in losses),
           f"[train:{label}] losses {losses}")
     bits = [line for line in buf.getvalue().splitlines()
@@ -3923,8 +3950,8 @@ def run_train_phase(label, argv, final=None):
     log(f"[train:{label}] {' '.join(argv)}: {len(losses)} steps, "
         f"{wall / len(losses):.3f} s / step (the first step and the initial "
         f"draw included), loss {losses[0]:.4f} -> {losses[-1]:.4f}, peak "
-        f"{peak / 2**30:.2f} GiB; {bits[0] if bits else 'fixed bits'} "
-        f"({CARD})")
+        f"{peak / 2**30:.2f} GiB; {bits[0] if bits else 'fixed bits'}; #5 "
+        f"launched {quantized} times, Threefry {draws} times ({CARD})")
     torch.cuda.empty_cache()
     return losses
 
@@ -3937,59 +3964,110 @@ def _sampled_drift(values, record):
                for path, rec in record.items())
 
 
-def check_train_record(name):
-    """``[train:<name>]``: the record's run (tests/torch_reference/
-    train_losses.json, written by the JAX package) on the card, held to
-    the reference's run by a limit that the record's wrong run (one step's
+def train_record(name):
+    """The reference's record of trainer run ``name`` (written by the JAX
+    package, its command in the file): its own file tests/torch_reference/
+    train_<name>.json where there is one (a run of TRAIN_ARCH_RUNS), else
+    its run in train_losses.json (Mamba2-130M, the SMOKE Mixtral), whole
+    depth.  Either holds argv, losses, dropped_losses, dropped_step,
+    num_layers and, where recorded, the final parameters' samples."""
+    path = os.path.join(REPO, "tests", "torch_reference", f"train_{name}.json")
+    if os.path.exists(path):
+        with open(path, encoding="utf-8") as fh:
+            return json.load(fh)
+    record = _record("train_losses")
+    return dict(record["runs"][name], dropped_step=record["dropped_step"],
+                num_layers=None)
+
+
+@contextlib.contextmanager
+def train_depth(num_layers):
+    """``repro_torch.launch.train.get_config`` cutting every config to
+    ``num_layers`` layers (the trainer has no such flag, nor has the
+    reference's, whose record was cut alike); nothing changed for None."""
+    from repro_torch.launch import train
+
+    real = train.get_config
+    if num_layers:
+        train.get_config = lambda name: dataclasses.replace(
+            real(name), num_layers=num_layers)
+    try:
+        yield
+    finally:
+        train.get_config = real
+
+
+def check_train_record(name, num_layers=None):
+    """``[train:<name>]``: the run of :func:`train_record` on the card at
+    the record's depth (``num_layers``, :func:`train_depth`), held to the
+    reference's run by a limit that the record's wrong run (one step's
     update thrown away) leaves: each step's loss within
-    ``TRAIN_LOSS_LIMITS[name]`` relative; where the record has the final
-    parameters (Mamba2-130M, whose wrong run moves no loss beyond the
-    sound run's bf16 spread), their worst leaf's mean drift over the
-    sampled elements within ``TRAIN_DRIFT_LIMITS[name]``; the loss
-    falling, as the reference's does."""
-    with open(os.path.join(REPO, "tests", "torch_reference",
-                           "train_losses.json"), encoding="utf-8") as fh:
-        record = json.load(fh)
-    want = record["runs"][name]
+    ``TRAIN_LOSS_LIMITS[name]`` relative; where ``TRAIN_DRIFT_LIMITS`` has
+    the run (one whose wrong run moves no loss beyond the sound run's bf16
+    spread), the final parameters' worst leaf mean drift over the sampled
+    elements within it, and the wrong run's drift beyond it; else the wrong
+    run's losses beyond the loss limit.  The loss falls, as the
+    reference's does, and the initial draw takes one Threefry launch a
+    drawn leaf.  Returns :func:`run_train_phase`'s ``seen`` with the
+    losses, the leaf count in place of the parameters."""
+    from repro_torch.configs import get_config, get_smoke
+    from repro_torch.launch import train
+    from repro_torch.models.registry import build_model
+    from repro_torch.utils.tree import tree_flatten_with_paths
+
+    want = train_record(name)
+    label = f"[train:{name}]"
+    check(want["num_layers"] == num_layers,
+          f"{label} the record is cut to {want['num_layers']} layers")
 
     def worst(losses):
         return max(abs(a - b) / abs(b) for a, b in zip(losses,
                                                        want["losses"]))
 
-    final = {}
-    losses = run_train_phase(name, want["argv"], final)
+    args = train.parser().parse_args(want["argv"])
+    cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
+    if num_layers:
+        cfg = dataclasses.replace(cfg, num_layers=num_layers)
+    seen = {}
+    with train_depth(num_layers):
+        losses = run_train_phase(name, want["argv"], seen)
+    drawn = _weight_draws(build_model(cfg).schema)
+    check(seen["draws"] == drawn, f"{label} {seen['draws']} Threefry "
+                                  f"launches, {drawn} drawn leaves")
     rel, limit = worst(losses), TRAIN_LOSS_LIMITS[name]
     check(len(losses) == len(want["losses"]) and rel <= limit,
-          f"[train:{name}] losses {losses} against the reference's "
+          f"{label} losses {losses} against the reference's "
           f"{want['losses']} (limit {limit})")
-    check(losses[-1] < losses[0],
-          f"[train:{name}] the loss did not fall: {losses}")
+    check(losses[-1] < losses[0], f"{label} the loss did not fall: {losses}")
     wrong = worst(want["dropped_losses"])
-    line = (f"[train:{name}] each step's loss within {rel:.3g} relative of "
-            f"the reference's (limit {limit}; the run that threw away step "
-            f"{record['dropped_step']}'s update: {wrong:.3g})")
+    line = (f"{label} each step's loss within {rel:.3g} relative of the "
+            f"reference's (limit {limit}; the run that threw away step "
+            f"{want['dropped_step']}'s update: {wrong:.3g})")
+    params = dict(tree_flatten_with_paths(seen.pop("params")))
     if "final" in want:
-        from repro_torch.utils.tree import tree_flatten_with_paths
-
-        params = dict(tree_flatten_with_paths(final["params"]))
-        check(params.keys() == want["final"].keys(),
-              f"[train:{name}] final leaves")
+        check(params.keys() == want["final"].keys(), f"{label} final leaves")
         card = {path: params[path].reshape(-1)[torch.tensor(
             rec["index"], device=params[path].device)].double().cpu()
             for path, rec in want["final"].items()}
         drift = _sampled_drift(card, want["final"])
-        wrong = _sampled_drift({path: rec["dropped"] for path, rec
-                                in want["final"].items()}, want["final"])
-        limit = TRAIN_DRIFT_LIMITS[name]
-        check(drift < limit,
-              f"[train:{name}] final drift {drift} beyond {limit}")
+        dropped = _sampled_drift({path: rec["dropped"] for path, rec
+                                  in want["final"].items()}, want["final"])
         line += (f"; final parameters' worst leaf mean drift {drift:.3g} "
-                 f"over the sampled elements (limit {limit}; the wrong "
-                 f"run: {wrong:.3g})")
-    check(wrong > limit, f"[train:{name}] the wrong run's {wrong} does not "
+                 f"over the sampled elements")
+        if name in TRAIN_DRIFT_LIMITS:
+            limit, wrong = TRAIN_DRIFT_LIMITS[name], dropped
+            check(drift < limit, f"{label} final drift {drift} beyond "
+                                 f"{limit}")
+            line += f" (limit {limit}; the wrong run: {wrong:.3g})"
+        else:
+            line += f" (the wrong run's {dropped:.3g}, not held)"
+    check(wrong > limit, f"{label} the wrong run's {wrong} does not "
                          f"leave the limit {limit}")
+    seen.update(losses=losses, leaves=len(params))
+    del params
     log(f"{line}; the reference's {want['losses'][0]:.4f} -> "
         f"{want['losses'][-1]:.4f}")
+    return seen
 
 
 def _checked_quantizer(label):
@@ -4053,49 +4131,47 @@ def _checked_quantizer(label):
 
 
 def run_train_phases(tmpdir):
-    """The trainer at full width, batch 8, seq 128: Qwen2-0.5B (the
-    reference's default arch) 10 steps at ``--fl-bits 4`` and with ``--ef
-    --fl-bits 4``, the loss falling, kernel #5 launched once per leaf per
-    step (F6's repair: the trainer's uplink), and one step's quantized
-    gradients through #5 bit-equal to the plain jitted form of the same
-    gradients on the card; then, at adaptive NOMA bits, Mamba2-130M 20
-    steps (the reference's
-    default count: at 1-bit codes its loss does not fall within 10, the
-    reference's neither) held to the reference's record
-    (:func:`check_train_record`); a ``--save`` / ``--resume`` round trip
-    on Mamba2-130M (10 steps, a checkpoint at 5, the other 5 resumed: the
-    same losses as the uninterrupted run, to the bit); the SMOKE Mixtral
-    (the moe family) 12 steps, held to its record likewise.  Returns #5's
-    launches in the two Qwen2 runs."""
+    """The trainer at published widths: each run of TRAIN_ARCH_RUNS at
+    ``--fl-bits 4`` (Qwen2-0.5B, the reference's default arch, whole,
+    batch 8, seq 128, 10 steps and again with ``--ef``; Granite-34B cut to
+    1 layer, 12 steps, Zamba2-7B to 6 (one shared-block site) and Qwen3-8B
+    to 1, 8 steps, batch 4, seq 128) held to its own record
+    (:func:`check_train_record`), kernel #5 launched once per leaf per
+    step (F6's repair: the trainer's uplink),
+    and step 1's quantized gradients through #5 (and under ``--ef`` #5's
+    residuals) bit-equal to the plain jitted form of the same gradients on
+    the card; then, at adaptive NOMA bits, Mamba2-130M 20 steps (the
+    reference's default count: at 1-bit codes its loss does not fall within
+    10, the reference's neither) held to the reference's record; a
+    ``--save`` / ``--resume`` round trip on Mamba2-130M (10 steps, a
+    checkpoint at 5, the other 5 resumed: the same losses as the
+    uninterrupted run, to the bit); the SMOKE Mixtral (the moe family) 12
+    steps, held to its record likewise.  Returns #5's launches in the
+    TRAIN_ARCH_RUNS runs."""
     import repro_torch.checkpoint as ck
     from repro_torch.kernels import dorefa
 
-    base = ["--batch", "8", "--seq", "128"]
     q_launches = 0
-    for label, argv in (
-            ("qwen2-0.5b", ["--arch", "qwen2-0.5b", "--steps", "10",
-                            "--fl-bits", "4"] + base),
-            ("qwen2-0.5b-ef", ["--arch", "qwen2-0.5b", "--steps", "10",
-                               "--ef", "--fl-bits", "4"] + base)):
-        dorefa.quantize_dequantize.launches = 0
-        with _checked_quantizer(label) as seen:
-            losses = run_train_phase(label, argv)
-        n = dorefa.quantize_dequantize.launches
-        check(losses[-1] < losses[0],
-              f"[train:{label}] the loss did not fall: {losses}")
-        check(seen.get("leaves") == QWEN2_LEAVES
-              and n == QWEN2_LEAVES * len(losses),
-              f"[train:{label}] #5 launched {n} times for {len(losses)} "
-              f"steps of {seen.get('leaves')} leaves")
-        ef = "--ef" in argv
-        check(seen.get("residual_leaves", 0) == (QWEN2_LEAVES if ef else 0),
-              f"[train:{label}] {seen.get('residual_leaves', 0)} EF "
-              f"residual leaves checked")
+    for name, num_layers in TRAIN_ARCH_RUNS:
+        label = f"[train:{name}]"
+        with _checked_quantizer(name) as quant:
+            seen = check_train_record(name, num_layers)
+        n, leaves = seen["quantized"], seen["leaves"]
+        steps = len(seen["losses"])
+        check(quant.get("leaves") == leaves and n == leaves * steps,
+              f"{label} #5 launched {n} times for {steps} steps of "
+              f"{leaves} leaves ({quant.get('leaves')} quantized)")
+        check(not name.startswith("qwen2-") or leaves == QWEN2_LEAVES,
+              f"{label} {leaves} leaves, {QWEN2_LEAVES} expected")
+        ef = name.endswith("-ef")
+        check(quant.get("residual_leaves", 0) == (leaves if ef else 0),
+              f"{label} {quant.get('residual_leaves', 0)} EF residual "
+              f"leaves checked")
         q_launches += n
-        log(f"[train:{label}] #5 (quantize_dequantize) launched {n} times: "
-            f"{QWEN2_LEAVES} leaves x {len(losses)} steps; step 1's "
-            f"{seen['elements']} quantized gradients bit-equal to the "
-            f"plain jitted form on the card"
+        log(f"{label} #5 (quantize_dequantize) launched {n} times: "
+            f"{leaves} leaves x {steps} steps; step 1's {quant['elements']} "
+            f"quantized gradients bit-equal to the plain jitted form on the "
+            f"card"
             + ("; #5's residual mode: step 1's EF residuals bit-equal to "
                "its plain version's on the card" if ef else ""))
     # #5 at the trainer's largest leaf, the Qwen2-0.5B embedding, at its
@@ -4109,7 +4185,8 @@ def run_train_phases(tmpdir):
     save = ck.save_checkpoint
     ck.save_checkpoint = lambda path, tree: (
         save(five, tree) if tree["step"] == 5 else None)
-    argv = ["--arch", "mamba2-130m", "--steps", "10"] + base
+    argv = ["--arch", "mamba2-130m", "--steps", "10", "--batch", "8",
+            "--seq", "128"]
     try:
         losses = run_train_phase(
             "mamba2-130m-save",
@@ -4129,7 +4206,8 @@ def run_train_phases(tmpdir):
 def run_family_phases(kernels):
     """The moe, ssm and hybrid slice's phases, in order; returns #1's and
     #2's max abs errors at the Mamba2-130M shapes (``[family-kernel]``)
-    and #5's launches in the trainer (``[train:qwen2-0.5b*]``)."""
+    and #5's launches in the trainer's runs held to their own records
+    (``TRAIN_ARCH_RUNS``)."""
     import tempfile
 
     errs = compare_token_kernels(MAMBA2, "Mamba2-130M", "family-kernel",

@@ -4,7 +4,7 @@
     PYTHONPATH=src python tests/_serve_measure.py --smoke
 
 NAME is a record of tests/torch_reference/serve_<NAME>.json (default: all
-five, each in its own process, one after another; the parent prints each
+of them, each in its own process, one after another; the parent prints each
 one's peak RSS and seconds).  For every run of the record it serves the
 port on the CPU at the run's widths and depth (``launch.serve.generate``
 on the record's prompts and the run's modality inputs) and reads it
@@ -42,7 +42,7 @@ TESTS = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(TESTS)
 NAMES = ("mamba2_130m", "zamba2_7b", "mixtral_8x22b", "seamless_m4t_medium",
          "llama_3_2_vision_90b", "qwen2_0_5b", "qwen3_8b", "granite_34b",
-         "llama4_scout_17b_a16e")
+         "llama4_scout_17b_a16e", "mistral_large_123b")
 
 
 def _slice(tree, index):
@@ -119,6 +119,21 @@ def interleaved_rope(params):
     return dict(params, layers=dict(params["layers"], attn=attn))
 
 
+def with_qk_norm(params):
+    """Dense params with Qwen3's qk-norm weights added at their initial
+    value (ones, one per head dimension and layer), for a model read with
+    ``qk_norm=True``: the one thing that sets Qwen3's dense path apart
+    from Mistral-Large's."""
+    import torch
+
+    attn = dict(params["layers"]["attn"])
+    layers, hd = attn["wq"].shape[0], attn["wq"].shape[-1]
+    for k in ("q_norm", "k_norm"):
+        attn[k] = torch.ones((layers, hd), dtype=attn["wq"].dtype,
+                             device=attn["wq"].device)
+    return dict(params, layers=dict(params["layers"], attn=attn))
+
+
 def wrong_runs(name, model, params, extras, setting=None, seq_len=None):
     """The wrong runs read beside ``name``'s sound run, as (label, model,
     params, extras): the last layer dropped (:func:`drop_last_layer`), and
@@ -132,7 +147,9 @@ def wrong_runs(name, model, params, extras, setting=None, seq_len=None):
     Granite-34B with its K and V projections swapped (its one K/V head
     serves all 48 query heads, so no grouping of heads can be wrong) or
     its rope over interleaved pairs (:func:`interleaved_rope`),
-    Llama-4-Scout without its shared expert and,
+    Mistral-Large-123B at the default rope_theta and with Qwen3's
+    qk-norm switched on (:func:`with_qk_norm`), Llama-4-Scout without its
+    shared expert and,
     where ``seq_len`` crosses its attention_chunk, with the chunked mask
     ignored."""
     import torch
@@ -160,7 +177,8 @@ def wrong_runs(name, model, params, extras, setting=None, seq_len=None):
                     _with_cfg(model, head_dim=128, num_heads=heads,
                               num_kv_heads=heads),
                     dict(params, shared_attn=shared), extras))
-    if name in ("mixtral_8x22b", "llama_3_2_vision_90b"):
+    if name in ("mixtral_8x22b", "llama_3_2_vision_90b",
+                "mistral_large_123b"):
         out.append((f"rope_theta {default_theta:g}",
                     _with_cfg(model, rope_theta=default_theta), params,
                     extras))
@@ -181,6 +199,9 @@ def wrong_runs(name, model, params, extras, setting=None, seq_len=None):
     if name == "qwen3_8b":
         out.append(("qk-norm left out", _with_cfg(model, qk_norm=False),
                     params, extras))
+    if name == "mistral_large_123b":
+        out.append(("qk-norm switched on", _with_cfg(model, qk_norm=True),
+                    with_qk_norm(params), extras))
     if name == "granite_34b":
         out.append(("K and V projections swapped", model, swapped_kv(params),
                     extras))

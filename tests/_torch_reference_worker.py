@@ -4,6 +4,7 @@
     python tests/_torch_reference_worker.py --write-qwen2-reference <out.json>
     python tests/_torch_reference_worker.py --write-family-reference <dir>
     python tests/_torch_reference_worker.py --write-train-reference <out.json>
+    python tests/_torch_reference_worker.py --write-train-reference <dir> --arch NAME
     python tests/_torch_reference_worker.py --write-multimodal-reference <dir>
     python tests/_torch_reference_worker.py --write-multimodal-train-reference <out.json>
     python tests/_torch_reference_worker.py --write-paper-cell-reference <out.json>
@@ -1550,11 +1551,13 @@ TRAIN_DROPPED_STEP = 3
 TRAIN_FINAL_SAMPLES = {"mamba2-130m": 512}
 
 
-def _train_run(argv, drop=None):
+def _train_run(argv, drop=None, donate=False):
     """``repro.launch.train.main(argv)``'s losses (float64) and final
     parameters; ``drop``: the 1-based step whose parameter update is
     thrown away (its optimizer state kept), as tests/test_torch_launch.py's
-    wrong runs."""
+    wrong runs; ``donate``: the jitted step donates its optimizer state
+    (``donate_argnums=(1,)``: the same values, one copy of the state
+    fewer at the peak)."""
     import contextlib
     import io
 
@@ -1569,6 +1572,8 @@ def _train_run(argv, drop=None):
             return getattr(real, name)
 
         def jit(self, fn, *args, **kwargs):
+            if donate:
+                kwargs["donate_argnums"] = (1,)
             inner = real.jit(fn, *args, **kwargs)
 
             def step(params, state, batch):
@@ -1588,26 +1593,44 @@ def _train_run(argv, drop=None):
     return [float(x) for x in losses], last["params"]
 
 
-def _final_samples(params, dropped, count):
+def _final_values(params, count, fmt=float):
     """Per leaf: ``count`` flat indices (every index of a smaller leaf;
-    else drawn without repeats by ``default_rng(0)``) and the sound and
-    dropped runs' final elements there."""
+    else drawn without repeats by ``default_rng(0)``) and the final
+    elements there, each written as ``fmt`` gives it."""
     import numpy as np
 
     from repro.utils.tree import tree_flatten_with_paths
 
-    wrong = dict(tree_flatten_with_paths(dropped))
     out = {}
     for path, leaf in tree_flatten_with_paths(params):
         flat = np.asarray(leaf, np.float32).reshape(-1)
         n = flat.size
         idx = (np.arange(n) if n <= count else np.sort(
             np.random.default_rng(0).choice(n, count, replace=False)))
-        bad = np.asarray(wrong[path], np.float32).reshape(-1)
         out[path] = {"index": [int(i) for i in idx],
-                     "values": [float(v) for v in flat[idx]],
-                     "dropped": [float(v) for v in bad[idx]]}
+                     "values": [fmt(v) for v in flat[idx]]}
     return out
+
+
+def _add_dropped(samples, dropped, fmt=float):
+    """``samples`` (:func:`_final_values`) with the dropped run's final
+    elements at the same indices, ``dropped``, written as ``fmt`` gives
+    them."""
+    import numpy as np
+
+    from repro.utils.tree import tree_flatten_with_paths
+
+    for path, leaf in tree_flatten_with_paths(dropped):
+        bad = np.asarray(leaf, np.float32).reshape(-1)
+        samples[path]["dropped"] = [fmt(v) for v in
+                                    bad[samples[path]["index"]]]
+    return samples
+
+
+def _final_samples(params, dropped, count):
+    """:func:`_final_values` of the sound run's ``params`` with the
+    dropped run's elements beside them."""
+    return _add_dropped(_final_values(params, count), dropped)
 
 
 def write_train_reference(path: str) -> None:
@@ -1640,6 +1663,106 @@ def write_train_reference(path: str) -> None:
     with open(path, "w", encoding="utf-8") as fh:
         json.dump(record, fh, indent=1, sort_keys=True)
         fh.write("\n")
+
+
+# the full-width trainer runs of chip_smoke.py's [train:<name>] phases,
+# one record each (tests/torch_reference/train_<name>.json): (argv, the
+# depth cut: the config's num_layers replaced, None for the whole model).
+# Seed 0; --fl-bits 4 keeps kernel #5 on the path and lets the loss fall
+# within 8-12 steps (1-bit adaptive codes do not): Granite's single layer
+# of width 6144 climbs to 14.7 at step 8 of its warmup and falls below its
+# first loss from step 10
+TRAIN_ARCH_RECORDS = {
+    "qwen2-0.5b": (["--arch", "qwen2-0.5b", "--steps", "10", "--fl-bits",
+                    "4", "--batch", "8", "--seq", "128"], None),
+    "qwen2-0.5b-ef": (["--arch", "qwen2-0.5b", "--steps", "10", "--ef",
+                       "--fl-bits", "4", "--batch", "8", "--seq", "128"],
+                      None),
+    "granite-34b-1": (["--arch", "granite-34b", "--steps", "12",
+                       "--fl-bits", "4", "--batch", "4", "--seq", "128"], 1),
+    "zamba2-7b-6": (["--arch", "zamba2-7b", "--steps", "8", "--fl-bits", "4",
+                     "--batch", "4", "--seq", "128"], 6),
+    "qwen3-8b-1": (["--arch", "qwen3-8b", "--steps", "8", "--fl-bits", "4",
+                    "--batch", "4", "--seq", "128"], 1),
+}
+
+
+@contextlib.contextmanager
+def _train_depth(num_layers):
+    """``repro.launch.train.get_config`` cutting every config to
+    ``num_layers`` layers (``dataclasses.replace``; the reference's trainer
+    has no such flag); nothing changed for None."""
+    import dataclasses
+
+    from repro.launch import train
+
+    real = train.get_config
+    if num_layers:
+        train.get_config = lambda name: dataclasses.replace(
+            real(name), num_layers=num_layers)
+    try:
+        yield
+    finally:
+        train.get_config = real
+
+
+def write_train_arch_record(directory: str, name: str) -> None:
+    """``train_<name>.json`` in ``directory``: run ``name`` of
+    ``TRAIN_ARCH_RECORDS`` through the reference's ``launch.train.main``
+    (depth cut by :func:`_train_depth`, large leaves drawn in chunks, the
+    same bits), its losses and final parameters at 512 sampled elements a
+    leaf (as the shortest decimals that read back to the float32
+    values); then the run that threw away step TRAIN_DROPPED_STEP's
+    update, its losses and final elements at the same indices.  The sound
+    run's parameters are freed before the dropped run starts.  Both runs'
+    jitted steps donate the optimizer state."""
+    import os
+
+    argv, layers = TRAIN_ARCH_RECORDS[name]
+    with _train_depth(layers), _chunked_init():
+        losses, params = _train_run(argv, donate=True)
+        final = _final_values(params, 512, _f32)
+        del params
+        dropped, wrong = _train_run(argv, drop=TRAIN_DROPPED_STEP,
+                                    donate=True)
+    record = {
+        "_command": ("PYTHONPATH=src JAX_PLATFORMS=cpu python "
+                     "tests/_torch_reference_worker.py "
+                     "--write-train-reference tests/torch_reference "
+                     f"--arch {name}"),
+        "_what": ("repro.launch.train.main(argv) on the CPU, the config's "
+                  "depth cut to num_layers where given (null: the whole "
+                  "model): each step's loss; dropped_losses: the same run "
+                  "with step dropped_step's parameter update thrown away; "
+                  "final: both runs' final parameters at sampled flat "
+                  "indices"),
+        "name": name, "argv": argv, "num_layers": layers,
+        "dropped_step": TRAIN_DROPPED_STEP,
+        "losses": losses, "dropped_losses": dropped,
+        "final": _add_dropped(final, wrong, _f32),
+    }
+    with open(os.path.join(directory, f"train_{name}.json"), "w",
+              encoding="utf-8") as fh:
+        json.dump(record, fh, sort_keys=True, separators=(",", ":"))
+        fh.write("\n")
+
+
+def write_train_reference_main(argv) -> int:
+    """``--write-train-reference PATH``: train_losses.json
+    (:func:`write_train_reference`); ``--write-train-reference DIR --arch
+    NAME``: one record of TRAIN_ARCH_RECORDS, printing its peak RSS and
+    seconds (one process a record: a run's arrays are freed with it)."""
+    import resource
+    import time
+
+    if "--arch" not in argv:
+        write_train_reference(argv[0])
+        return 0
+    t0 = time.time()
+    write_train_arch_record(argv[0], argv[argv.index("--arch") + 1])
+    peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 20
+    print(f"peak RSS {peak:.2f} GiB, {time.time() - t0:.1f} s", flush=True)
+    return 0
 
 
 def _json_array(obj):
@@ -2009,12 +2132,13 @@ SERVE_RECORDS = {
     "qwen3_8b": (("qwen3-8b", 4, None),),
     "granite_34b": (("granite-34b", 2, None),),
     "llama4_scout_17b_a16e": (("llama4-scout-17b-a16e", 2, None),),
+    "mistral_large_123b": (("mistral-large-123b", 2, None),),
 }
 # the records that also hold the served model's initial weights at
 # sample_indices ('leaves'): these models have no init record of their
 # own at the served shapes
 SERVE_INIT_LEAVES = ("qwen2_0_5b", "qwen3_8b", "granite_34b",
-                     "llama4_scout_17b_a16e")
+                     "llama4_scout_17b_a16e", "mistral_large_123b")
 SERVE_ARGV = ["--batch", "4", "--prompt-len", "32", "--gen", "16",
               "--seed", "0"]
 # SMOKE runs served with a longer prompt: Llama-4-Scout's SMOKE
@@ -2388,8 +2512,7 @@ def main(argv) -> int:
 
     if argv[1] == "--write-train-reference":
         apply_shim()
-        write_train_reference(argv[2])
-        return 0
+        return write_train_reference_main(argv[2:])
     if argv[1] == "--write-family-reference":
         apply_shim()
         write_family_reference(argv[2])

@@ -14,10 +14,11 @@ card's runs to them with ``chip_smoke.check_serve_record``.  Here:
   the port's ``prng.randint`` draw;
 - the same writer's SMOKE records (one reference subprocess for the file,
   ``--smoke``) hold the port's CPU serve of every SMOKE config (the dense
-  family and Llama-4-Scout among them, Scout's prompt across its
-  attention chunk) through ``check_serve_record``, at limits between the
-  sound runs and the wrong runs below (readings in SMOKE_LOGIT_ULPS), and
-  the port's initial weights equal the records' elements;
+  family with Mistral-Large, and Llama-4-Scout among them, Scout's prompt
+  across its attention chunk) through ``check_serve_record``, at limits
+  between the sound runs and the wrong runs below (readings in
+  SMOKE_LOGIT_ULPS), and the port's initial weights equal the records'
+  elements;
 - wrong runs are rejected: the last layer dropped, each model's own
   wrong run of tests/_serve_measure.py where the SMOKE config shows it,
   the vlm's gates left at 0 against the gated record, and Qwen2's QKV
@@ -52,21 +53,24 @@ from repro_torch.utils.tree import tree_flatten_with_paths  # noqa: E402
 
 NAMES = ("mamba2_130m", "zamba2_7b", "mixtral_8x22b", "seamless_m4t_medium",
          "llama_3_2_vision_90b", "qwen2_0_5b", "qwen3_8b", "granite_34b",
-         "llama4_scout_17b_a16e")
+         "llama4_scout_17b_a16e", "mistral_large_123b")
 # the SMOKE runs' teacher-forced logits against the SMOKE records (each
 # SMOKE config at its published config's rope_theta), in bf16 ulps of each
 # row's largest |logit|, between the sound runs (Mamba2 1, Zamba2 2,
 # Mixtral 1, SeamlessM4T 2.5, Llama-Vision 1.25 at init and 1.5 gated,
-# Qwen2 1 and 2 with its biases drawn, Qwen3 1, Granite 1, Scout 1.5) and
-# the wrong ones (the last layer dropped: 248, 157.8, 314.5, 201.2, 326 and
-# 361, 258 and 180, 209, 263, 243; Mamba2's D zeroed 492; Zamba2's shared
-# block at head_dim 128 12.62; Mixtral at the default rope_theta 18.88 and
-# at one expert 15.5; SeamlessM4T's encoder a layer short 85.5;
+# Qwen2 1 and 2 with its biases drawn, Qwen3 1, Granite 1, Scout 1.5,
+# Mistral-Large 1) and the wrong ones (the last layer dropped: 248, 157.8,
+# 314.5, 201.2, 326 and 361, 258 and 180, 209, 263, 243, 225; Mamba2's D
+# zeroed 492; Zamba2's shared block at head_dim 128 12.62; Mixtral at
+# the default rope_theta 18.88 and at one expert 15.5; SeamlessM4T's
+# encoder a layer short 85.5;
 # Llama-Vision at the default rope_theta 82.34, gated 99.38; the gates
 # left at 0 against the gated record 131.1; Qwen2's biases ignored 328;
 # Qwen3 without qk-norm 222.8; Granite's K and V swapped 335 and its rope
 # over interleaved pairs 62; Scout without its shared expert 219.5 and
-# with its chunked mask ignored 308), as `PYTHONPATH=src python
+# with its chunked mask ignored 308; Mistral-Large at the default
+# rope_theta 35.5 and with Qwen3's qk-norm switched on 243.5), as
+# `PYTHONPATH=src python
 # tests/_serve_measure.py --smoke` reads them
 SMOKE_LOGIT_ULPS = 6
 
@@ -195,7 +199,8 @@ def test_smoke_serve_holds_the_reference_record(run, smoke_serves,
                                  "seamless-m4t-medium",
                                  "llama-3.2-vision-90b-gated", "qwen2-0.5b",
                                  "qwen2-0.5b-biased", "qwen3-8b",
-                                 "granite-34b", "llama4-scout-17b-a16e"])
+                                 "granite-34b", "llama4-scout-17b-a16e",
+                                 "mistral-large-123b"])
 def test_a_dropped_layer_is_rejected(run, smoke_serves, smoke_records):
     """The same weights with the decoder's last layer taken out leave the
     record's logits beyond the limit, and check_serve_record fails."""
@@ -228,6 +233,8 @@ def test_a_dropped_layer_is_rejected(run, smoke_serves, smoke_records):
     ("granite-34b", "rope over interleaved pairs"),
     ("llama4-scout-17b-a16e", "shared expert left out"),
     ("llama4-scout-17b-a16e", "chunked mask ignored"),
+    ("mistral-large-123b", "rope_theta 10000"),
+    ("mistral-large-123b", "qk-norm switched on"),
 ])
 def test_a_models_own_wrong_run_is_rejected(run, label, smoke_serves,
                                             smoke_records):
