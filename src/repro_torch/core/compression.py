@@ -7,8 +7,8 @@ a tree into integer codes for honest byte accounting (:func:`encode_tree`
 :mod:`repro_torch.kernels.ops` under ``use_pallas``), and prices the top-k
 sparse stage that may run before DoReFa (:func:`topk_plan`,
 :func:`topk_mask`, :func:`sparse_payload_bits`).  The trainer's uplink
-(``launch/steps.py``) quantizes its gradient tree with
-:func:`quantize_dequantize_tree`, optionally under
+(``launch/steps.py``) quantizes its gradient tree in place with
+:func:`quantize_dequantize_tree_`, optionally under
 :func:`error_feedback_optimizer`.
 
 Trees are nested dicts of tensors, flattened in JAX's sorted-key order
@@ -154,19 +154,24 @@ def encode_decode_tree(tree, bits, *, paper_exact: bool = False):
     return q.quantize_tree(tree, bits, paper_exact=paper_exact)
 
 
-def quantize_dequantize_tree(tree, bits: int, *, paper_exact: bool = False):
-    """Fused quantize->dequantize of a tree at a static ``bits``, leaf by
-    leaf, in the jitted form: ``c * (s * fl(1/a))`` with ``s`` the leaf's
-    max-abs scale (``1.0`` under ``paper_exact``), as XLA compiles the
-    reference's :func:`encode_decode_tree` inside a jitted step with a
-    Python-int width.  Each leaf goes through
-    :func:`repro_torch.kernels.dorefa.quantize_dequantize`: kernel #5 on a
-    CUDA tensor (one launch per leaf), its plain version on a CPU one."""
-    def leaf(g):
-        return dorefa.quantize_dequantize(g, _tree_scale(g, paper_exact),
-                                          bits).reshape(g.shape)
+def quantize_dequantize_leaf(g, bits: int, *, paper_exact: bool = False):
+    """Fused quantize->dequantize of one leaf at a static ``bits``, in the
+    jitted form: ``c * (s * fl(1/a))`` with ``s`` the leaf's max-abs scale
+    (``1.0`` under ``paper_exact``), as XLA compiles the reference's
+    :func:`encode_decode_tree` inside a jitted step with a Python-int width.
+    Through :func:`repro_torch.kernels.dorefa.quantize_dequantize`: kernel
+    #5 on a CUDA tensor (one launch), its plain version on a CPU one."""
+    return dorefa.quantize_dequantize(g, _tree_scale(g, paper_exact),
+                                      bits).reshape(g.shape)
 
-    return tree_lib.tree_map(leaf, tree)
+
+def quantize_dequantize_tree_(tree, bits: int, *, paper_exact: bool = False):
+    """:func:`quantize_dequantize_leaf` of every leaf, in place: each leaf
+    of ``tree`` is replaced in its dict by its quantized value as soon as
+    that exists, so one leaf's gradients at most are held twice.  Returns
+    ``tree``."""
+    return tree_lib.tree_map_(lambda g: quantize_dequantize_leaf(
+        g, bits, paper_exact=paper_exact), tree)
 
 
 def _tree_scale(g, paper_exact: bool) -> torch.Tensor:
@@ -175,24 +180,31 @@ def _tree_scale(g, paper_exact: bool) -> torch.Tensor:
     return kops.max_abs_scale(g)
 
 
-def quantize_dequantize_residual_tree(tree, bits: int, *,
+def quantize_dequantize_residual_leaf(g, bits: int, *,
                                       paper_exact: bool = False):
-    """(:func:`quantize_dequantize_tree`, the error-feedback residual ``adj
-    - q`` of each leaf as XLA's CPU compiles it after the quantizer: one
-    fused multiply-add, ``fma(c, -(s * fl(1/a)), adj)``, ``c`` the rounded
-    levels).  Each float32 leaf goes through
+    """(:func:`quantize_dequantize_leaf`, the error-feedback residual ``adj
+    - q`` as XLA's CPU compiles it after the quantizer: one fused
+    multiply-add, ``fma(c, -(s * fl(1/a)), adj)``, ``c`` the rounded
+    levels) of one float32 leaf, through
     :func:`repro_torch.kernels.dorefa.quantize_dequantize_residual`: kernel
-    #5's residual mode on a CUDA tensor (one launch per leaf writes both),
-    its plain version on a CPU one."""
-    flat, treedef = tree_lib.tree_flatten(tree)
-    qs, rs = [], []
-    for g in flat:
-        q, r = dorefa.quantize_dequantize_residual(
-            g, _tree_scale(g, paper_exact), bits)
-        qs.append(q.reshape(g.shape))
-        rs.append(r.reshape(g.shape))
-    return (tree_lib.tree_unflatten(treedef, qs),
-            tree_lib.tree_unflatten(treedef, rs))
+    #5's residual mode on a CUDA tensor (one launch writes both), its plain
+    version on a CPU one."""
+    q, r = dorefa.quantize_dequantize_residual(
+        g, _tree_scale(g, paper_exact), bits)
+    return q.reshape(g.shape), r.reshape(g.shape)
+
+
+def quantize_dequantize_residual_tree_(tree, residual, bits: int, *,
+                                       paper_exact: bool = False):
+    """:func:`quantize_dequantize_residual_leaf` of every leaf, in place:
+    leaf by leaf, ``tree``'s leaf is replaced by its quantized value and
+    ``residual``'s (a tree of the same structure) by the residual.
+    Returns ``tree``."""
+    for (box, key), (rbox, rkey) in zip(tree_lib.tree_slots(tree),
+                                        tree_lib.tree_slots(residual)):
+        box[key], rbox[rkey] = quantize_dequantize_residual_leaf(
+            box[key], bits, paper_exact=paper_exact)
+    return tree
 
 
 def adaptive_bits_for_budget(tree, budget_bits) -> torch.Tensor:
@@ -208,9 +220,11 @@ def error_feedback_optimizer(optimizer, bits: int, *,
     q_t``, with the residual kept in float32 (the reference's
     ``compression.error_feedback_optimizer``).  The reference runs it
     inside its jitted train step, so ``Q_b`` is
-    :func:`quantize_dequantize_tree`, the jitted form, and ``adj - q`` is
+    :func:`quantize_dequantize_leaf`, the jitted form, and ``adj - q`` is
     the fused multiply-add XLA contracts it to, both from one pass
-    (:func:`quantize_dequantize_residual_tree`)."""
+    (:func:`quantize_dequantize_residual_tree_`).  Its ``update_`` replaces
+    the gradients' and the residual's leaves one at a time and the inner
+    optimizer updates in place."""
     from repro_torch.optim.optimizers import Optimizer
 
     def init(params):
@@ -221,12 +235,15 @@ def error_feedback_optimizer(optimizer, bits: int, *,
                                       device=p.device), params),
         }
 
-    def update(grads, state, params):
-        adj = tree_lib.tree_map(lambda g, r: g.to(torch.float32) + r,
-                                grads, state["residual"])
-        qd, residual = quantize_dequantize_residual_tree(
-            adj, bits, paper_exact=paper_exact)
-        new_params, inner = optimizer.update(qd, state["inner"], params)
-        return new_params, {"inner": inner, "residual": residual}
+    def update_(grads, state, params):
+        # grads' leaves become adj, then q, the residual's its new value,
+        # each as soon as it exists
+        tree_lib.tree_map_(lambda g, r: g.to(torch.float32) + r, grads,
+                           state["residual"])
+        quantize_dequantize_residual_tree_(grads, state["residual"], bits,
+                                           paper_exact=paper_exact)
+        params, state["inner"] = optimizer.update_(grads, state["inner"],
+                                                   params)
+        return params, state
 
-    return Optimizer(init, update)
+    return Optimizer(init, update_)

@@ -42,3 +42,28 @@ def tree_map(fn, tree, *rest):
     return tree_unflatten(
         treedef, [fn(*args) for args in zip(leaves, *others)]
     )
+
+
+def tree_slots(tree):
+    """The (dict, key) that holds each leaf of the nested-dict ``tree``, in
+    :func:`tree_flatten`'s order: where a leaf can be replaced in place."""
+    if not isinstance(tree, dict):
+        raise TypeError("a leaf is replaced in place only inside a dict")
+    slots = []
+    for key in sorted(tree):
+        if isinstance(tree[key], dict):
+            slots.extend(tree_slots(tree[key]))
+        else:
+            slots.append((tree, key))
+    return slots
+
+
+def tree_map_(fn, tree, *rest):
+    """:func:`tree_map` in place: each of ``tree``'s leaves is replaced by
+    ``fn(leaf, *others)`` in its own dict as soon as that exists, so the
+    old leaf is released there unless something else holds it.  Returns
+    ``tree``."""
+    others = [tree_flatten(t)[0] for t in rest]
+    for i, (box, key) in enumerate(tree_slots(tree)):
+        box[key] = fn(box[key], *(leaves[i] for leaves in others))
+    return tree

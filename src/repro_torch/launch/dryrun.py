@@ -91,9 +91,10 @@ def _nbytes(t: torch.Tensor) -> int:
 
 
 class StepCounter(TorchDispatchMode):
-    """Bytes in and out of every aten op, the peak of live storage bytes,
-    and the host reads (``_local_scalar_dense``), answered with
-    ``host_value``."""
+    """Bytes in and out of every aten op, the peak of live storage bytes
+    (an op's result that lies in one of its inputs' storages, as an
+    in-place op's does, allocates nothing), and the host reads
+    (``_local_scalar_dense``), answered with ``host_value``."""
 
     # allocations that write nothing (views are skipped by ``is_view``)
     _NO_DATA = ("aten::empty", "aten::empty_strided", "aten::empty_like")
@@ -138,19 +139,24 @@ class StepCounter(TorchDispatchMode):
         out = func(*args, **kwargs)
         outs = [t for t in tree_flatten(out)[0]
                 if isinstance(t, torch.Tensor)]
+        ins = [t for t in tree_flatten((args, kwargs))[0]
+               if isinstance(t, torch.Tensor)]
         # an op with no tensor result (``prim::device``, sizes) moves no
         # data, nor does a view
         if outs and not func.is_view \
                 and func._schema.name not in self._NO_DATA:
             moved = sum(_nbytes(t) for t in outs)
-            for t in tree_flatten((args, kwargs))[0]:
-                if isinstance(t, torch.Tensor):
-                    moved += min(_nbytes(t), t.untyped_storage().nbytes())
+            for t in ins:
+                moved += min(_nbytes(t), t.untyped_storage().nbytes())
             self.bytes += moved
             self.bytes_by_op[func._schema.name] += moved
         if not func.is_view:
+            # an in-place op's result is its input's storage: nothing new
+            # (the step's parameters and moments are counted as resident)
+            written = {t.untyped_storage()._cdata for t in ins}
             for t in outs:
-                self._track(t)
+                if t.untyped_storage()._cdata not in written:
+                    self._track(t)
         return out
 
     def finish(self) -> int:

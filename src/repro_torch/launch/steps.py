@@ -10,8 +10,8 @@ The reference jits its steps with a static width, and XLA compiles what
 they compute in another op order than the source text: the quantizer as
 ``c * (s * fl(1/a))`` and the mean of ``grad_accum`` microbatches as a
 product with ``fl(1/grad_accum)``.  This module computes both in that
-order (:func:`repro_torch.core.compression.quantize_dequantize_tree`, on
-the card kernel #5, one launch per leaf).  The reference's ``remat``
+order (:func:`repro_torch.core.compression.quantize_dequantize_tree_`,
+on the card kernel #5, one launch per leaf).  The reference's ``remat``
 (``jax.checkpoint``) and ``unroll`` only steer XLA and have no counterpart
 here.
 
@@ -92,6 +92,12 @@ def make_train_step(model: Model, optimizer, *, fl_bits: Optional[int] = None,
                     kv_chunk: int = 1024, grad_accum: int = 1):
     """(params, opt_state, batch) -> (params, opt_state, loss).
 
+    The step gives up its inputs as the reference's jitted step under
+    ``donate_argnums=(0, 1)`` does: each gradient leaf is released as soon
+    as its quantized value exists, and the optimizer's ``update_``
+    overwrites the parameters and its state leaf by leaf; the trees passed
+    in come back.  A caller that keeps the old values clones them first.
+
     ``grad_accum > 1`` splits the global batch into interleaved
     microbatches (row i goes to microbatch i % grad_accum, as the
     reference's reshape and swap lay them out) and sums their gradients in
@@ -124,10 +130,10 @@ def make_train_step(model: Model, optimizer, *, fl_bits: Optional[int] = None,
         else:
             loss, grads = _value_and_grad(model, params, batch, kv_chunk)
         if fl_bits is not None and fl_bits < 32:
-            grads = compression.quantize_dequantize_tree(grads, fl_bits)
+            compression.quantize_dequantize_tree_(grads, fl_bits)
         with torch.no_grad():
-            new_params, new_state = optimizer.update(grads, opt_state, params)
-        return new_params, new_state, loss
+            params, opt_state = optimizer.update_(grads, opt_state, params)
+        return params, opt_state, loss
 
     return train_step
 

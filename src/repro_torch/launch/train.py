@@ -10,7 +10,9 @@ bits of the NOMA rate model (one simulated round per step, the K = 3 best
 channels standing in for the clients) -> AdamW.  Every family of the
 reference's registry runs; a vlm's step also takes image features and an
 encdec's frame embeddings, bf16 normals drawn as the reference draws them
-(step i under ``fold_in(fold_in(key, 7), i)``).
+(step i under ``fold_in(fold_in(key, 7), i)``).  The step updates the
+parameters and the optimizer state in place (``make_train_step``): no
+second copy of either is held.
 """
 from __future__ import annotations
 

@@ -1551,13 +1551,15 @@ TRAIN_DROPPED_STEP = 3
 TRAIN_FINAL_SAMPLES = {"mamba2-130m": 512}
 
 
-def _train_run(argv, drop=None, donate=False):
+def _train_run(argv, drop=None, donate=()):
     """``repro.launch.train.main(argv)``'s losses (float64) and final
     parameters; ``drop``: the 1-based step whose parameter update is
     thrown away (its optimizer state kept), as tests/test_torch_launch.py's
-    wrong runs; ``donate``: the jitted step donates its optimizer state
-    (``donate_argnums=(1,)``: the same values, one copy of the state
-    fewer at the peak)."""
+    wrong runs; ``donate``: the jitted step's ``donate_argnums``, ``(1,)``
+    its optimizer state, ``(0, 1)`` the parameters too (the same values, a
+    copy fewer of each at the peak).  Where the parameters are donated, the
+    dropped step's input parameters are spilled to a temporary file leaf by
+    leaf before that step and read back after it (:func:`_spill`)."""
     import contextlib
     import io
 
@@ -1573,14 +1575,25 @@ def _train_run(argv, drop=None, donate=False):
 
         def jit(self, fn, *args, **kwargs):
             if donate:
-                kwargs["donate_argnums"] = (1,)
+                kwargs["donate_argnums"] = tuple(donate)
             inner = real.jit(fn, *args, **kwargs)
 
             def step(params, state, batch):
                 calls.append(1)
+                dropped = len(calls) == drop
+                spill = None
+                if dropped and 0 in donate:
+                    # the steps run asynchronously: the spill and the read
+                    # back wait for them, or a step's temporaries and the
+                    # spilled copy would be held at once
+                    spill = _spill(real.block_until_ready(params))
                 new, new_state, loss = inner(params, state, batch)
-                last["params"] = params if len(calls) == drop else new
-                return last["params"], new_state, loss
+                if dropped:
+                    real.block_until_ready((new, new_state, loss))
+                    del new
+                    new = params if spill is None else _unspill(spill)
+                last["params"] = new
+                return new, new_state, loss
 
             return step
 
@@ -1591,6 +1604,38 @@ def _train_run(argv, drop=None, donate=False):
     finally:
         train.jax = real
     return [float(x) for x in losses], last["params"]
+
+
+def _spill(tree):
+    """``tree``'s leaves written one after another to a temporary file,
+    each from a copy of its own (a view of a leaf would keep a donated
+    buffer from being reused): (the open file, the tree's structure, the
+    leaf count), for :func:`_unspill`."""
+    import tempfile
+
+    import jax
+    import numpy as np
+
+    leaves, treedef = jax.tree_util.tree_flatten(tree)
+    fh = tempfile.TemporaryFile()
+    for leaf in leaves:
+        copy = jax.numpy.array(leaf, copy=True)
+        np.save(fh, np.asarray(copy))
+        del copy
+    return fh, treedef, len(leaves)
+
+
+def _unspill(spill):
+    """The tree :func:`_spill` wrote, read back one leaf at a time into
+    arrays of their own; the file is closed (and so removed)."""
+    import jax
+    import numpy as np
+
+    fh, treedef, count = spill
+    fh.seek(0)
+    leaves = [jax.numpy.array(np.load(fh), copy=True) for _ in range(count)]
+    fh.close()
+    return jax.tree_util.tree_unflatten(treedef, leaves)
 
 
 def _final_values(params, count, fmt=float):
@@ -1671,7 +1716,12 @@ def write_train_reference(path: str) -> None:
 # Seed 0; --fl-bits 4 keeps kernel #5 on the path and lets the loss fall
 # within 8-12 steps (1-bit adaptive codes do not): Granite's single layer
 # of width 6144 climbs to 14.7 at step 8 of its warmup and falls below its
-# first loss from step 10
+# first loss from step 10.  At the trainer's default learning rate, 3e-4,
+# Mixtral's single layer (8 experts) swings from 9.20 to 12.79 and 13.14
+# within the warmup, where a card's run parts from the record by 0.075,
+# and Mistral-Large's (width 12288) climbs to 24.7 at step 7 and ends
+# above its first loss at every count from 8 to 12; at 3e-5 both fall from
+# step 3 on (Mixtral 10.95 -> 8.11 in 12 steps)
 TRAIN_ARCH_RECORDS = {
     "qwen2-0.5b": (["--arch", "qwen2-0.5b", "--steps", "10", "--fl-bits",
                     "4", "--batch", "8", "--seq", "128"], None),
@@ -1684,6 +1734,12 @@ TRAIN_ARCH_RECORDS = {
                      "--batch", "4", "--seq", "128"], 6),
     "qwen3-8b-1": (["--arch", "qwen3-8b", "--steps", "8", "--fl-bits", "4",
                     "--batch", "4", "--seq", "128"], 1),
+    "mixtral-8x22b-1": (["--arch", "mixtral-8x22b", "--steps", "12",
+                         "--lr", "3e-5", "--fl-bits", "4", "--batch", "4",
+                         "--seq", "128"], 1),
+    "mistral-large-123b-1": (["--arch", "mistral-large-123b", "--steps",
+                              "12", "--lr", "3e-5", "--fl-bits", "4",
+                              "--batch", "4", "--seq", "128"], 1),
 }
 
 
@@ -1715,16 +1771,19 @@ def write_train_arch_record(directory: str, name: str) -> None:
     values); then the run that threw away step TRAIN_DROPPED_STEP's
     update, its losses and final elements at the same indices.  The sound
     run's parameters are freed before the dropped run starts.  Both runs'
-    jitted steps donate the optimizer state."""
+    jitted steps donate the parameters and the optimizer state (XLA's
+    memory_analysis of Mixtral's step at one layer, batch 4 x 128, reads
+    60.11 GiB with the state alone donated, 53.22 GiB with both; the
+    values are the same)."""
     import os
 
     argv, layers = TRAIN_ARCH_RECORDS[name]
     with _train_depth(layers), _chunked_init():
-        losses, params = _train_run(argv, donate=True)
+        losses, params = _train_run(argv, donate=(0, 1))
         final = _final_values(params, 512, _f32)
         del params
         dropped, wrong = _train_run(argv, drop=TRAIN_DROPPED_STEP,
-                                    donate=True)
+                                    donate=(0, 1))
     record = {
         "_command": ("PYTHONPATH=src JAX_PLATFORMS=cpu python "
                      "tests/_torch_reference_worker.py "

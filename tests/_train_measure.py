@@ -20,8 +20,9 @@ The initial weights are the reference's own draws (jax.random on the
 CPU, leaf by leaf in chunks): the port's plain Threefry draw computes the
 same bits (tests/test_torch_draws.py; on the card ``[train:*]`` counts
 its kernel's launches), but at 1e8-1e9 elements a leaf it takes hours on
-a CPU.  A run holds about 32 bytes a parameter at its peak (Qwen3-8B cut
-to 1 layer: 1.44e9 parameters).
+a CPU.  A run holds about 23 bytes a parameter at its peak, the step
+updating in place (Mistral-Large-123B cut to 1 layer, 2.19e9 parameters:
+46.5 GiB), so Mixtral-8x22B at 1 layer (2.91e9) needs about 62 GiB.
 """
 from __future__ import annotations
 
@@ -61,6 +62,9 @@ def port_run(argv, drop=None):
     """``launch.train.main(argv)`` on the CPU: (losses, final parameters);
     ``drop``: the 1-based step whose parameter update is thrown away (its
     optimizer state kept)."""
+    import torch
+
+    from repro_torch.core import tree as tree_lib
     from repro_torch.launch import steps, train
 
     real, calls, last = steps.make_train_step, [], {}
@@ -70,8 +74,12 @@ def port_run(argv, drop=None):
 
         def step(params, state, batch):
             calls.append(1)
+            # the trainer's step updates in place: keep the parameters of
+            # the step whose update is thrown away
+            keep = (tree_lib.tree_map(torch.clone, params)
+                    if len(calls) == drop else None)
             new, new_state, loss = inner(params, state, batch)
-            last["params"] = params if len(calls) == drop else new
+            last["params"] = new if keep is None else keep
             return last["params"], new_state, loss
 
         return step

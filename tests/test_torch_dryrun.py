@@ -247,6 +247,18 @@ def test_cli_writes_a_result_per_pair_and_skips(tmp_path, capsys):
     assert "SKIP: pure full attention" in capsys.readouterr().out
 
 
+def test_an_in_place_op_allocates_nothing():
+    """The live-storage peak: an in-place op's result lies in its input's
+    storage and adds nothing, a new result its bytes (the in-place train
+    step's parameters and moments are counted once, as resident)."""
+    x = torch.zeros(1024)
+    counter = dryrun.StepCounter()
+    with counter:
+        x.mul_(2.0).add_(1.0)
+        y = x * 2.0
+    assert counter.finish() == y.untyped_storage().nbytes() == 4096
+
+
 def test_smoke_mesh_counts_one_card():
     shape = ShapeConfig("t", 128, 8, "train")
     one = dryrun.run_one("qwen2_0_5b", shape, smoke_mesh=True, fl_bits=4,

@@ -417,7 +417,10 @@ def _port_qsteps(case, arrays):
         if state is None:
             state = opt.init(params)
         q, state, loss = step(params, state, batch)
-        out.append((q, loss, state.get("residual")))
+        # the step updates the residual in place: keep this step's
+        residual = state.get("residual")
+        out.append((q, loss, None if residual is None
+                    else tree_lib.tree_map(torch.clone, residual)))
     return out
 
 
@@ -520,7 +523,7 @@ def test_train_step_accumulates_interleaved_microbatches():
         def init(self, p):
             return {}
 
-        def update(self, grads, state, p):
+        def update_(self, grads, state, p):
             seen.append(grads)
             return p, state
 
@@ -568,8 +571,12 @@ def _run_train(argv, *, drop=None):
 
         def step(params, state, batch):
             calls.append(1)
+            # the trainer's step updates in place: keep the parameters of
+            # the step whose update is thrown away
+            keep = (tree_lib.tree_map(torch.clone, params)
+                    if len(calls) == drop else None)
             new, new_state, loss = inner(params, state, batch)
-            return (params if len(calls) == drop else new), new_state, loss
+            return (new if keep is None else keep), new_state, loss
 
         return step
 

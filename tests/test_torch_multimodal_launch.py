@@ -42,6 +42,7 @@ from test_torch_harness import (  # noqa: E402,F401
 from repro_torch.checkpoint import load_checkpoint  # noqa: E402
 from repro_torch.configs import get_smoke  # noqa: E402
 from repro_torch.core import prng  # noqa: E402
+from repro_torch.core import tree as tree_lib  # noqa: E402
 from repro_torch.launch import serve, steps, train  # noqa: E402
 from repro_torch.models import encdec  # noqa: E402
 from repro_torch.models import registry  # noqa: E402
@@ -136,8 +137,12 @@ def run_train(argv, *, gates=None, drop=None):
 
         def step(params, state, batch):
             calls.append(1)
+            # the trainer's step updates in place: keep the parameters of
+            # the step whose update is thrown away
+            keep = (tree_lib.tree_map(torch.clone, params)
+                    if len(calls) == drop else None)
             new, new_state, loss = inner(params, state, batch)
-            return (params if len(calls) == drop else new), new_state, loss
+            return (new if keep is None else keep), new_state, loss
 
         return step
 
@@ -233,8 +238,10 @@ def test_grad_accum_splits_the_modality_inputs():
             (4, 8, cfg.d_model)).astype(np.float32)).to(torch.bfloat16),
     }
     opt = adamw(constant(1e-3))
+    # the step updates the parameters it is given in place
+    given = tree_lib.tree_map(torch.clone, params)
     _, _, loss = steps.make_train_step(model, opt, grad_accum=2)(
-        params, opt.init(params), batch)
+        given, opt.init(given), batch)
     with torch.no_grad():
         parts = [model.loss(params, {k: v[i::2] for k, v in batch.items()})
                  for i in range(2)]
